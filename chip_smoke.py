@@ -7,13 +7,18 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the three G1 kernels from lambdaworks_kzg_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     lane counts the main path gives it (4096 for the table build, 2048
-     for the bucket grid, 1024 down to 1 in the reductions, 8 in the
-     Horner step, 200 for a partly filled second block), random and
-     exceptional lanes (P at infinity, P == Q, P == -Q, dead lanes): limb
-     for limb;
+  2. nvcc builds the five kernels from lambdaworks_kzg_tpu_torch/csrc (one
+     nvcc per source, both at once, linked into one library);
+  3. each kernel against its plain PyTorch version on the card, limb for
+     limb: g1_madd, g1_add and g1_dbl at lane counts 1 to 4096 (and 200,
+     a partly filled second block) with random and exceptional lanes (P at
+     infinity, P == Q, P == -Q, dead lanes); g1_bucket_accumulate and
+     g1_bucket_reduce on the committed mainnet table at c = 8 for one and
+     for six seeded blobs, on a synthetic table of four points and their
+     negations repeated (so runs of members double, cancel to infinity
+     and lift again, beside empty and dead buckets) at c = 4 and c = 12,
+     and g1_bucket_reduce on synthetic buckets at c = 12, where its points
+     live in global memory instead of shared memory;
   4. the mainnet setup (testdata/trusted_setup.txt and its committed
      conversion); EIP4844Context(setup, device="cuda") builds the
      fixed-base table with the dbl kernel, and the table must equal
@@ -23,11 +28,13 @@ Phases, each printed with its seconds:
      batch of six through blob_to_kzg_commitment_batch (twice), timed
      with CUDA events; one blob also through the plain PyTorch path on
      the card;
-  7. each kernel timed with CUDA events at its path shape (madd at the
-     bucket grid's 2048 lanes, add at the fold reduce's widest 1024,
-     dbl at the table build's 4096), on random lanes.
+  7. each kernel timed with CUDA events: the MSM kernels at the path's
+     shapes for one blob and for six (seeded random blobs, c = 8), madd at
+     the 2048 lanes of one blob's bucket grid, add at 1024, dbl at the
+     table build's 4096, on random lanes.
 Launch counts are zeroed just before phase 4 and read after phase 6, so
-they count the main path only. The line before the last is
+they count the main path only; phase 6 also checks that one commit, and a
+batch of six, launch each MSM kernel once. The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}. Any failure
 ends the run with a non-zero exit and without those lines.
 """
@@ -49,16 +56,25 @@ VECTORS = os.path.join(HERE, "testdata", "consensus", "blob_to_kzg_commitment", 
 # per SM per clock): 67 TFLOP/s fp32 = 33.5 T FMA/s -> 16.75 T IMAD/s.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 2 / 2
-# One Montgomery product (CIOS, 12 x 32-bit limbs): 144 + 144 wide
-# 32x32->64 products (two IMADs each) and 12 low products for m.
+# One Montgomery product (12 x 32-bit limbs): 144 wide 32x32->64 products
+# (two IMADs each) for a b, 144 for the reduction and 12 low products for
+# m; a squaring shares its 66 cross products, so a a takes 78 wide ones.
 IMAD_PER_FP_MUL = 2 * (144 + 144) + 12
+IMAD_PER_FP_SQR = 2 * (78 + 144) + 12
 FP_BYTES = 48
-# Montgomery products per live, finite, non-doubling lane
-FP_MULS = {"madd": 11, "add": 16, "dbl": 8}
-# Lane counts of phase 3: every count the main path launches a kernel at
-# (and 200, a block and a partial one), each holding the exceptional lanes
-# its lane pattern reaches
+# (products, squarings) of one point op on finite, non-doubling operands
+FP_OPS = {"madd": (7, 4), "add": (11, 5), "dbl": (1, 7)}
+
+
+def op_imads(op: str) -> int:
+    muls, sqrs = FP_OPS[op]
+    return muls * IMAD_PER_FP_MUL + sqrs * IMAD_PER_FP_SQR
+
+# Lane counts of phase 3 for the per-op kernels (and 200, a block and a
+# partial one), each holding the exceptional lanes its lane pattern reaches
 CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
+C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
+PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_dbl")
 
 
 def log(msg: str) -> None:
@@ -128,29 +144,179 @@ def make_lanes(points, M: int, seed: int, exceptional: bool = True):
     return p.contiguous(), q, live, q3.contiguous()
 
 
-def check_kernel(op: str, args16):
-    """Kernel vs plain version on the same inputs -> max |limb error|."""
+def random_blobs(rng, count: int):
+    """Seeded blobs of canonical elements (31 random bytes, a zero top)."""
+    return [b"".join(rng.bytes(31) + b"\x00" for _ in range(4096)) for _ in range(count)]
+
+
+def blob_members(table_valid, blobs, c: int):
+    """Blobs -> (order, bstart) as the main path sorts them."""
+    import numpy as np
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import codec, limbs as lb, msm
+
+    scalars = lb.as_limb_tensor(
+        np.stack([codec.blob_to_limbs(b, 4096) for b in blobs]), table_valid.device)
+    digits = msm.fixedbase_digits(scalars, c)
+    return msm.sort_members(torch.where(table_valid, digits, torch.zeros_like(digits)), c)
+
+
+def synthetic_table(points, n_rows: int, c: int, n_blobs: int, seed: int):
+    """A table whose rows repeat four setup points and their negations, and
+    members sorted by seeded digits in which bucket 1 stays empty and
+    bucket 0 (dead) is full -> (table [2, 24, n_rows], order, bstart)."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import msm
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    pool = points[:, :, :4]
+    pool = torch.cat([pool, torch.stack([pool[0], FP.neg(pool[1])])], dim=-1)
+    table = pool[:, :, torch.arange(n_rows, device=points.device) % 8].contiguous()
+    g = torch.Generator().manual_seed(seed)
+    digits = torch.randint(0, 1 << c, (n_blobs, n_rows), generator=g)
+    digits = torch.where(digits == 1, torch.zeros_like(digits), digits)
+    perm = torch.stack([torch.randperm(n_rows, generator=g) for _ in range(n_blobs)])
+    order, bstart = msm.sort_members(digits.to(points.device), c)
+    order = torch.gather(perm.to(points.device).to(order.dtype), 1, order.long())
+    return table, order, bstart
+
+
+def synthetic_buckets(points, c: int, n_blobs: int, seed: int):
+    """[3, 24, B G 2^c] Jacobian buckets: setup points, Z != 1 on every
+    third lane, and in every group one bucket at infinity, one pair equal
+    and one pair opposite across the first fold."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    m = n_blobs * GROUPS << c
+    g = torch.Generator().manual_seed(seed)
+    pick = torch.randint(0, points.shape[-1], (m,), generator=g).to(points.device)
+    lane = torch.arange(m, device=points.device)
+    bk = g1_ops.lift(points[:, :, pick], torch.ones(m, dtype=torch.bool, device=points.device))
+    bk = torch.where((lane % 3 == 0)[None, None], g1_ops.dbl(bk), bk)
+    h = 1 << (c - 1)
+    base = torch.arange(0, m, 1 << c, device=points.device)
+    bk[:, :, base + 2] = 0
+    bk[:, :, base + 1 + h] = bk[:, :, base + 1]
+    opp = bk[:, :, base + 3]
+    bk[:, :, base + 3 + h] = torch.stack([opp[0], FP.neg(opp[1]), opp[2]])
+    return bk.contiguous()
+
+
+def same(name: str, got16, want16) -> int:
+    """Raise unless kernel and plain agree limb for limb -> max |limb error|."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got16, want16):
+        bad = int((got16 != want16).any(dim=0).any(dim=0).sum().item())
+        raise AssertionError(f"{name}: kernel differs from plain on {bad} lanes")
+    return int((got16 - want16).abs().max()) if got16.numel() else 0
+
+
+def check_msm_kernels(label: str, table16, order, bstart, c: int, max_err: dict,
+                      extra_buckets=None) -> None:
+    """Both MSM kernels against their plain versions on the same inputs:
+    the accumulation, then the reduce of its buckets (and of
+    `extra_buckets`); max_err[name] keeps each kernel's max |limb error|."""
+    from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb
+
+    def check(name: str, what: str, got16, want16) -> None:
+        max_err[name] = max(max_err[name], same(f"{name} {what}", got16, want16))
+        log(f"  {name} {what}: equal to plain, limb for limb")
+
+    rows = dispatch.to_table_layout(table16)
+    plain = g1_ops.bucket_accumulate(table16, order, bstart, c, GROUPS)
+    got = kernels.bucket_accumulate(rows, order, bstart, c, GROUPS)
+    check("g1_bucket_accumulate", label, lb.to_u16_layout(got), plain)
+    for what, buckets in (("its buckets", plain), ("synthetic buckets", extra_buckets)):
+        if buckets is None:
+            continue
+        got = kernels.bucket_reduce(lb.to_u32_layout(buckets), c, GROUPS)
+        check("g1_bucket_reduce", f"{label}, {what}", lb.to_u16_layout(got),
+              g1_ops.bucket_reduce(buckets, c, GROUPS))
+
+
+def accumulate_point_ops(order, bstart):
+    """(madds, lifts) that g1_bucket_accumulate needs for these members:
+    each member outside bucket 0 is one step of its group-bucket, and the
+    first step of each non-empty group-bucket lifts the point (no
+    products). A run of members never returns a bucket to infinity
+    (P + -P) on random blobs, so no other step is free."""
+    import torch
+
+    n_members = order.shape[1]
+    bend = torch.cat([bstart[:, 1:], torch.full_like(bstart[:, :1], n_members)], dim=1)
+    counts = (bend - bstart)[:, 1:].long()
+    live = int(counts.sum())
+    lifts = int(counts.clamp(max=GROUPS).sum())
+    return live - lifts, lifts
+
+
+def reduce_point_ops(buckets16, c: int):
+    """(adds, doublings) that g1_bucket_reduce needs on these buckets: the
+    schedule of g1_ops.bucket_reduce (fold, tree of each high half,
+    Horner chain, group tree) run on which points are at infinity. An add
+    with an operand at infinity, and a doubling of infinity, need no
+    products; a sum of finite points is counted finite (on random blobs
+    none cancels)."""
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    nb = 1 << c
+    finite = ~FP.is_zero(buckets16[2])
+    finite = finite.reshape(-1, nb).clone()
+    finite[:, 0] = False  # bucket 0 has weight 0
+    counts = {"adds": 0, "dbls": 0}
+
+    def add(a, b):
+        counts["adds"] += int((a & b).sum())
+        return a | b
+
+    def tree(x):
+        while x.shape[-1] > 1:
+            half = x.shape[-1] // 2
+            x = add(x[..., :half], x[..., half:])
+        return x[..., 0]
+
+    totals, arr, h = [], finite, nb // 2
+    while h >= 1:
+        totals.append(tree(arr[:, h : 2 * h]))
+        arr = add(arr[:, :h], arr[:, h : 2 * h])
+        h //= 2
+    acc = totals[0]
+    for e in totals[1:]:
+        counts["dbls"] += int(acc.sum())
+        acc = add(acc, e)
+    tree(acc.reshape(-1, GROUPS))
+    return counts["adds"], counts["dbls"]
+
+
+def check_kernel(op: str, args16) -> int:
+    """Kernel vs plain version on the same inputs, limb for limb -> max
+    |limb error|."""
     import torch
 
     from lambdaworks_kzg_tpu_torch.ops import g1_ops, kernels, limbs as lb
 
     plain = getattr(g1_ops, op)(*args16)
     k_args = [lb.to_u32_layout(a) if a.dtype == torch.int64 else a for a in args16]
-    got = lb.to_u16_layout(getattr(kernels, op)(*k_args))
-    torch.cuda.synchronize()
-    err = int((got - plain).abs().max().item())
-    if err or not torch.equal(got, plain):
-        bad = int((got != plain).any(dim=0).any(dim=0).sum().item())
-        raise AssertionError(f"{op}: kernel differs from plain on {bad} lanes")
-    return err
+    return same(op, lb.to_u16_layout(getattr(kernels, op)(*k_args)), plain)
 
 
 def time_ms(fn, reps: int, warm: int = 2) -> float:
+    """Device ms per call. The launches queue up behind a ~20 ms spin on
+    the card, so a kernel shorter than its wrapper's host cost is timed
+    on the card's clock, not the host's."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)  # clock cycles
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -168,9 +334,9 @@ def run() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs an NVIDIA card")
 
-    from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGError, load_mainnet_setup
+    from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGError, convert, load_mainnet_setup
     from lambdaworks_kzg_tpu_torch.host import curve as HC
-    from lambdaworks_kzg_tpu_torch.ops import codec, g1_ops, kernels, limbs as lb
+    from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, g1_ops, kernels, limbs as lb
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
 
     dev = torch.device("cuda", 0)
@@ -187,18 +353,29 @@ def run() -> None:
         results["build_s"] = info["seconds"]
         log(f"nvcc build {info['seconds']:.2f} s -> {os.path.relpath(info['library'], HERE)}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line or "registers" in line or "spill" in line:
                 log("  " + line.strip())
 
     setup = load_mainnet_setup()
     points = lb.as_limb_tensor(setup.lagrange_points, dev)
-    max_err = {"madd": 0, "add": 0, "dbl": 0}
+    max_err = {k.name: 0 for k in kernels.ALL}
     with Phase("3 kernels vs plain"):
         for M in CHECK_LANES:
             p, q, live, q3 = make_lanes(points, M, seed=M)
             for op, args in (("madd", (p, q, live)), ("add", (p, q3)), ("dbl", (p,))):
-                max_err[op] = max(max_err[op], check_kernel(op, args))
+                name = getattr(kernels, op).name
+                max_err[name] = max(max_err[name], check_kernel(op, args))
                 log(f"  {op} M={M}: equal to plain, limb for limb")
+        table16, table_valid = convert.fixedbase_from_npz(FIXEDBASE, dev)
+        rng = np.random.default_rng(3)
+        for n_blobs in (1, 6):
+            order, bstart = blob_members(table_valid, random_blobs(rng, n_blobs), C_MAIN)
+            check_msm_kernels(f"mainnet c={C_MAIN} B={n_blobs}", table16, order, bstart, C_MAIN,
+                              max_err)
+        for c, n_blobs in ((4, 2), (12, 1)):
+            synth, order, bstart = synthetic_table(points, 4096, c, n_blobs, seed=c)
+            check_msm_kernels(f"synthetic c={c} B={n_blobs}", synth, order, bstart, c, max_err,
+                              extra_buckets=synthetic_buckets(points, c, n_blobs, seed=c))
 
     kernels.reset_counts()
     with Phase("4 setup and fixed-base table"):
@@ -234,15 +411,20 @@ def run() -> None:
 
     with Phase("6 batch of six blobs"):
         rng = np.random.default_rng(4844)
-        blobs = [b"".join(rng.bytes(31) + b"\x00" for _ in range(4096)) for _ in range(6)]
+        blobs = random_blobs(rng, 6)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        msm_kernels = (kernels.bucket_accumulate, kernels.bucket_reduce)
 
         def timed(fn, *args):
+            before = [k.launches for k in msm_kernels]
             start.record()
             out = fn(*args)
             end.record()
             torch.cuda.synchronize()
+            per_call = [k.launches - b for k, b in zip(msm_kernels, before)]
+            if per_call != [1, 1]:
+                raise AssertionError(f"one call launched (accumulate, reduce) {per_call}, not once each")
             return out, start.elapsed_time(end)
 
         runs = [timed(ctx.blob_to_kzg_commitment, b) for b in blobs[:3]]
@@ -253,7 +435,8 @@ def run() -> None:
         results["ms_per_blob_batch6"] = [r[1] / len(blobs) for r in runs]
         launches = {k.name: k.launches for k in kernels.ALL}  # the main path ends here
         log(f"  single {results['ms_per_blob_single']} ms/blob, "
-            f"batch of 6 {results['ms_per_blob_batch6']} ms/blob; launches {launches}")
+            f"batch of 6 {results['ms_per_blob_batch6']} ms/blob; launches {launches}; "
+            "each commit and each batch launched each MSM kernel once")
         if singles != batch[:3] or runs[1][0] != batch or len(set(batch)) != len(batch):
             raise AssertionError("batch and single commitments disagree")
         scalars = lb.as_limb_tensor(codec.blob_to_limbs(blobs[1], 4096), dev)
@@ -263,11 +446,60 @@ def run() -> None:
         if plain != batch[1]:
             raise AssertionError("kernel path and plain path commit differently")
         log("  blob 1: kernel path equals the plain path on the card")
-        if min(launches.values()) == 0:
-            raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+        missing = [name for name in PATH_KERNELS if launches[name] == 0]
+        if missing:
+            raise AssertionError(f"not launched on the main path: {missing} ({launches})")
 
     entries = []
     with Phase("7 kernel timing"):
+        rows = dispatch.to_table_layout(table16)
+        n_members, nb = rows.shape[0], 1 << C_MAIN
+        msm_times = {}
+        for n_blobs in (1, 6):
+            order, bstart = blob_members(table_valid, random_blobs(rng, n_blobs), C_MAIN)
+            acc_args = (rows, order, bstart, C_MAIN, GROUPS)
+            buckets = kernels.bucket_accumulate(*acc_args)
+            buckets16 = lb.to_u16_layout(buckets)
+            t_acc = time_ms(lambda: kernels.bucket_accumulate(*acc_args), reps=10)
+            t_red = time_ms(lambda: kernels.bucket_reduce(buckets, C_MAIN, GROUPS), reps=20)
+            p_acc = time_ms(lambda: g1_ops.bucket_accumulate(table16, order, bstart, C_MAIN, GROUPS),
+                            reps=1, warm=0)
+            p_red = time_ms(lambda: g1_ops.bucket_reduce(buckets16, C_MAIN, GROUPS), reps=1, warm=0)
+            # the accumulation reads the table, order and bstart once and
+            # writes the buckets; the reduce reads them and writes B points
+            madds, lifts = accumulate_point_ops(order, bstart)
+            acc_bytes = n_members * 96 + order.numel() * 4 + bstart.numel() * 4
+            acc_bytes += buckets.numel() * 4
+            acc_imads = madds * op_imads("madd")
+            adds, dbls = reduce_point_ops(buckets16, C_MAIN)
+            red_bytes = buckets.numel() * 4 + n_blobs * 3 * FP_BYTES
+            red_imads = adds * op_imads("add") + dbls * op_imads("dbl")
+            log(f"  B={n_blobs}: accumulate {madds} madds + {lifts} lifts; "
+                f"reduce {adds} adds + {dbls} doublings of finite points")
+            for name, ms, plain_ms, nbytes, imads in (
+                ("g1_bucket_accumulate", t_acc, p_acc, acc_bytes, acc_imads),
+                ("g1_bucket_reduce", t_red, p_red, red_bytes, red_imads),
+            ):
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
+                msm_times[(name, n_blobs)] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                }
+                log(f"  {name} B={n_blobs}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                    f"bound {max(t_bytes, t_ops):.5f} ms")
+        for kernel in (kernels.bucket_accumulate, kernels.bucket_reduce):
+            entries.append({
+                "name": kernel.name,
+                "route": "cuda",
+                "source": f"{PKG}/csrc/msm.cu",
+                "replaces": kernel.replaces,
+                "launches": launches[kernel.name],
+                "max_abs_err": max_err[kernel.name],
+                **msm_times[(kernel.name, 1)],
+                "library_ms": None,
+                "blobs": 1,
+                "batch6": msm_times[(kernel.name, 6)],
+            })
         shapes = {"madd": 2048, "add": 1024, "dbl": 4096}
         for op, M in shapes.items():
             # random lanes: the rare exceptional lanes would make every
@@ -284,7 +516,7 @@ def run() -> None:
             nbytes = M * FP_BYTES * {"madd": 3 + 2 + 3, "add": 3 + 3 + 3, "dbl": 3 + 3}[op]
             nbytes += M if op == "madd" else 0
             # random lanes are all live and finite, and none doubles
-            imads = FP_MULS[op] * M * IMAD_PER_FP_MUL
+            imads = op_imads(op) * M
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
             entry = {
                 "name": kernel.name,
@@ -292,7 +524,7 @@ def run() -> None:
                 "source": f"{PKG}/csrc/g1.cu",
                 "replaces": kernel.replaces,
                 "launches": launches[kernel.name],
-                "max_abs_err": max_err[op],
+                "max_abs_err": max_err[kernel.name],
                 "ms": sum(t_kernel) / 2,
                 "plain_ms": sum(t_plain) / 2,
                 "bound_ms": max(t_bytes, t_ops),

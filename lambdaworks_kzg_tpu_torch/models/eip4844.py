@@ -38,4 +38,4 @@ class EIP4844Context:
 
     def blob_to_kzg_commitment_batch(self, blobs: Sequence[bytes]) -> List[bytes]:
         scalars = self._scalars(blobs)
-        return [C.compress_g1(self.backend.commit_scalars(s)) for s in scalars]
+        return [C.compress_g1(pt) for pt in self.backend.commit_scalars(scalars)]

@@ -1,8 +1,9 @@
 """TorchBackend: the commit path of one trusted setup on one device.
 
-Holds the fixed-base table on the device in the point ops' layout, built
-at init with the `dbl` kernel (on a CUDA device) unless a table is
-handed in, and commits blobs through `msm.msm_fixedbase_device`.
+Holds the fixed-base table on the device in the accumulation's layout,
+built at init with the `dbl` kernel (on a CUDA device) unless a table is
+handed in, and commits a batch of blobs through one
+`msm.msm_fixedbase_device` call and one transfer of the results.
 """
 
 import numpy as np
@@ -55,15 +56,16 @@ class TorchBackend:
         expected = (2, 24, msm.num_windows(self.c) * self.n)
         if tuple(table.shape) != expected:
             raise ValueError(f"fixed-base table must be {expected}, got {tuple(table.shape)}")
-        self._table = dispatch.to_op_layout(table.to(self.device))
+        self._table = dispatch.to_table_layout(table.to(self.device))
         self._table_valid = valid.to(self.device)
 
     def fixedbase(self):
         """(table [2, 24, W N] int64, valid) in the public layout."""
-        return dispatch.from_op_layout(self._table), self._table_valid
+        return dispatch.from_table_layout(self._table), self._table_valid
 
     def commit_scalars(self, scalars: torch.Tensor, ops=dispatch):
-        """[16, n] plain Fr limbs on the device -> host Jacobian point.
+        """[16, n] plain Fr limbs on the device -> host Jacobian point;
+        [B, 16, n] -> a list of B points.
 
         ops=ops.g1_ops runs the plain versions on this device instead of
         the kernels (the reference the kernels are held against)."""
@@ -88,6 +90,6 @@ class TorchBackend:
         return self.commit_blobs([blob])[0]
 
     def commit_blobs(self, blobs):
-        """Blobs -> host Jacobian points; every blob is checked before any
-        MSM runs."""
-        return [self.commit_scalars(s) for s in self.blob_scalars(blobs)]
+        """Blobs -> host Jacobian points; every blob is checked before the
+        batch's one MSM runs."""
+        return self.commit_scalars(self.blob_scalars(blobs))

@@ -1,5 +1,9 @@
-"""G1 point operations in plain PyTorch: the plain versions of the three
-CUDA kernels (`ops/kernels.py`), and the CPU path.
+"""G1 point operations in plain PyTorch: the plain versions of the five
+CUDA kernels (`ops/kernels.py`), and the CPU path. `madd`, `add` and `dbl`
+are the point ops; `bucket_accumulate` and `bucket_reduce` are the
+fixed-base MSM's two stages, written over them as the JAX package writes
+them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
+`_tree_sum_lanes`).
 
 Points are Jacobian (X, Y, Z) in Montgomery form, one [..., 3, L, B]
 radix-2^16 int64 tensor (coordinate, limb, lane); infinity is Z == 0.
@@ -96,6 +100,91 @@ def madd(p: torch.Tensor, q_aff: torch.Tensor, q_valid: torch.Tensor) -> torch.T
     q_jac = torch.stack([X2, Y2, FP.one_like(X2)], dim=-3)
     out = _sel_pt(p_inf & q_valid, q_jac, out)
     return _sel_pt(~q_valid, p, out)
+
+
+# -- the fixed-base MSM's stages (plain versions of csrc/msm.cu) -----------
+
+
+def bucket_accumulate(table, order, bstart, c: int, groups: int) -> torch.Tensor:
+    """Lock-step bucket accumulation over a batch of blobs.
+
+    table: [2, L, W N] affine rows; order: [B, W N] member indices in
+    digit-sorted order per blob; bstart: [B, 2^c] where bucket j's run
+    starts (it ends where j + 1's starts, the last at W N). Returns
+    buckets [3, L, B G 2^c]: lane (b, g, j) sums the members
+    bstart[b, j] + g + t G < bend[b, j] of blob b in round order t, one
+    `madd` per round over every lane; bucket 0 stays at infinity."""
+    n_blobs, n_members = order.shape
+    nb = 1 << c
+    order, bstart = order.long(), bstart.long()
+    bend = torch.cat([bstart[:, 1:], bstart.new_full((n_blobs, 1), n_members)], dim=1)
+    buckets = infinity_like((), n_blobs * groups * nb, table.device)
+    longest = int((bend - bstart)[:, 1:].max()) if n_blobs and n_members else 0
+    g = torch.arange(groups, device=table.device)[None, :, None]
+    live_bucket = torch.arange(nb, device=table.device) != 0
+    for t in range((longest + groups - 1) // groups):
+        idx = bstart[:, None, :] + g + t * groups  # [B, G, 2^c]
+        live = (idx < bend[:, None, :]) & live_bucket
+        member = torch.gather(order, 1, idx.clamp(max=n_members - 1).reshape(n_blobs, -1))
+        buckets = madd(buckets, table.index_select(-1, member.reshape(-1)), live.reshape(-1))
+    return buckets
+
+
+def _flat(arr4: torch.Tensor) -> torch.Tensor:
+    """[C, L, W, k] -> contiguous [C, L, W k]."""
+    s = arr4.shape
+    return arr4.reshape(s[:-2] + (s[-2] * s[-1],)).contiguous()
+
+
+def tree_sum_lanes(arr4: torch.Tensor) -> torch.Tensor:
+    """Pairwise point sum over the last axis of [C, L, W, k] (k a power
+    of two) -> [C, L, W]: log2(k) halving adds."""
+    k = arr4.shape[-1]
+    if k & (k - 1):
+        raise ValueError("tree width must be a power of two")
+    while arr4.shape[-1] > 1:
+        half = arr4.shape[-1] // 2
+        lo = _flat(arr4[..., :half])
+        hi = _flat(arr4[..., half : 2 * half])
+        arr4 = add(lo, hi).reshape(arr4.shape[:-1] + (half,))
+    return arr4[..., 0].contiguous()
+
+
+def zero_bucket0(buckets: torch.Tensor, c: int) -> torch.Tensor:
+    """Clear the bucket-0 lanes (weight 0; invalid members land there)."""
+    b_idx = torch.arange(buckets.shape[-1], device=buckets.device) % (1 << c)
+    return torch.where(b_idx == 0, torch.zeros_like(buckets), buckets)
+
+
+def fold_reduce(buckets: torch.Tensor, c: int) -> torch.Tensor:
+    """[C, L, W 2^c] buckets -> [C, L, W] sums S_w = sum_b b B_{w,b}.
+
+    Splitting the buckets at h = 2^(c-1) gives
+      sum_b b B_b = sum_{j<h} j (B_j + B_{j+h}) + h sum_{j<h} B_{j+h},
+    so each round folds the bucket axis in half and banks the high half's
+    total E_r; the answer is the Horner combine sum_r 2^(c-r) E_r."""
+    arr = zero_bucket0(buckets, c)
+    nb = 1 << c
+    arr4 = arr.reshape(arr.shape[:-1] + (arr.shape[-1] // nb, nb))
+    totals = []
+    h = nb // 2
+    while h >= 1:
+        lo = arr4[..., :h]
+        hi = arr4[..., h : 2 * h]
+        totals.append(tree_sum_lanes(hi))
+        arr4 = add(_flat(lo), _flat(hi)).reshape(lo.shape)
+        h //= 2
+    acc = totals[0]
+    for e in totals[1:]:
+        acc = add(dbl(acc), e)
+    return acc
+
+
+def bucket_reduce(buckets: torch.Tensor, c: int, groups: int) -> torch.Tensor:
+    """[3, L, B G 2^c] buckets -> [3, L, B]: the fold reduce of every
+    (blob, group), then each blob's G group sums added pairwise."""
+    sums = fold_reduce(buckets, c)  # [3, L, B G]
+    return tree_sum_lanes(sums.reshape(sums.shape[:-1] + (-1, groups)))
 
 
 # -- the op-namespace interface of ops/dispatch.py, identity layout ---------

@@ -1,12 +1,14 @@
 """Fixed-base Pippenger MSM over the trusted setup's commitment basis.
 
 The port of the fixed-base part of the JAX package's `ops/msm.py`
-(`build_fixedbase_tables`, `msm_fixedbase_device`, the fold
-`bucket_reduce` and `_tree_sum_lanes`). The basis is fixed for the life
+(`build_fixedbase_tables`, `msm_fixedbase_device`; its fold
+`bucket_reduce` and `_tree_sum_lanes` are `g1_ops.bucket_reduce`, the
+plain version of the reduce kernel). The basis is fixed for the life
 of a setup, so each window's shift [2^(c w)] P_i is precomputed once; the
 MSM then feeds all W N (digit, shifted point) pairs into one 2^c-bucket
 grid, split over `groups` lane groups, and needs no Horner combine over
-windows.
+windows. A batch of blobs shares one sort, one bucket accumulation and
+one reduce.
 
 Every function takes `ops`, the point-op namespace: `ops/dispatch.py`
 (the default: Hopper kernels for CUDA tensors, plain versions on the
@@ -28,24 +30,24 @@ def num_windows(c: int) -> int:
 
 
 def window_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
-    """[16, N] plain Fr limbs (int64) -> digits [W, N] (int64),
+    """[..., 16, N] plain Fr limbs (int64) -> digits [..., W, N] (int64),
     digit w = (scalar >> (c w)) & (2^c - 1); c <= 16."""
     if not 1 <= c <= 16:
         raise ValueError("window size must be in [1, 16]")
-    padded = torch.cat([scalars, torch.zeros_like(scalars[:1])], dim=0)
-    mask = (1 << c) - 1
-    outs = []
-    for w in range(num_windows(c)):
-        k, s = divmod(c * w, 16)
-        word = padded[k] | (padded[k + 1] << 16)
-        outs.append((word >> s) & mask)
-    return torch.stack(outs, dim=0)
+    padded = torch.cat([scalars, torch.zeros_like(scalars[..., :1, :])], dim=-2)
+    # window w starts at bit c w: limb k = c w // 16, shift s = c w % 16;
+    # with c <= 16 it lies inside limbs k and k + 1. All windows at once,
+    # a few tensor ops instead of a few per window.
+    start = torch.arange(num_windows(c), device=scalars.device) * c
+    k, s = start // 16, (start % 16)[:, None]
+    word = padded.index_select(-2, k) | (padded.index_select(-2, k + 1) << 16)
+    return (word >> s) & ((1 << c) - 1)
 
 
 def fixedbase_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
-    """[16, N] -> flat digits [W N]; member (w, i) at w N + i, the
-    layout of `build_fixedbase_tables`."""
-    return window_digits(scalars, c).reshape(-1)
+    """[..., 16, N] -> flat digits [..., W N]; member (w, i) at w N + i,
+    the layout of `build_fixedbase_tables`."""
+    return window_digits(scalars, c).flatten(-2)
 
 
 def jacobian_to_affine(jac16: torch.Tensor) -> torch.Tensor:
@@ -83,101 +85,48 @@ def build_fixedbase_tables(points: torch.Tensor, valid: torch.Tensor, c: int,
     return jacobian_to_affine(all_jac), valid.repeat(w_count)
 
 
-def _flat(arr4: torch.Tensor) -> torch.Tensor:
-    """[C, L, W, k] -> contiguous [C, L, W k]."""
-    s = arr4.shape
-    return arr4.reshape(s[:-2] + (s[-2] * s[-1],)).contiguous()
-
-
-def tree_sum_lanes(arr4: torch.Tensor, ops=dispatch) -> torch.Tensor:
-    """Pairwise point sum over the last axis of [C, L, W, k] (k a power
-    of two) -> [C, L, W]: log2(k) halving adds."""
-    k = arr4.shape[-1]
-    if k & (k - 1):
-        raise ValueError("tree width must be a power of two")
-    while arr4.shape[-1] > 1:
-        half = arr4.shape[-1] // 2
-        lo = _flat(arr4[..., :half])
-        hi = _flat(arr4[..., half : 2 * half])
-        arr4 = ops.add(lo, hi).reshape(arr4.shape[:-1] + (half,))
-    return arr4[..., 0].contiguous()
-
-
-def zero_bucket0(buckets: torch.Tensor, c: int) -> torch.Tensor:
-    """Clear the bucket-0 lanes (weight 0; invalid members land there)."""
-    b_idx = torch.arange(buckets.shape[-1], device=buckets.device) % (1 << c)
-    return torch.where(b_idx == 0, torch.zeros_like(buckets), buckets)
-
-
-def bucket_reduce(buckets: torch.Tensor, c: int, ops=dispatch) -> torch.Tensor:
-    """[C, L, W 2^c] buckets -> [C, L, W] sums S_w = sum_b b B_{w,b}
-    (the fold reduce; the fixed-base grid has no top-window aliases).
-
-    Splitting the buckets at h = 2^(c-1) gives
-      sum_b b B_b = sum_{j<h} j (B_j + B_{j+h}) + h sum_{j<h} B_{j+h},
-    so each round folds the bucket axis in half and banks the high half's
-    total E_r; the answer is the Horner combine sum_r 2^(c-r) E_r."""
-    arr = zero_bucket0(buckets, c)
-    nb = 1 << c
-    arr4 = arr.reshape(arr.shape[:-1] + (arr.shape[-1] // nb, nb))
-    totals = []
-    h = nb // 2
-    while h >= 1:
-        lo = arr4[..., :h]
-        hi = arr4[..., h : 2 * h]
-        totals.append(tree_sum_lanes(hi, ops))
-        arr4 = ops.add(_flat(lo), _flat(hi)).reshape(lo.shape)
-        h //= 2
-    acc = totals[0]
-    for e in totals[1:]:
-        acc = ops.add(ops.dbl(acc), e)
-    return acc
+def sort_members(digits: torch.Tensor, c: int):
+    """digits [B, M] -> (order, bstart), int32: each blob's member indices
+    in stable digit order [B, M], and where bucket j's run starts in it
+    [B, 2^c]."""
+    # 32-bit keys: half the radix passes of int64 (digits are below 2^16)
+    sorted_digits, order = torch.sort(digits.to(torch.int32), dim=-1, stable=True)
+    bucket_ids = torch.arange(1 << c, dtype=torch.int32, device=digits.device)
+    bstart = torch.searchsorted(
+        sorted_digits, bucket_ids.expand(digits.shape[0], -1).contiguous(), out_int32=True
+    )
+    return order.to(torch.int32), bstart
 
 
 def msm_fixedbase_device(table: torch.Tensor, table_valid: torch.Tensor,
                          scalars: torch.Tensor, c: int = 8, groups: int = 8,
                          ops=dispatch) -> torch.Tensor:
-    """Fixed-base MSM -> one Jacobian point [3, *, 1] in `ops`' layout.
+    """Fixed-base MSM of B blobs -> Jacobian points [3, *, B] in `ops`'
+    layout (B = 1 for [16, N] scalars).
 
-    table: [2, *, W N] affine table in `ops`' layout; scalars: [16, N]
-    plain Fr limbs (int64) on the table's device. Members are sorted by
-    digit; bucket b's run is dealt round-robin to the lane groups (lane
-    (g, b), stride G), so each group-bucket takes ceil(k_b / G) members
-    in lock-step madd rounds. The group sums then add up: the window
-    weights are in the table."""
-    device = table.device
-    n_members = table.shape[-1]
-    nb = 1 << c
+    table: the affine table in `ops`' table layout (`to_table_layout`);
+    scalars: [B, 16, N] or [16, N] plain Fr limbs (int64) on the table's
+    device. Each blob's members are sorted by digit; bucket b's run is
+    dealt round-robin to the lane groups (lane (g, b), stride G), so each
+    group-bucket takes ceil(k_b / G) members (`bucket_accumulate`). The
+    reduce folds every group's buckets and adds the group sums: the window
+    weights are in the table. Nothing is read back to the host."""
+    if scalars.dim() == 2:
+        scalars = scalars[None]
     digits = fixedbase_digits(scalars, c)
     digits = torch.where(table_valid, digits, torch.zeros_like(digits))
-    sorted_digits, order = torch.sort(digits, stable=True)
-    bucket_ids = torch.arange(nb, dtype=sorted_digits.dtype, device=device)
-    bstart = torch.searchsorted(sorted_digits, bucket_ids, side="left")
-    bend = torch.cat([bstart[1:], bstart.new_tensor([n_members])])
-    counts = bend - bstart
-    max_load = int((counts[1:].max() + groups - 1) // groups)
-
-    buckets = ops.infinity_like((), groups * nb, device)
-    if max_load:
-        t = torch.arange(max_load, device=device)[:, None, None]
-        g = torch.arange(groups, device=device)[None, :, None]
-        idx = bstart[None, None, :] + g + t * groups  # [T, G, 2^c]
-        live = (idx < bend) & (bucket_ids != 0)
-        member = order[idx.clamp(max=n_members - 1)]
-        member = member.reshape(max_load, groups * nb)
-        live = live.reshape(max_load, groups * nb)
-        for r in range(max_load):
-            gathered = table.index_select(-1, member[r])
-            buckets = ops.madd(buckets, gathered, live[r])
-    group_sums = bucket_reduce(buckets, c, ops)  # [3, *, G]
-    return tree_sum_lanes(group_sums.reshape(group_sums.shape[:-1] + (1, groups)), ops)
+    order, bstart = sort_members(digits, c)
+    buckets = ops.bucket_accumulate(table, order, bstart, c, groups)
+    return ops.bucket_reduce(buckets, c, groups)
 
 
 def msm_fixedbase(table, table_valid, scalars, c: int = 8, groups: int = 8,
                   ops=dispatch):
-    """Fixed-base MSM -> host Jacobian point (Python ints)."""
+    """Fixed-base MSM -> host Jacobian point (Python ints) for [16, N]
+    scalars, or a list of B points for [B, 16, N], in one transfer."""
     pt = msm_fixedbase_device(table, table_valid, scalars, c, groups, ops)
-    return g1_ops.points_to_host(ops.from_op_layout(pt))[0]
+    points = g1_ops.points_to_host(ops.from_op_layout(pt))
+    return points if scalars.dim() == 3 else points[0]
 
 
 def scalars_to_tensor(scalar_ints, device="cpu") -> torch.Tensor:

@@ -119,6 +119,14 @@ def test_backend_commits_and_fault_is_not_kzg_error(dev_pair, monkeypatch):
             call(blobs[0][:-1])
 
 
+def test_commit_blobs_equals_commit_blob_per_blob(dev_pair):
+    """One batched MSM gives each blob the Jacobian point of its own."""
+    _, ctx = dev_pair
+    rng = np.random.default_rng(31)
+    blobs = [_rand_blob(rng, N_DEV) for _ in range(2)] + [b"\x00" * (32 * N_DEV)]
+    assert ctx.backend.commit_blobs(blobs) == [ctx.backend.commit_blob(b) for b in blobs]
+
+
 def test_mainnet_setup_matches_jax():
     setup = srs.load_mainnet_setup()
     assert setup.source_digest == srs.MAINNET_DIGEST and setup.n == 4096

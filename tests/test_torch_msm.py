@@ -3,13 +3,25 @@ shapes of tests/test_msm_reduce.py), with a zero scalar and a source
 lane at infinity.
 
 - the table equals the exact per-window shifts [2^(c w)] P_i computed by
-  the host oracle, and the MSM equals `host/curve.g1_msm` in affine form;
-- `slow`: both equal the JAX package's `msm.build_fixedbase_tables` and
-  `msm.msm_fixedbase` (about three minutes of XLA-on-CPU compile and run
-  at these shapes, measured on this test's CPU)."""
+  the host oracle, and the MSM equals `host/curve.g1_msm` in affine form,
+  for one blob and for a batch of three;
+- the MSM's two stages (the plain versions of the kernels
+  g1_bucket_accumulate and g1_bucket_reduce): the batched accumulation
+  equals each blob's alone and a round loop of the JAX package's
+  `g1_ops.madd` over the same members, limb for limb; the batched reduce
+  equals each blob's alone and the host oracle, on buckets with
+  infinities, equal pairs (the doubling branch) and opposite pairs;
+- `slow`: the table and MSM equal the JAX package's
+  `msm.build_fixedbase_tables` and `msm.msm_fixedbase` (about three
+  minutes of XLA-on-CPU compile and run at these shapes, measured on this
+  test's CPU), and the reduce equals JAX `_bucket_reduce_fold` +
+  `_tree_sum_lanes` limb for limb (77 s of XLA compiles, one per shape).
+The kernels themselves are held against these plain versions on the card
+in tests/test_torch_cuda.py, which needs no JAX."""
 
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +31,8 @@ from lambdaworks_kzg_tpu.constants import R
 from lambdaworks_kzg_tpu.host import curve as HC
 from lambdaworks_kzg_tpu.models import srs
 from lambdaworks_kzg_tpu.ops import g1_ops as JG, msm as JM
-from lambdaworks_kzg_tpu_torch.ops import g1_ops, limbs as lb, msm
+from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb, msm
+from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
 
 N = 32
 GROUPS = 4
@@ -111,3 +124,152 @@ def test_table_and_msm_match_jax(basis, port_tables, c):
     want = JM.msm_fixedbase(table, table_valid, JM.scalars_to_device(scalars), c=c, groups=GROUPS)
     got = msm.msm_fixedbase(mine, mine_valid, msm.scalars_to_tensor(scalars), c=c, groups=GROUPS)
     assert HC.to_affine(HC.FP_OPS, got) == HC.to_affine(HC.FP_OPS, want)
+
+
+def _blob_scalars(n_blobs, seed):
+    """n_blobs lists of N scalars; the last blob is all zero but one."""
+    rng = random.Random(seed)
+    blobs = [[rng.randrange(R) for _ in range(N)] for _ in range(n_blobs)]
+    blobs[-1] = [0] * N
+    blobs[-1][5] = rng.randrange(R)
+    return blobs
+
+
+def _members(table_valid, blobs, c):
+    scalars = torch.stack([msm.scalars_to_tensor(s) for s in blobs])
+    digits = msm.fixedbase_digits(scalars, c)
+    return msm.sort_members(torch.where(table_valid, digits, torch.zeros_like(digits)), c)
+
+
+@pytest.mark.parametrize("c", [3, 4, 6])
+def test_msm_fixedbase_batch_matches_host_oracle(basis, port_tables, c):
+    pts_aff = basis[0]
+    table, table_valid = port_tables[c]
+    blobs = _blob_scalars(3, seed=c)
+    scalars = torch.stack([msm.scalars_to_tensor(s) for s in blobs])
+    got = msm.msm_fixedbase(table, table_valid, scalars, c=c, groups=GROUPS)
+    assert len(got) == 3
+    for pt, s in zip(got, blobs):
+        assert HC.points_eq(HC.FP_OPS, pt, HC.g1_msm(s, pts_aff))
+
+
+@pytest.mark.parametrize("c", [3, 4, 6])
+def test_bucket_accumulate_batch_equals_single_blobs(port_tables, c):
+    table, table_valid = port_tables[c]
+    order, bstart = _members(table_valid, _blob_scalars(3, seed=10 + c), c)
+    got = g1_ops.bucket_accumulate(table, order, bstart, c, GROUPS)
+    lanes = GROUPS << c
+    assert tuple(got.shape) == (3, 24, 3 * lanes)
+    for b in range(3):
+        one = g1_ops.bucket_accumulate(table, order[b : b + 1], bstart[b : b + 1], c, GROUPS)
+        assert torch.equal(got[..., b * lanes : (b + 1) * lanes], one)
+
+
+def test_bucket_accumulate_matches_jax_madd_rounds(basis, port_tables):
+    """One blob at c = 4: the JAX `g1_ops.madd` (jitted once, 64 lanes)
+    over the same member indices, round by round."""
+    c, nb = 4, 16
+    table, table_valid = port_tables[c]
+    order, bstart = _members(table_valid, [basis[1]], c)
+    got = g1_ops.bucket_accumulate(table, order, bstart, c, GROUPS)
+
+    n_members = table.shape[-1]
+    o, bs = order[0].numpy().astype(np.int64), bstart[0].numpy().astype(np.int64)
+    be = np.append(bs[1:], n_members)
+    rows = table.numpy().astype(np.uint32)
+    madd = jax.jit(JG.madd)
+    want = JG.infinity_like((), GROUPS * nb)
+    g = np.arange(GROUPS)[:, None]
+    rounds = -(-int((be - bs)[1:].max()) // GROUPS)
+    for t in range(rounds):
+        idx = bs[None, :] + g + t * GROUPS
+        live = (idx < be[None, :]) & (np.arange(nb) != 0)
+        member = o[np.minimum(idx, n_members - 1)].reshape(-1)
+        want = madd(want, jnp.asarray(rows[:, :, member]), jnp.asarray(live.reshape(-1)))
+    assert rounds > 1
+    assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+def _reduce_buckets(points, valid, c, n_blobs, seed):
+    """[3, 24, B G 2^c] Jacobian buckets from the basis: Z != 1 on every
+    third lane, a few at infinity, and per group one pair equal and one
+    pair opposite across the first fold (lanes j and j + 2^(c-1))."""
+    rng = np.random.default_rng(seed)
+    live = np.flatnonzero(valid)
+    m = n_blobs * GROUPS << c
+    pick = torch.from_numpy(rng.choice(live, m))
+    pts = torch.from_numpy(points.astype(np.int64))[:, :, pick]
+    bk = g1_ops.lift(pts, torch.ones(m, dtype=torch.bool))
+    bk = torch.where((torch.arange(m) % 3 == 0)[None, None], g1_ops.dbl(bk), bk)
+    h = 1 << (c - 1)
+    for base in range(0, m, 1 << c):
+        bk[:, :, base + 2] = 0
+        bk[:, :, base + 1 + h] = bk[:, :, base + 1]
+        neg = bk[:, :, base + 3].clone()
+        neg[1] = FP.neg(neg[1][:, None])[:, 0]
+        bk[:, :, base + 3 + h] = neg
+    return bk
+
+
+def _oracle_reduce(buckets, c):
+    """Per blob: sum over groups and buckets j >= 1 of j * B_j (host ints)."""
+    pts = g1_ops.points_to_host(buckets)
+    nb, out = 1 << c, []
+    for b in range(len(pts) // (GROUPS * nb)):
+        acc = None
+        for lane in range(b * GROUPS * nb, (b + 1) * GROUPS * nb):
+            j = lane % nb
+            if j and not HC.is_infinity(HC.FP_OPS, pts[lane]):
+                term = HC.g1_msm([j], [HC.to_affine(HC.FP_OPS, pts[lane])])
+                acc = term if acc is None else HC.point_add(HC.FP_OPS, acc, term)
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("c", [3, 4])
+def test_bucket_reduce_batch_matches_host_oracle(basis, c):
+    _, _, points, valid = basis
+    buckets = _reduce_buckets(points, valid, c, n_blobs=2, seed=c)
+    got = g1_ops.bucket_reduce(buckets, c, GROUPS)
+    assert tuple(got.shape) == (3, 24, 2)
+    lanes = GROUPS << c
+    for b, want in enumerate(_oracle_reduce(buckets, c)):
+        one = g1_ops.bucket_reduce(buckets[..., b * lanes : (b + 1) * lanes], c, GROUPS)
+        assert torch.equal(got[..., b : b + 1], one)
+        assert HC.points_eq(HC.FP_OPS, g1_ops.points_to_host(one)[0], want)
+
+
+@pytest.mark.slow  # XLA-on-CPU compiles of the JAX fold reduce, one per shape: ~77 s
+def test_bucket_reduce_matches_jax_fold_and_tree(basis):
+    _, _, points, valid = basis
+    c = 4
+    buckets = _reduce_buckets(points, valid, c, n_blobs=2, seed=44)
+    arr = JM._zero_bucket0(jnp.asarray(buckets.numpy().astype(np.uint32)), c)
+    sums = JM._bucket_reduce_fold(arr, c)
+    want = JM._tree_sum_lanes(sums.reshape(sums.shape[:-1] + (2, GROUPS)))
+    got = g1_ops.bucket_reduce(buckets, c, GROUPS)
+    assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+def test_msm_kernel_wrappers_refuse_what_they_do_not_take(port_tables):
+    """CPU tensors route to the plain versions through dispatch and never
+    reach a kernel; the wrappers refuse them, and a window or group count
+    their kernels do not take."""
+    table, table_valid = port_tables[4]
+    order, bstart = _members(table_valid, _blob_scalars(1, seed=3), 4)
+    kernels.reset_counts()
+    buckets = dispatch.bucket_accumulate(table, order, bstart, 4, GROUPS)
+    assert torch.equal(buckets, g1_ops.bucket_accumulate(table, order, bstart, 4, GROUPS))
+    assert torch.equal(dispatch.bucket_reduce(buckets, 4, GROUPS),
+                       g1_ops.bucket_reduce(buckets, 4, GROUPS))
+    rows = lb.to_u32_layout(table).permute(2, 0, 1).contiguous()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.bucket_accumulate(rows, order, bstart, 4, GROUPS)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.bucket_reduce(lb.to_u32_layout(buckets), 4, GROUPS)
+    with pytest.raises(ValueError, match="window bits"):
+        kernels.bucket_reduce(lb.to_u32_layout(buckets), 13, GROUPS)
+    with pytest.raises(ValueError, match="groups"):
+        kernels.bucket_accumulate(rows, order, bstart, 4, 3)
+    assert [k.launches for k in kernels.ALL] == [0] * len(kernels.ALL)
+
