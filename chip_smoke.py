@@ -7,10 +7,15 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the five kernels from lambdaworks_kzg_tpu_torch/csrc (one
-     nvcc per source, both at once, linked into one library);
+  2. nvcc builds the six kernels and the field check from
+     lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
+     linked into one library);
   3. each kernel against its plain PyTorch version on the card, limb for
-     limb: g1_madd, g1_add and g1_dbl at lane counts 1 to 4096 (and 200,
+     limb: fp::sqr against fp::mul(a, a) and the plain square on random
+     elements and on 0, 1, p - 1 and R mod p; g1_fixedbase_table against
+     g1_ops.fixedbase_table at c = 4, 8 and 12 on 256 lanes of the mainnet
+     basis with every 7th lane invalid, and at the mainnet shape (4096
+     lanes, c = 8); g1_madd, g1_add and g1_dbl at lane counts 1 to 4096 (and 200,
      a partly filled second block) with random and exceptional lanes (P at
      infinity, P == Q, P == -Q, dead lanes); g1_bucket_accumulate and
      g1_bucket_reduce on the committed mainnet table at c = 8 for one and
@@ -21,7 +26,8 @@ Phases, each printed with its seconds:
      live in global memory instead of shared memory;
   4. the mainnet setup (testdata/trusted_setup.txt and its committed
      conversion); EIP4844Context(setup, device="cuda") builds the
-     fixed-base table with the dbl kernel, and the table must equal
+     fixed-base table with one g1_fixedbase_table launch and no g1_dbl
+     launch, and the table must equal
      cache/fixedbase_62bcf72bba2b37b8_c8.npz bit for bit;
   5. the ten blob_to_kzg_commitment consensus vectors;
   6. three seeded random blobs through blob_to_kzg_commitment and a
@@ -30,10 +36,11 @@ Phases, each printed with its seconds:
      the card;
   7. each kernel timed with CUDA events: the MSM kernels at the path's
      shapes for one blob and for six (seeded random blobs, c = 8), madd at
-     the 2048 lanes of one blob's bucket grid, add at 1024, dbl at the
-     table build's 4096, on random lanes.
+     the 2048 lanes of one blob's bucket grid, add at 1024, dbl at 4096,
+     on random lanes, and the table kernel at the mainnet shape.
 Launch counts are zeroed just before phase 4 and read after phase 6, so
-they count the main path only; phase 6 also checks that one commit, and a
+they count the main path only; phase 4 checks that the table build made
+one table launch and no g1_dbl launch, phase 6 that one commit, and a
 batch of six, launch each MSM kernel once. The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}. Any failure
 ends the run with a non-zero exit and without those lines.
@@ -41,6 +48,7 @@ ends the run with a non-zero exit and without those lines.
 
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -62,19 +70,65 @@ IMAD_PER_S = 67e12 / 2 / 2
 IMAD_PER_FP_MUL = 2 * (144 + 144) + 12
 IMAD_PER_FP_SQR = 2 * (78 + 144) + 12
 FP_BYTES = 48
-# (products, squarings) of one point op on finite, non-doubling operands
-FP_OPS = {"madd": (7, 4), "add": (11, 5), "dbl": (1, 7)}
+# (products, squarings) of one point op on finite, non-doubling operands.
+# A doubling is counted as dbl-2009-l with Z3 = 2 Y Z (2 products, 5
+# squarings), the fewest IMADs for it; the kernels compute the same Z3 as
+# (Y + Z)^2 - YY - ZZ (1 product, 7 squarings), which costs 324 more.
+FP_OPS = {"madd": (7, 4), "add": (11, 5), "dbl": (2, 5)}
 
 
 def op_imads(op: str) -> int:
     muls, sqrs = FP_OPS[op]
     return muls * IMAD_PER_FP_MUL + sqrs * IMAD_PER_FP_SQR
 
+
+def chain_ops(e: int, k: int) -> tuple:
+    """(products, squarings) of a left-to-right sliding-window power a^e
+    with the odd powers a, a^3 .. a^(2^k - 1) precomputed."""
+    muls, sqrs = (2 ** (k - 1) - 1, 1) if k > 1 else (0, 0)
+    bits, i, first = bin(e)[2:], 0, True
+    while i < len(bits):
+        if bits[i] == "0":
+            sqrs, i = sqrs + 1, i + 1
+            continue
+        j = min(i + k, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        if not first:
+            muls, sqrs = muls + 1, sqrs + j - i
+        first, i = False, j
+    return muls, sqrs
+
+
+def inv_imads() -> int:
+    """IMADs of a^(p - 2) by the cheapest sliding window of 1 to 8 bits
+    (5 bits: 82 products and 378 squarings). fp::inv runs the 1-bit
+    chain, 228 products and 380 squarings."""
+    from lambdaworks_kzg_tpu_torch.constants import P
+
+    return min(m * IMAD_PER_FP_MUL + s * IMAD_PER_FP_SQR
+               for m, s in (chain_ops(P - 2, k) for k in range(1, 9)))
+
+
+def table_imads(n_valid: int, c: int) -> int:
+    """IMADs g1_fixedbase_table needs for n_valid source lanes (an invalid
+    lane needs none): (W - 1) c doublings, W - 1 prefix products, one
+    inversion (`inv_imads`), and backward W - 1 products for each Z^-1
+    and W - 1 to peel Z off, then per window x = X Z^-2, y = Y Z^-3 (3
+    products and a squaring). On the setup's points no Z is 0, so nothing
+    is skipped."""
+    from lambdaworks_kzg_tpu_torch.constants import num_windows
+
+    w = num_windows(c)
+    muls = 3 * (w - 1) + 3 * w
+    per_lane = (w - 1) * c * op_imads("dbl") + muls * IMAD_PER_FP_MUL + w * IMAD_PER_FP_SQR + inv_imads()
+    return n_valid * per_lane
+
 # Lane counts of phase 3 for the per-op kernels (and 200, a block and a
 # partial one), each holding the exceptional lanes its lane pattern reaches
 CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
-PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_dbl")
+PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
 
 
 def log(msg: str) -> None:
@@ -295,6 +349,53 @@ def reduce_point_ops(buckets16, c: int):
     return counts["adds"], counts["dbls"]
 
 
+def check_table(label: str, points16, valid, c: int):
+    """g1_fixedbase_table against g1_ops.fixedbase_table on the same basis,
+    limb for limb -> (max |limb error|, kernel ms, plain ms), one call of
+    each timed with CUDA events."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.constants import num_windows
+    from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb, msm
+
+    points32 = lb.to_u32_layout(points16)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    rows = kernels.fixedbase_table(points32, valid, c)
+    end.record()
+    torch.cuda.synchronize()
+    kernel_ms = start.elapsed_time(end)
+    start.record()
+    want, want_valid = msm.build_fixedbase_tables(points16, valid, c, ops=g1_ops)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = same(f"g1_fixedbase_table {label}", dispatch.from_table_layout(rows), want)
+    if not torch.equal(want_valid, valid.repeat(num_windows(c))):
+        raise AssertionError(f"g1_fixedbase_table {label}: plain valid mask is not the basis' repeated")
+    log(f"  g1_fixedbase_table {label}: equal to plain, limb for limb "
+        f"(kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms)")
+    return err, kernel_ms, plain_ms
+
+
+def check_sqr(dev, count: int, seed: int) -> None:
+    """fp::sqr against fp::mul(a, a) and the plain square FP.sqr, on 0, 1,
+    p - 1, R mod p (Montgomery one) and seeded random elements."""
+    from lambdaworks_kzg_tpu_torch.constants import P
+    from lambdaworks_kzg_tpu_torch.ops import kernels, limbs as lb
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    rng = random.Random(seed)
+    values = [0, 1, P - 1, (1 << 384) % P] + [rng.randrange(P) for _ in range(count - 4)]
+    a = lb.to_u32_layout(lb.as_limb_tensor(lb.ints_to_limbs(values, 24), dev))
+    sq, mm = kernels.sqr_check(a)
+    same("fp::sqr against fp::mul(a, a)", sq, mm)
+    same("fp::sqr against FP.sqr", lb.to_u16_layout(sq), FP.sqr(lb.to_u16_layout(a)))
+    log(f"  fp::sqr M={count}: equal to fp::mul(a, a) and to the plain square")
+
+
 def check_kernel(op: str, args16) -> int:
     """Kernel vs plain version on the same inputs, limb for limb -> max
     |limb error|."""
@@ -335,8 +436,9 @@ def run() -> None:
         raise SystemExit("chip_smoke: CUDA is not available; this run needs an NVIDIA card")
 
     from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGError, convert, load_mainnet_setup
+    from lambdaworks_kzg_tpu_torch.constants import num_windows
     from lambdaworks_kzg_tpu_torch.host import curve as HC
-    from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, g1_ops, kernels, limbs as lb
+    from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, g1_ops, kernels, limbs as lb, msm
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
 
     dev = torch.device("cuda", 0)
@@ -358,8 +460,18 @@ def run() -> None:
 
     setup = load_mainnet_setup()
     points = lb.as_limb_tensor(setup.lagrange_points, dev)
+    points_valid = torch.from_numpy(setup.lagrange_valid.copy()).to(dev)
     max_err = {k.name: 0 for k in kernels.ALL}
     with Phase("3 kernels vs plain"):
+        check_sqr(dev, 4096, seed=5)
+        lane = torch.arange(256, device=dev)
+        for c in (4, 8, 12):
+            err, _, _ = check_table(f"c={c} N=256, every 7th lane invalid", points[:, :, :256],
+                                    points_valid[:256] & (lane % 7 != 3), c)
+            max_err["g1_fixedbase_table"] = max(max_err["g1_fixedbase_table"], err)
+        err, table_kernel_ms, table_plain_ms = check_table(
+            f"c={C_MAIN} N={points.shape[-1]} (mainnet)", points, points_valid, C_MAIN)
+        max_err["g1_fixedbase_table"] = max(max_err["g1_fixedbase_table"], err)
         for M in CHECK_LANES:
             p, q, live, q3 = make_lanes(points, M, seed=M)
             for op, args in (("madd", (p, q, live)), ("add", (p, q3)), ("dbl", (p,))):
@@ -383,14 +495,20 @@ def run() -> None:
         ctx = EIP4844Context(setup, device="cuda")
         torch.cuda.synchronize()
         results["table_build_s"] = time.perf_counter() - t0
+        results["table_kernel_ms_phase3"] = table_kernel_ms
+        built = {k.name: k.launches for k in kernels.ALL}
+        if built["g1_fixedbase_table"] != 1 or built["g1_dbl"] != 0:
+            raise AssertionError(f"one table build must launch g1_fixedbase_table once and g1_dbl "
+                                 f"never ({built})")
         table, valid = ctx.backend.fixedbase()
         with np.load(FIXEDBASE) as ref:
             same_table = np.array_equal(table.cpu().numpy().astype(np.uint32), ref["table"])
             same_valid = np.array_equal(valid.cpu().numpy(), ref["valid"])
         if not (same_table and same_valid):
             raise AssertionError(f"fixed-base table differs (table {same_table}, valid {same_valid})")
-        log(f"  table {tuple(table.shape)} built in {results['table_build_s']:.2f} s, "
-            f"bit-equal to {os.path.relpath(FIXEDBASE, HERE)}; dbl launches {kernels.dbl.launches}")
+        log(f"  table {tuple(table.shape)} built in {results['table_build_s']:.4f} s (the kernel "
+            f"alone {table_kernel_ms:.3f} ms, phase 3, CUDA events), bit-equal to "
+            f"{os.path.relpath(FIXEDBASE, HERE)}; one g1_fixedbase_table launch, no g1_dbl launch")
 
     with Phase("5 consensus vectors"):
         names = sorted(os.listdir(VECTORS))
@@ -449,6 +567,9 @@ def run() -> None:
         missing = [name for name in PATH_KERNELS if launches[name] == 0]
         if missing:
             raise AssertionError(f"not launched on the main path: {missing} ({launches})")
+        if launches["g1_fixedbase_table"] != 1 or launches["g1_dbl"] != 0:
+            raise AssertionError(f"the main path must launch g1_fixedbase_table once and g1_dbl "
+                                 f"never ({launches})")
 
     entries = []
     with Phase("7 kernel timing"):
@@ -535,6 +656,34 @@ def run() -> None:
             entries.append(entry)
             log(f"  {kernel.name} M={M}: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.2f} ms, "
                 f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+        # the table build at the mainnet shape; its plain time is phase 3's
+        points32 = lb.to_u32_layout(points)
+        n = points.shape[-1]
+        t_table = [time_ms(lambda: kernels.fixedbase_table(points32, points_valid, C_MAIN), reps=5, warm=1)
+                   for _ in range(2)]
+        nbytes = n * (2 * FP_BYTES + 1) + num_windows(C_MAIN) * n * 2 * FP_BYTES
+        n_valid = int(points_valid.sum())
+        imads = table_imads(n_valid, C_MAIN)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
+        entry = {
+            "name": kernels.fixedbase_table.name,
+            "route": "cuda",
+            "source": f"{PKG}/csrc/table.cu",
+            "replaces": kernels.fixedbase_table.replaces,
+            "launches": launches[kernels.fixedbase_table.name],
+            "max_abs_err": max_err[kernels.fixedbase_table.name],
+            "ms": sum(t_table) / 2,
+            "plain_ms": table_plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "lanes": n,
+            "c": C_MAIN,
+        }
+        entries.append(entry)
+        log(f"  g1_fixedbase_table N={n} c={C_MAIN} ({n_valid} valid lanes, {imads} IMADs): "
+            f"kernel {t_table[0]:.4f} / {t_table[1]:.4f} ms, plain {table_plain_ms:.1f} ms, "
+            f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
 
     log(json.dumps({"end_to_end": results, "card": card}))
     log(json.dumps({"kernels": entries}))

@@ -22,6 +22,14 @@ G1_BETA = 0x5F19672FDF76CE51BA69C6076A0F77EADDB3A93BE6F89688DE17D813620A00022E01
 G1_GENERATOR_X = 0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB
 G1_GENERATOR_Y = 0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1
 
+# The fixed-base MSM splits a 256-bit scalar into windows of c bits
+
+
+def num_windows(c: int) -> int:
+    """Windows of c bits that cover a 256-bit scalar."""
+    return (256 + c - 1) // c
+
+
 PRIMITIVE_ROOT_OF_UNITY = 7
 FR_TWO_ADICITY = 32
 

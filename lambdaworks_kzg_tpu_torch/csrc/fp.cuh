@@ -16,7 +16,9 @@
 // arithmetic around them (the first design's plain C++ uint64_t CIOS spent
 // extra adds and shifts on every carry). The carry flag lives between
 // consecutive asm volatile statements, which the compiler keeps in order;
-// no other instruction that writes it sits between them.
+// no other instruction that writes it sits between them. The square
+// (sqr) shares its cross products and reduces the 24-word square with the
+// same rounds of m * p: 456 multiply-adds.
 #pragma once
 #include <stdint.h>
 
@@ -180,6 +182,25 @@ __device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) {
   return r;
 }
 
+// One REDC round on 13 words: t += m * p with m = t_0 * (-p^-1), so t_0
+// becomes 0, then t /= 2^32. With t < 2^384 before it, t + m p < 2^414
+// fits 13 words and t < 2^384 again after it.
+__device__ __forceinline__ void redc_round(uint32_t (&t)[NL + 1]) {
+  const uint32_t m = t[0] * kPInv;
+  t[0] = ptx::mad_lo_cc(m, kP.v[0], t[0]);
+#pragma unroll
+  for (int j = 1; j < NL; ++j) t[j] = ptx::madc_lo_cc(m, kP.v[j], t[j]);
+  t[NL] = ptx::addc(t[NL], 0u);
+  t[1] = ptx::mad_hi_cc(m, kP.v[0], t[1]);
+#pragma unroll
+  for (int j = 1; j < NL - 1; ++j)
+    t[j + 1] = ptx::madc_hi_cc(m, kP.v[j], t[j + 1]);
+  t[NL] = ptx::madc_hi(m, kP.v[NL - 1], t[NL]);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) t[k] = t[k + 1];
+  t[NL] = 0u;
+}
+
 // Montgomery product a * b * 2^-384 mod p (CIOS). t holds 13 words: with
 // a, b < p < 2^381, t + a b_i + m p < 2^414 before each shift, so no sum
 // carries out of t[12], and t < 2p < 2^383 (t[12] = 0) after it.
@@ -206,21 +227,7 @@ static __device__ __noinline__ Fp mul(Fp a, Fp b) {
     for (int j = 1; j < NL - 1; ++j)
       t[j + 1] = ptx::madc_hi_cc(a.v[j], bi, t[j + 1]);
     t[NL] = ptx::madc_hi(a.v[NL - 1], bi, t[NL]);
-    // t += m * p with m = t_0 * (-p^-1): t_0 becomes 0
-    const uint32_t m = t[0] * kPInv;
-    t[0] = ptx::mad_lo_cc(m, kP.v[0], t[0]);
-#pragma unroll
-    for (int j = 1; j < NL; ++j) t[j] = ptx::madc_lo_cc(m, kP.v[j], t[j]);
-    t[NL] = ptx::addc(t[NL], 0u);
-    t[1] = ptx::mad_hi_cc(m, kP.v[0], t[1]);
-#pragma unroll
-    for (int j = 1; j < NL - 1; ++j)
-      t[j + 1] = ptx::madc_hi_cc(m, kP.v[j], t[j + 1]);
-    t[NL] = ptx::madc_hi(m, kP.v[NL - 1], t[NL]);
-    // t /= 2^32
-#pragma unroll
-    for (int k = 0; k < NL; ++k) t[k] = t[k + 1];
-    t[NL] = 0u;
+    redc_round(t);
   }
   Fp r;
 #pragma unroll
@@ -228,6 +235,80 @@ static __device__ __noinline__ Fp mul(Fp a, Fp b) {
   return reduce_once(r);
 }
 
-__device__ __forceinline__ Fp sqr(const Fp& a) { return mul(a, a); }
+// Montgomery square a * a * 2^-384 mod p, equal to mul(a, a) bit for bit.
+// The 24-word square computes each cross product a_i a_j (i < j) once:
+// row i adds a_i * (a_{i+1} .. a_11) at word 2i + 1, the 66 cross products
+// are doubled by one shift, and the 12 squares a_i^2 are added at word 2i,
+// 78 wide products against mul's 144. Rows 0 .. i sum below 2^(32 (i + 13)),
+// so word i + 12 (zero before row i) takes the row's carries and nothing
+// carries out of it. Then a^2 = t_hi R + t_lo gives a^2 / R = t_hi +
+// REDC(t_lo) mod p: twelve redc_rounds of u = t_lo leave u = (t_lo + M p)
+// / R <= p, and t_hi + u < p^2 / R + p + 1 < 2p needs one reduce_once. In
+// all 456 multiply-adds against mul's 588; the counterpart of the TPU
+// kernels' _sqr_acc (ops/pallas_g1.py:142). Not inlined, as mul.
+static __device__ __noinline__ Fp sqr(Fp a) {
+  uint32_t t[2 * NL];
+#pragma unroll
+  for (int k = 0; k < 2 * NL; ++k) t[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < NL - 2; ++i) {
+    const uint32_t ai = a.v[i];
+    t[2 * i + 1] = ptx::mad_lo_cc(ai, a.v[i + 1], t[2 * i + 1]);
+#pragma unroll
+    for (int j = i + 2; j < NL; ++j) t[i + j] = ptx::madc_lo_cc(ai, a.v[j], t[i + j]);
+    t[i + NL] = ptx::addc(t[i + NL], 0u);
+    t[2 * i + 2] = ptx::mad_hi_cc(ai, a.v[i + 1], t[2 * i + 2]);
+#pragma unroll
+    for (int j = i + 2; j < NL - 1; ++j)
+      t[i + j + 1] = ptx::madc_hi_cc(ai, a.v[j], t[i + j + 1]);
+    t[i + NL] = ptx::madc_hi(ai, a.v[NL - 1], t[i + NL]);
+  }
+  // the last row is the one product a_10 a_11, at words 21 and 22
+  t[2 * NL - 3] = ptx::mad_lo_cc(a.v[NL - 2], a.v[NL - 1], t[2 * NL - 3]);
+  t[2 * NL - 2] = ptx::madc_hi(a.v[NL - 2], a.v[NL - 1], t[2 * NL - 2]);
+  // double the cross products (they sum below 2^(32 * 23))
+#pragma unroll
+  for (int k = 2 * NL - 1; k > 0; --k) t[k] = __funnelshift_l(t[k - 1], t[k], 1);
+  // the squares a_i^2 at words 2i, 2i + 1; a^2 < 2^768 carries out of nothing
+  t[0] = ptx::mad_lo_cc(a.v[0], a.v[0], t[0]);
+  t[1] = ptx::madc_hi_cc(a.v[0], a.v[0], t[1]);
+#pragma unroll
+  for (int i = 1; i < NL - 1; ++i) {
+    t[2 * i] = ptx::madc_lo_cc(a.v[i], a.v[i], t[2 * i]);
+    t[2 * i + 1] = ptx::madc_hi_cc(a.v[i], a.v[i], t[2 * i + 1]);
+  }
+  t[2 * NL - 2] = ptx::madc_lo_cc(a.v[NL - 1], a.v[NL - 1], t[2 * NL - 2]);
+  t[2 * NL - 1] = ptx::madc_hi(a.v[NL - 1], a.v[NL - 1], t[2 * NL - 1]);
+  // REDC of the low half, then add the high half
+  uint32_t u[NL + 1];
+#pragma unroll
+  for (int k = 0; k < NL; ++k) u[k] = t[k];
+  u[NL] = 0u;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) redc_round(u);
+  Fp r;
+  r.v[0] = ptx::add_cc(t[NL], u[0]);
+#pragma unroll
+  for (int k = 1; k < NL - 1; ++k) r.v[k] = ptx::addc_cc(t[NL + k], u[k]);
+  r.v[NL - 1] = ptx::addc(t[2 * NL - 1], u[NL - 1]);
+  return reduce_once(r);
+}
+
+// a^-1 = a^(p - 2) (Fermat), 0 -> 0: square-and-multiply from the top bit
+// of p - 2 (bit 380), 380 squarings and 228 products, with the bits read
+// from kP (p - 2 differs from p only in its lowest word, 0xffffaaa9).
+static __device__ __noinline__ Fp inv(Fp a) {
+  Fp r = a;
+#pragma unroll 1
+  for (int w = NL - 1; w >= 0; --w) {
+    const uint32_t e = w ? kP.v[w] : kP.v[0] - 2u;
+#pragma unroll 1
+    for (int bit = w == NL - 1 ? 27 : 31; bit >= 0; --bit) {
+      r = sqr(r);
+      if ((e >> bit) & 1u) r = mul(r, a);
+    }
+  }
+  return r;
+}
 
 }  // namespace fp

@@ -1,14 +1,16 @@
 """TorchBackend: the commit path of one trusted setup on one device.
 
 Holds the fixed-base table on the device in the accumulation's layout,
-built at init with the `dbl` kernel (on a CUDA device) unless a table is
-handed in, and commits a batch of blobs through one
+built at init by one launch of the `g1_fixedbase_table` kernel (on a CUDA
+device; the plain version on the CPU) unless a table is handed in, and
+commits a batch of blobs through one
 `msm.msm_fixedbase_device` call and one transfer of the results.
 """
 
 import numpy as np
 import torch
 
+from ..constants import num_windows
 from . import codec, dispatch, msm
 from . import limbs as lb
 
@@ -51,13 +53,14 @@ class TorchBackend:
         if fixedbase is None:
             points = lb.as_limb_tensor(setup.lagrange_points, self.device)
             valid = torch.from_numpy(np.array(setup.lagrange_valid, dtype=bool)).to(self.device)
-            fixedbase = msm.build_fixedbase_tables(points, valid, self.c)
-        table, valid = fixedbase
-        expected = (2, 24, msm.num_windows(self.c) * self.n)
-        if tuple(table.shape) != expected:
-            raise ValueError(f"fixed-base table must be {expected}, got {tuple(table.shape)}")
-        self._table = dispatch.to_table_layout(table.to(self.device))
-        self._table_valid = valid.to(self.device)
+            self._table, self._table_valid = dispatch.fixedbase_table(points, valid, self.c)
+        else:
+            table, valid = fixedbase
+            expected = (2, 24, num_windows(self.c) * self.n)
+            if tuple(table.shape) != expected:
+                raise ValueError(f"fixed-base table must be {expected}, got {tuple(table.shape)}")
+            self._table = dispatch.to_table_layout(table.to(self.device))
+            self._table_valid = valid.to(self.device)
 
     def fixedbase(self):
         """(table [2, 24, W N] int64, valid) in the public layout."""

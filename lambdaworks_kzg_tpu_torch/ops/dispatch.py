@@ -15,13 +15,19 @@ against this module runs the plain versions on any device when handed
 
 import torch
 
+from ..constants import num_windows
 from . import g1_ops, kernels, limbs as lb
 
 
-def dbl(p):
-    if p.is_cuda:
-        return kernels.dbl(p)
-    return g1_ops.dbl(p)
+def fixedbase_table(points16, valid, c: int):
+    """[2, 24, N] public affine basis + valid[N] -> (table in this
+    device's table layout, valid[W N]): on a CUDA device the kernel writes
+    the accumulation's rows [W N, 2, 12] in one launch; on the CPU the
+    plain version gives the public [2, 24, W N]."""
+    if points16.is_cuda:
+        rows = kernels.fixedbase_table(lb.to_u32_layout(points16), valid.contiguous(), c)
+        return rows, valid.repeat(num_windows(c))
+    return g1_ops.fixedbase_table(points16, valid, c)
 
 
 def bucket_accumulate(table, order, bstart, c: int, groups: int):

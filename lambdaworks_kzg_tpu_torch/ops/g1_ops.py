@@ -1,9 +1,10 @@
-"""G1 point operations in plain PyTorch: the plain versions of the five
+"""G1 point operations in plain PyTorch: the plain versions of the six
 CUDA kernels (`ops/kernels.py`), and the CPU path. `madd`, `add` and `dbl`
 are the point ops; `bucket_accumulate` and `bucket_reduce` are the
 fixed-base MSM's two stages, written over them as the JAX package writes
 them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
-`_tree_sum_lanes`).
+`_tree_sum_lanes`); `fixedbase_table` builds the MSM's table, as
+`build_fixedbase_tables` does there.
 
 Points are Jacobian (X, Y, Z) in Montgomery form, one [..., 3, L, B]
 radix-2^16 int64 tensor (coordinate, limb, lane); infinity is Z == 0.
@@ -16,6 +17,8 @@ the JAX result.
 import numpy as np
 import torch
 
+from ..constants import num_windows
+from . import limbs as lb
 from .field_ops import FP
 from .formulas import jacobian_add_core, jacobian_dbl, jacobian_madd_core
 
@@ -187,6 +190,52 @@ def bucket_reduce(buckets: torch.Tensor, c: int, groups: int) -> torch.Tensor:
     return tree_sum_lanes(sums.reshape(sums.shape[:-1] + (-1, groups)))
 
 
+# -- the fixed-base table (plain version of csrc/table.cu) ------------------
+
+
+def to_affine_windows(jac: torch.Tensor) -> torch.Tensor:
+    """[W, 3, L, N] Montgomery Jacobian -> [W, 2, L, N] Montgomery affine;
+    a point at infinity gives (0, 0).
+
+    Montgomery's batch trick along the window axis, as the kernel
+    g1_fixedbase_table runs it in each lane: W - 1 prefix products of the
+    Z's (a Z = 0 counts as one), one `FP.inv` per lane, and a backward
+    pass that peels each Z_w^-1 off; then x = X Z^-2, y = Y Z^-3."""
+    X, Y, Z = jac.unbind(1)
+    inf = FP.is_zero(Z)  # [W, N]
+    zs = lb.select(inf, FP.one_like(Z), Z)
+    prefix = [zs[0]]
+    for z in zs[1:]:
+        prefix.append(FP.mul(prefix[-1], z))
+    rest = FP.inv(prefix[-1])  # 1 / (Z_0 .. Z_w), from w = W - 1 down
+    zinv = [None] * len(prefix)
+    for w in range(len(prefix) - 1, 0, -1):
+        zinv[w] = FP.mul(rest, prefix[w - 1])
+        rest = FP.mul(rest, zs[w])
+    zinv[0] = rest
+    zinv = torch.stack(zinv)
+    zinv2 = FP.sqr(zinv)
+    aff = torch.stack([FP.mul(X, zinv2), FP.mul(Y, FP.mul(zinv2, zinv))], dim=1)
+    return torch.where(inf[:, None, None, :], 0, aff)
+
+
+def fixedbase_table(points: torch.Tensor, valid: torch.Tensor, c: int):
+    """[2, L, N] Montgomery affine + valid[N] -> ([2, L, W N] affine table,
+    valid[W N]); entry (w, i) = [2^(c w)] P_i at w N + i, and invalid
+    source lanes stay invalid, and (0, 0), in every window."""
+    w_count = num_windows(c)
+    cur = lift(points, valid)
+    shifted = []
+    for w in range(w_count):
+        shifted.append(cur)
+        if w + 1 < w_count:
+            for _ in range(c):
+                cur = dbl(cur)
+    aff = to_affine_windows(torch.stack(shifted))  # [W, 2, L, N]
+    table = aff.permute(1, 2, 0, 3).reshape(2, L, -1)
+    return table, valid.repeat(w_count)
+
+
 # -- the op-namespace interface of ops/dispatch.py, identity layout ---------
 
 
@@ -196,3 +245,7 @@ def to_op_layout(x16: torch.Tensor) -> torch.Tensor:
 
 def from_op_layout(x: torch.Tensor) -> torch.Tensor:
     return x
+
+
+def from_table_layout(table: torch.Tensor) -> torch.Tensor:
+    return table

@@ -1,5 +1,5 @@
-"""The Hopper kernels (`csrc/g1.cu`, `csrc/msm.cu`), their build and their
-wrappers.
+"""The Hopper kernels (`csrc/g1.cu`, `csrc/msm.cu`, `csrc/table.cu`), their
+build and their wrappers.
 
 `g1_madd`, `g1_add` and `g1_dbl` (g1.cu) replace the TPU kernels `madd`,
 `add` and `dbl` of `lambdaworks_kzg_tpu/ops/pallas_g1_v2.py` (and the
@@ -8,11 +8,16 @@ their plain versions are `madd`, `add` and `dbl` of `ops/g1_ops.py`.
 `g1_bucket_accumulate` and `g1_bucket_reduce` (msm.cu) run the fixed-base
 MSM's lock-step madd rounds and its fold reduce with the group tree, each
 in one launch per batch of blobs; their plain versions are
-`g1_ops.bucket_accumulate` and `g1_ops.bucket_reduce`. The notes at the
-top of the two sources say what bounds each kernel on the card.
+`g1_ops.bucket_accumulate` and `g1_ops.bucket_reduce`.
+`g1_fixedbase_table` (table.cu) builds the fixed-base table, doublings and
+affine step, in one launch straight into the accumulation's row layout;
+its plain version is `g1_ops.fixedbase_table`. `fp_sqr_check` (g1.cu)
+returns the field's square and product a * a, to hold one against the
+other. The notes at the top of the sources say what bounds each kernel
+on the card.
 
-Build: at first use `nvcc` compiles each source for sm_90a, both at once,
-and links the two objects into one shared library with a plain C
+Build: at first use `nvcc` compiles each source for sm_90a, all at once,
+and links the objects into one shared library with a plain C
 interface in `_build/` beside this package (listed in .gitignore);
 `ctypes` loads it. The library's name carries a hash of the sources and
 flags, so an edit rebuilds.
@@ -20,9 +25,10 @@ flags, so an edit rebuilds.
 Wrappers take the kernel layout, int32 tensors that hold u32 limbs
 (`limbs.to_u32_layout`): [3, 12, M] Jacobian, [2, 12, M] affine, a bool[M]
 mask, and for the MSM the table as rows [W N, 2, 12] with int32 `order`
-and `bstart`, all contiguous on one CUDA device. They allocate the output
-with `torch.empty`, launch on the current stream, raise when the launch
-fails, and count their launches.
+and `bstart`, all contiguous on one CUDA device; the table build takes
+the basis as [2, 12, N] affine with valid bool[N] and returns the rows.
+They allocate the output with `torch.empty`, launch on the current
+stream, raise when the launch fails, and count their launches.
 """
 
 import ctypes
@@ -36,15 +42,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from ..constants import num_windows
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("g1.cu", "msm.cu")
+SOURCES = ("g1.cu", "msm.cu", "table.cu")
 HEADERS = ("fp.cuh", "g1.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NL = 12  # 32-bit limbs per Fp element in the kernel layout
-MAX_C = 12  # window bits the MSM kernels take (auto_window picks 4, 8, 12)
+MAX_C = 12  # window bits the MSM and table kernels take (auto_window picks 4, 8, 12)
 MAX_GROUPS = 32  # lane groups g1_bucket_reduce sums in its last block
 # g1_bucket_reduce keeps a block's 3 * 2^(c-1) points of 144 bytes in
 # shared memory when they fit beside its 32 group sums in a block's 227 KB
@@ -126,10 +134,14 @@ def _load():
             lib.lwkzg_g1_dbl.argtypes = [vp, vp, ci, vp]
             lib.lwkzg_g1_bucket_accumulate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
             lib.lwkzg_g1_bucket_reduce.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+            lib.lwkzg_g1_fixedbase_table.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+            lib.lwkzg_fp_sqr_check.argtypes = [vp, vp, vp, ci, vp]
             fns = {
                 "madd": lib.lwkzg_g1_madd, "add": lib.lwkzg_g1_add, "dbl": lib.lwkzg_g1_dbl,
                 "bucket_accumulate": lib.lwkzg_g1_bucket_accumulate,
                 "bucket_reduce": lib.lwkzg_g1_bucket_reduce,
+                "fixedbase_table": lib.lwkzg_g1_fixedbase_table,
+                "sqr_check": lib.lwkzg_fp_sqr_check,
             }
             for fn in fns.values():
                 fn.restype = ci
@@ -138,21 +150,25 @@ def _load():
 
 
 def _check(t: torch.Tensor, name: str, shape, device, dtype=torch.int32) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_c(c: int) -> None:
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"window bits c must be in [1, {MAX_C}], got {c}")
 
 
 def _check_window(c: int, groups: int) -> None:
-    if not 1 <= c <= MAX_C:
-        raise ValueError(f"window bits c must be in [1, {MAX_C}], got {c}")
+    _check_c(c)
     if not 1 <= groups <= MAX_GROUPS or groups & (groups - 1):
         raise ValueError(f"groups must be a power of two in [1, {MAX_GROUPS}], got {groups}")
 
@@ -163,7 +179,7 @@ def _run(name: str, t: torch.Tensor, *args) -> None:
     with torch.cuda.device(t.device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"lwkzg_g1_{name} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
 
 
 class _Kernel:
@@ -268,6 +284,37 @@ def _bucket_reduce(k: _Kernel, buckets: torch.Tensor, c: int, groups: int):
     return out
 
 
+def _fixedbase_table(k: _Kernel, points: torch.Tensor, valid: torch.Tensor, c: int):
+    """points [2, 12, N] affine basis + valid bool[N] -> table rows
+    [W N, 2, 12], W = ceil(256 / c): row w N + i is the affine
+    [2^(c w)] P_i, and (0, 0) in every window where P_i is invalid."""
+    _check_c(c)
+    dev = points.device
+    n = points.shape[-1]
+    _check(points, "points", (2, NL, n), dev)
+    _check(valid, "valid", (n,), dev, torch.bool)
+    w = num_windows(c)
+    out = torch.empty((w * n, 2, NL), dtype=torch.int32, device=dev)
+    if n:
+        # per (window, lane): Z and the prefix product of the Z's before it
+        scratch = torch.empty((w, 2, NL, n), dtype=torch.int32, device=dev)
+        _run("fixedbase_table", points, points.data_ptr(), valid.data_ptr(), out.data_ptr(),
+             scratch.data_ptr(), n, c, w)
+        k.launches += 1
+    return out
+
+
+def _sqr_check(k: _Kernel, a: torch.Tensor):
+    """a [12, M] values below p -> (fp::sqr(a), fp::mul(a, a)), each [12, M]."""
+    m = a.shape[-1]
+    _check(a, "a", (NL, m), a.device)
+    sq, mm = torch.empty_like(a), torch.empty_like(a)
+    if m:
+        _run("sqr_check", a, a.data_ptr(), sq.data_ptr(), mm.data_ptr(), m)
+        k.launches += 1
+    return sq, mm
+
+
 _V2 = "lambdaworks_kzg_tpu/ops/pallas_g1_v2.py"
 madd = _Kernel("g1_madd", f"{_V2}:353", _madd)
 add = _Kernel("g1_add", f"{_V2}:376", _add)
@@ -276,7 +323,11 @@ dbl = _Kernel("g1_dbl", f"{_V2}:392", _dbl)
 bucket_accumulate = _Kernel("g1_bucket_accumulate", f"{_V2}:353", _bucket_accumulate)
 # the add of the fold reduce and group tree (ops/msm.py:598-621, :447-477)
 bucket_reduce = _Kernel("g1_bucket_reduce", f"{_V2}:376", _bucket_reduce)
-ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce)
+# the doubling scan and affine step of the table build (ops/msm.py:714-750)
+fixedbase_table = _Kernel("g1_fixedbase_table", f"{_V2}:392", _fixedbase_table)
+ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce, fixedbase_table)
+# a check of the field's square, off every path (the TPU kernels' _sqr_acc)
+sqr_check = _Kernel("fp_sqr_check", "lambdaworks_kzg_tpu/ops/pallas_g1.py:142", _sqr_check)
 
 
 def reset_counts() -> None:

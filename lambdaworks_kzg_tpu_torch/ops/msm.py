@@ -3,7 +3,8 @@
 The port of the fixed-base part of the JAX package's `ops/msm.py`
 (`build_fixedbase_tables`, `msm_fixedbase_device`; its fold
 `bucket_reduce` and `_tree_sum_lanes` are `g1_ops.bucket_reduce`, the
-plain version of the reduce kernel). The basis is fixed for the life
+plain version of the reduce kernel, and its table build is
+`g1_ops.fixedbase_table`, the plain version of the table kernel). The basis is fixed for the life
 of a setup, so each window's shift [2^(c w)] P_i is precomputed once; the
 MSM then feeds all W N (digit, shifted point) pairs into one 2^c-bucket
 grid, split over `groups` lane groups, and needs no Horner combine over
@@ -16,17 +17,10 @@ CPU) or `ops/g1_ops.py` (the plain versions on any device). Point
 tensors stay in `ops`' layout from the first op to the last.
 """
 
-import numpy as np
 import torch
 
-from ..constants import P, R
-from ..host import field as HF
+from ..constants import R, num_windows
 from . import dispatch, g1_ops, limbs as lb
-from .field_ops import FP
-
-
-def num_windows(c: int) -> int:
-    return (256 + c - 1) // c
 
 
 def window_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
@@ -50,39 +44,15 @@ def fixedbase_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
     return window_digits(scalars, c).flatten(-2)
 
 
-def jacobian_to_affine(jac16: torch.Tensor) -> torch.Tensor:
-    """[3, 24, M] Montgomery Jacobian -> [2, 24, M] Montgomery affine on
-    the same device; infinity lanes become (0, 0).
-
-    The inversion is Montgomery's batch trick over Python ints on the
-    host: one exponentiation and three products per lane."""
-    arr = jac16.detach().cpu().numpy()
-    X, Y, Z = (FP.from_mont_host(arr[k]) for k in range(3))
-    zinv = HF.batch_fp_inv(Z)
-    xs, ys = [], []
-    for x, y, zi in zip(X, Y, zinv):
-        zi2 = zi * zi % P
-        xs.append(x * zi2 % P)
-        ys.append(y * zi2 % P * zi % P)
-    out = np.stack([FP.to_mont_host(xs), FP.to_mont_host(ys)], axis=0)
-    return lb.as_limb_tensor(out, jac16.device)
-
-
 def build_fixedbase_tables(points: torch.Tensor, valid: torch.Tensor, c: int,
                            ops=dispatch):
     """[2, 24, N] Montgomery affine + valid[N] -> ([2, 24, W N] affine
-    table, valid[W N]); entry (w, i) = [2^(c w)] P_i, and invalid source
-    lanes stay invalid (and zero) in every window."""
-    w_count = num_windows(c)
-    cur = ops.to_op_layout(g1_ops.lift(points, valid))
-    shifted = []
-    for w in range(w_count):
-        shifted.append(cur)
-        if w + 1 < w_count:
-            for _ in range(c):
-                cur = ops.dbl(cur)
-    all_jac = ops.from_op_layout(torch.cat(shifted, dim=-1))
-    return jacobian_to_affine(all_jac), valid.repeat(w_count)
+    table, valid[W N]) in the public layout; entry (w, i) = [2^(c w)] P_i,
+    and invalid source lanes stay invalid (and zero) in every window.
+    ops=g1_ops runs the plain version on any device; `dispatch` runs the
+    kernel g1_fixedbase_table on a CUDA device."""
+    table, table_valid = ops.fixedbase_table(points, valid, c)
+    return ops.from_table_layout(table), table_valid
 
 
 def sort_members(digits: torch.Tensor, c: int):

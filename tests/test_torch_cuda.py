@@ -1,4 +1,4 @@
-"""The port's MSM kernels against their plain versions on the card.
+"""The port's kernels against their plain versions on the card.
 
 This module imports torch and the port, and nothing of JAX, so it
 runs where the card is and JAX is not:
@@ -8,8 +8,14 @@ runs where the card is and JAX is not:
 (`--noconftest` skips tests/conftest.py, which sets up JAX.) Every test
 is marked `cuda` and skips without a card: the kernels have no CPU mode.
 
+- g1_madd, g1_add and g1_dbl on the 128 lanes of tests/test_torch_g1.py
+  (random points of the mainnet Lagrange basis plus P at infinity,
+  P == Q, P == -Q and dead lanes), limb for limb, Z included; fp::sqr
+  equals fp::mul(a, a) on random elements and on 0, 1, p - 1 and R mod p.
+
 Basis: the first N points of the mainnet Lagrange basis, one of them at
-infinity; tables for c in {3, 4, 6, 12} built on the card. For each c,
+infinity. For c in {3, 4, 6, 12}, g1_fixedbase_table's rows equal the
+plain table (`g1_ops.fixedbase_table`) limb for limb, and
 g1_bucket_accumulate over three seeded blobs (the last nearly all zero)
 equals `g1_ops.bucket_accumulate` limb for limb, and g1_bucket_reduce
 equals `g1_ops.bucket_reduce` on those buckets and on buckets with
@@ -22,7 +28,7 @@ import random
 import pytest
 import torch
 
-from lambdaworks_kzg_tpu_torch.constants import R
+from lambdaworks_kzg_tpu_torch.constants import P, R
 from lambdaworks_kzg_tpu_torch.models import srs
 from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb, msm
 from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
@@ -36,6 +42,7 @@ pytestmark = [
 N = 32
 GROUPS = 4
 N_BLOBS = 3
+M_OPS = 128
 
 
 @pytest.fixture(scope="module")
@@ -45,6 +52,70 @@ def basis():
     valid = torch.from_numpy(setup.lagrange_valid[:N].copy()).cuda()
     valid[3] = False  # an infinity lane must stay dead in every window
     return points, valid
+
+
+@pytest.fixture(scope="module")
+def op_lanes():
+    """(p [3, 24, M], q [2, 24, M], q_valid [M], q3 [3, 24, M]) on the card,
+    the lanes of tests/test_torch_g1.py drawn from the first 64 points of
+    the mainnet basis: P at infinity (i % 16 == 3), P == Q (7), P == -Q
+    (11), dead lanes (13), and Z != 1 on even lanes through one dbl."""
+    setup = srs.load_mainnet_setup()
+    base = lb.as_limb_tensor(setup.lagrange_points[:, :, :64], "cuda")
+    rng = random.Random(7)
+    picks = [(rng.randrange(64), rng.randrange(64)) for _ in range(M_OPS)]
+    pa = base[:, :, [a for a, _ in picks]]
+    qa = base[:, :, [b for _, b in picks]]
+    lane = torch.arange(M_OPS, device="cuda")
+    p_valid = lane % 16 != 3
+    pa = torch.where(p_valid[None, None], pa, 0)
+    qa = torch.where((lane % 16 == 7)[None, None], pa, qa)
+    qa = torch.where((lane % 16 == 11)[None, None], torch.stack([pa[0], FP.neg(pa[1])]), qa)
+    q_valid = lane % 16 != 13
+    p = g1_ops.lift(pa, p_valid)
+    p = torch.where((lane % 2 == 0)[None, None], g1_ops.dbl(p), p)
+    return p.contiguous(), qa.contiguous(), q_valid, g1_ops.lift(qa, q_valid)
+
+
+@pytest.mark.parametrize("op", ["madd", "add", "dbl"])
+def test_hopper_kernel_matches_plain_on_card(op_lanes, op):
+    p, q, qv, q3 = op_lanes
+    k_args = {
+        "madd": (lb.to_u32_layout(p), lb.to_u32_layout(q), qv),
+        "add": (lb.to_u32_layout(p), lb.to_u32_layout(q3)),
+        "dbl": (lb.to_u32_layout(p),),
+    }[op]
+    plain_args = {"madd": (p, q, qv), "add": (p, q3), "dbl": (p,)}[op]
+    before = getattr(kernels, op).launches
+    got = lb.to_u16_layout(getattr(kernels, op)(*k_args))
+    torch.cuda.synchronize()
+    assert getattr(kernels, op).launches == before + 1
+    assert torch.equal(got, getattr(g1_ops, op)(*plain_args))
+
+
+def test_fp_sqr_equals_mul_on_card():
+    rng = random.Random(5)
+    values = [0, 1, P - 1, (1 << 384) % P] + [rng.randrange(P) for _ in range(252)]
+    a = lb.to_u32_layout(lb.as_limb_tensor(lb.ints_to_limbs(values, 24), "cuda"))
+    sq, mm = kernels.sqr_check(a)
+    torch.cuda.synchronize()
+    assert torch.equal(sq, mm)
+    assert torch.equal(lb.to_u16_layout(sq), FP.sqr(lb.to_u16_layout(a)))
+
+
+@pytest.mark.parametrize("c", [3, 4, 6, 12])
+def test_fixedbase_table_kernel_matches_plain_on_card(basis, c):
+    points, valid = basis
+    before = kernels.fixedbase_table.launches
+    rows = kernels.fixedbase_table(lb.to_u32_layout(points), valid, c)
+    torch.cuda.synchronize()
+    assert kernels.fixedbase_table.launches == before + 1
+    assert tuple(rows.shape) == (msm.num_windows(c) * N, 2, 12)
+    want, want_valid = msm.build_fixedbase_tables(points, valid, c, ops=g1_ops)
+    assert torch.equal(dispatch.from_table_layout(rows), want)
+    got_rows, got_valid = dispatch.fixedbase_table(points, valid, c)
+    assert torch.equal(got_rows, rows)
+    assert torch.equal(got_valid, want_valid)
 
 
 def _members(table_valid, c, seed):

@@ -5,6 +5,11 @@ lane at infinity.
 - the table equals the exact per-window shifts [2^(c w)] P_i computed by
   the host oracle, and the MSM equals `host/curve.g1_msm` in affine form,
   for one blob and for a batch of three;
+- the table's plain version (`g1_ops.fixedbase_table`, the plain version
+  of the kernel g1_fixedbase_table) equals the host oracle at c in
+  {3, 4, 6, 12} with every 7th lane invalid, and its window-axis batch
+  affine step equals a per-lane `FP.inv` affine on lanes with Z = 0 and
+  Z = 1; the table kernel's wrapper refuses what it does not take;
 - the MSM's two stages (the plain versions of the kernels
   g1_bucket_accumulate and g1_bucket_reduce): the batched accumulation
   equals each blob's alone and a round loop of the JAX package's
@@ -273,3 +278,61 @@ def test_msm_kernel_wrappers_refuse_what_they_do_not_take(port_tables):
         kernels.bucket_accumulate(rows, order, bstart, 4, 3)
     assert [k.launches for k in kernels.ALL] == [0] * len(kernels.ALL)
 
+
+@pytest.mark.parametrize("c", [3, 4, 6, 12])
+def test_plain_table_with_invalid_lanes_matches_host_oracle(c):
+    """Every 7th source lane invalid, its coordinates left in place: the
+    table must zero it in every window, as the kernel does."""
+    setup = srs.create_dev_setup(N, secret=0xFB)
+    pts_aff = list(setup.g1_lagrange_brp)
+    points, _ = g1_ops.make_points_host(pts_aff)
+    valid = np.arange(N) % 7 != 0
+    points, valid = lb.as_limb_tensor(points), torch.from_numpy(valid)
+    table, table_valid = dispatch.fixedbase_table(points, valid, c)  # the CPU route
+    oracle_pts = [pt if ok else None for pt, ok in zip(pts_aff, valid.tolist())]
+    want, want_valid = _oracle_table(oracle_pts, c)
+    assert tuple(table.shape) == (2, 24, msm.num_windows(c) * N)
+    assert np.array_equal(table.numpy(), want.astype(np.int64))
+    assert np.array_equal(table_valid.numpy(), want_valid)
+
+
+def test_window_batch_affine_matches_per_lane_inverse(basis):
+    """Windows of Z = 1 (lifted), Z != 1 (doubled) and Z = 0 lanes, some of
+    them with nonzero X, Y: one inversion per lane along the windows
+    equals FP.inv of every entry (the reference's affine step)."""
+    _, _, points, valid = basis
+    pts = lb.as_limb_tensor(points)
+    lane = torch.arange(N)
+    w0 = g1_ops.lift(pts, torch.from_numpy(valid.copy()))  # Z = 1, lane 3 at infinity
+    w1 = g1_ops.dbl(w0)
+    w2 = g1_ops.dbl(w1)
+    w2[2, :, lane % 4 == 1] = 0  # Z = 0 under nonzero X, Y
+    w3 = torch.where((lane % 5 == 2)[None, None], 0, g1_ops.dbl(w2))
+    jac = torch.stack([w0, w1, w2, w3])
+    got = g1_ops.to_affine_windows(jac)
+    assert tuple(got.shape) == (4, 2, 24, N)
+    for w in range(4):
+        X, Y, Z = jac[w]
+        zinv = FP.inv(Z)
+        zinv2 = FP.sqr(zinv)
+        want = torch.stack([FP.mul(X, zinv2), FP.mul(Y, FP.mul(zinv2, zinv))])
+        assert torch.equal(got[w], want), w
+    assert bool((got[2][:, :, lane % 4 == 1] == 0).all())
+    assert bool((got[:, :, :, 3] == 0).all())
+
+
+def test_fixedbase_table_kernel_refuses_what_it_does_not_take(basis):
+    """CPU tensors, a wrong shape and a window width the kernel does not
+    take raise before any launch."""
+    _, _, points, valid = basis
+    pts = lb.to_u32_layout(lb.as_limb_tensor(points))
+    ok = torch.from_numpy(valid.copy())
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fixedbase_table(pts, ok, 4)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.fixedbase_table(pts[:, :6].contiguous(), ok, 4)
+    for c in (0, 13):
+        with pytest.raises(ValueError, match="window bits"):
+            kernels.fixedbase_table(pts, ok, c)
+    assert [k.launches for k in kernels.ALL] == [0] * len(kernels.ALL)
