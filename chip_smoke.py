@@ -23,7 +23,11 @@ Phases, each printed with its seconds:
      negations repeated (so runs of members double, cancel to infinity
      and lift again, beside empty and dead buckets) at c = 4 and c = 12,
      and g1_bucket_reduce on synthetic buckets at c = 12, where its points
-     live in global memory instead of shared memory;
+     live in global memory instead of shared memory; then one real
+     quotient (a dense seeded blob at a seeded z, evaluated and divided on
+     the card and equal to the host's): both MSM kernels against their
+     plain versions on its members, and its MSM on the kernels against
+     the host oracle g1_msm in affine form;
   4. the mainnet setup (testdata/trusted_setup.txt and its committed
      conversion); EIP4844Context(setup, device="cuda") builds the
      fixed-base table with one g1_fixedbase_table launch and no g1_dbl
@@ -34,16 +38,31 @@ Phases, each printed with its seconds:
      batch of six through blob_to_kzg_commitment_batch (twice), timed
      with CUDA events; one blob also through the plain PyTorch path on
      the card;
-  7. each kernel timed with CUDA events: the MSM kernels at the path's
-     shapes for one blob and for six (seeded random blobs, c = 8), madd at
-     the 2048 lanes of one blob's bucket grid, add at 1024, dbl at 4096,
-     on random lanes, and the table kernel at the mainnet shape.
-Launch counts are zeroed just before phase 4 and read after phase 6, so
-they count the main path only; phase 4 checks that the table build made
-one table launch and no g1_dbl launch, phase 6 that one commit, and a
-batch of six, launch each MSM kernel once. The line before the last is
-{"kernels": [...]}; the last is {"ok": true, "device": {...}}. Any failure
-ends the run with a non-zero exit and without those lines.
+  7. the 46 compute_kzg_proof and 12 compute_blob_kzg_proof vectors, bit
+     for bit, on the card;
+  8. the 93 verify_kzg_proof, 24 verify_blob_kzg_proof and 23
+     verify_blob_kzg_proof_batch vectors (the pairing on the host, blob
+     evaluations on the card), each verdict or KZGError as the vector has
+     it, timed;
+  9. the prove path: three seeded blobs through compute_blob_kzg_proof
+     and a batch of six through compute_blob_kzg_proof_batch (twice),
+     timed with CUDA events, each call launching each MSM kernel once and
+     the batch equal to the singles; then for one blob and for six the Fr
+     evaluation and quotient and the MSM timed apart, and counted under
+     torch.profiler (launches, device busy), and one proof profiled whole;
+ 10. each kernel timed with CUDA events: the MSM kernels at the path's
+     shapes for one blob and for six (seeded random blobs, c = 8), and the
+     accumulation on the real quotient, madd at the 2048 lanes of one
+     blob's bucket grid, add at 1024, dbl at 4096, on random lanes, and
+     the table kernel at the mainnet shape.
+Launch counts are zeroed just before phase 4 and read after phase 6 (the
+commit path), and zeroed again in phase 9 before its first proof and
+read after its last (the prove path); phase 4 checks that the table
+build made one table launch and no g1_dbl launch, phases 6 and 9 that
+each call launches each MSM kernel once. The line before the last is
+{"kernels": [...]}, with each kernel's launches on both paths; the last
+is {"ok": true, "device": {...}}. Any failure ends the run with a
+non-zero exit and without those lines.
 """
 
 import json
@@ -129,6 +148,19 @@ def table_imads(n_valid: int, c: int) -> int:
 CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
+PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce")
+CONSENSUS = os.path.join(HERE, "testdata", "consensus")
+# the arguments of each entry point as a vector's input names them, and
+# how many vectors each has
+VECTOR_ARGS = {
+    "compute_kzg_proof": ("blob", "z"),
+    "compute_blob_kzg_proof": ("blob", "commitment"),
+    "verify_kzg_proof": ("commitment", "z", "y", "proof"),
+    "verify_blob_kzg_proof": ("blob", "commitment", "proof"),
+    "verify_blob_kzg_proof_batch": ("blobs", "commitments", "proofs"),
+}
+VECTOR_COUNTS = {"compute_kzg_proof": 46, "compute_blob_kzg_proof": 12, "verify_kzg_proof": 93,
+                 "verify_blob_kzg_proof": 24, "verify_blob_kzg_proof_batch": 23}
 
 
 def log(msg: str) -> None:
@@ -203,17 +235,200 @@ def random_blobs(rng, count: int):
     return [b"".join(rng.bytes(31) + b"\x00" for _ in range(4096)) for _ in range(count)]
 
 
+def scalar_members(table_valid, scalars, c: int):
+    """[B, 16, n] plain scalars -> (order, bstart) as the main path sorts them."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import msm
+
+    digits = msm.fixedbase_digits(scalars, c)
+    return msm.sort_members(torch.where(table_valid, digits, torch.zeros_like(digits)), c)
+
+
 def blob_members(table_valid, blobs, c: int):
     """Blobs -> (order, bstart) as the main path sorts them."""
     import numpy as np
-    import torch
 
-    from lambdaworks_kzg_tpu_torch.ops import codec, limbs as lb, msm
+    from lambdaworks_kzg_tpu_torch.ops import codec, limbs as lb
 
     scalars = lb.as_limb_tensor(
         np.stack([codec.blob_to_limbs(b, 4096) for b in blobs]), table_valid.device)
-    digits = msm.fixedbase_digits(scalars, c)
-    return msm.sort_members(torch.where(table_valid, digits, torch.zeros_like(digits)), c)
+    return scalar_members(table_valid, scalars, c)
+
+
+def dense_blob(rng) -> bytes:
+    """A blob of elements uniform below r (seeded random.Random)."""
+    from lambdaworks_kzg_tpu_torch.constants import R
+
+    return b"".join(rng.randrange(R).to_bytes(32, "little") for _ in range(4096))
+
+
+def basis_affine(setup):
+    """The setup's Lagrange basis as host affine points (None at infinity)."""
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    xs, ys = (FP.from_mont_host(setup.lagrange_points[k]) for k in range(2))
+    return [(x, y) if v else None for x, y, v in zip(xs, ys, setup.lagrange_valid)]
+
+
+def check_real_quotient(setup, table16, table_valid, max_err: dict):
+    """The quotient of a dense seeded blob at a seeded z, computed on the
+    card, equals the host quotient; both MSM kernels equal their plain
+    versions on its members, and the MSM of it on the kernels equals the
+    host oracle g1_msm in affine form -> (order, bstart) of its members."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host import curve as HC, fft
+    from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, fr_poly, limbs as lb, msm
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FR
+
+    dev, n = table16.device, setup.n
+    rng = random.Random(7)
+    blob, z = dense_blob(rng), rng.randrange(R)
+    evals = [int.from_bytes(blob[32 * i : 32 * i + 32], "little") for i in range(n)]
+    domain = fr_poly.FrDomain(n, dev)
+    z_m, zn1_m = domain.z_consts([z])
+    evals_m = FR.to_mont(lb.as_limb_tensor(codec.blob_to_limbs(blob, n), dev)[None])
+    y_m = domain.evaluate_mont(evals_m, z_m, zn1_m)
+    q = domain.quotient_mont(evals_m, y_m, z_m)  # [1, 16, n] plain
+    y = fft.barycentric_evaluate(evals, z, n)
+    q_host = fft.quotient(evals, z, y, n)
+    if FR.from_mont_host(y_m[0]) != [y] or lb.limbs_to_ints(q[0]) != q_host:
+        raise AssertionError("the card's evaluation or quotient differs from the host's")
+    order, bstart = scalar_members(table_valid, q, C_MAIN)
+    top = int(msm.window_digits(q, C_MAIN)[0, -1].max())
+    log(f"  real quotient: y and q equal to the host's; top window digits up to {top:#x}")
+    check_msm_kernels(f"real quotient c={C_MAIN} B=1", table16, order, bstart, C_MAIN, max_err)
+    point = msm.msm_fixedbase(dispatch.to_table_layout(table16), table_valid, q[0], C_MAIN, GROUPS)
+    t0 = time.perf_counter()
+    want = HC.g1_msm(q_host, basis_affine(setup))
+    if HC.to_affine(point) != HC.to_affine(want):
+        raise AssertionError("the kernels' MSM of the quotient differs from the host g1_msm")
+    log(f"  real quotient: the kernels' MSM equals the host g1_msm in affine form "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    return order, bstart
+
+
+def run_vectors(ctx, fn: str) -> int:
+    """Every consensus vector of one entry point through ctx; a KZGError
+    stands for the vector's null output. Raises unless all agree."""
+    from lambdaworks_kzg_tpu_torch import KZGError
+    from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
+
+    names = sorted(os.listdir(os.path.join(CONSENSUS, fn, "small")))
+    t0, wrong = time.perf_counter(), []
+    for name in names:
+        case = load_case(os.path.join(CONSENSUS, fn, "small", name, "data.yaml"))
+        try:
+            got = getattr(ctx, fn)(*(case["input"][a] for a in VECTOR_ARGS[fn]))
+        except KZGError:
+            got = None
+        if isinstance(got, tuple):
+            got = list(got)
+        if got != case["output"] or type(got) is not type(case["output"]):
+            wrong.append(name)
+    dt = time.perf_counter() - t0
+    log(f"  {fn}: {len(names) - len(wrong)}/{len(names)} correct in {dt:.2f} s "
+        f"({dt / len(names) * 1e3:.1f} ms per vector)")
+    if wrong or len(names) != VECTOR_COUNTS[fn]:
+        raise AssertionError(f"{fn}: wrong on {wrong} ({len(names)} vectors)")
+    return len(names)
+
+
+def timed_call(fn, *args):
+    """fn(*args) between two CUDA events -> (result, ms); raises unless the
+    call launched each MSM kernel exactly once."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import kernels
+
+    msm_kernels = (kernels.bucket_accumulate, kernels.bucket_reduce)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    before = [k.launches for k in msm_kernels]
+    start.record()
+    out = fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    per_call = [k.launches - b for k, b in zip(msm_kernels, before)]
+    if per_call != [1, 1]:
+        raise AssertionError(f"one call launched (accumulate, reduce) {per_call}, not once each")
+    return out, start.elapsed_time(end)
+
+
+def device_work(fn) -> dict:
+    """fn() under torch.profiler -> {"kernels": launches, "copies": copies
+    and memsets, "busy_ms": their device time}, or None where the
+    profiler saw no device work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "copies": 0, "busy_ms": 0.0}
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        out["copies" if ev.key.startswith(("Memcpy", "Memset")) else "kernels"] += ev.count
+        out["busy_ms"] += us / 1e3
+    return out if out["kernels"] else None
+
+
+def host_syncs(fn) -> int:
+    """How many times fn() makes the host wait for the card: the
+    synchronizing calls PyTorch's sync debug mode reports (transfers to
+    and from pageable host memory, synchronize)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def prove_split(backend, blobs, zs) -> dict:
+    """One batch's evaluation and quotient (PyTorch ops on the card), then
+    its MSM with the proofs' transfer to the host, each between CUDA
+    events, and each once more under the profiler for its launches."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FR
+
+    domain = backend.domain
+    scalars = backend.blob_scalars(blobs)
+    z_m, zn1_m = domain.z_consts(zs)
+
+    def fr():
+        evals_m = FR.to_mont(scalars)
+        return domain.quotient_mont(evals_m, domain.evaluate_mont(evals_m, z_m, zn1_m), z_m)
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    q = fr()
+    ev[1].record()
+    backend.commit_scalars(q)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return {
+        "blobs": len(blobs),
+        "fr_ms": ev[0].elapsed_time(ev[1]),
+        "msm_ms": ev[1].elapsed_time(ev[2]),
+        "fr_device": device_work(fr),
+        "msm_device": device_work(lambda: backend.commit_scalars(q)),
+    }
 
 
 def synthetic_table(points, n_rows: int, c: int, n_blobs: int, seed: int):
@@ -439,6 +654,7 @@ def run() -> None:
     from lambdaworks_kzg_tpu_torch.constants import num_windows
     from lambdaworks_kzg_tpu_torch.host import curve as HC
     from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, g1_ops, kernels, limbs as lb, msm
+    from lambdaworks_kzg_tpu_torch.utils import hashing as H
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
 
     dev = torch.device("cuda", 0)
@@ -488,6 +704,7 @@ def run() -> None:
             synth, order, bstart = synthetic_table(points, 4096, c, n_blobs, seed=c)
             check_msm_kernels(f"synthetic c={c} B={n_blobs}", synth, order, bstart, c, max_err,
                               extra_buckets=synthetic_buckets(points, c, n_blobs, seed=c))
+        q_order, q_bstart = check_real_quotient(setup, table16, table_valid, max_err)
 
     kernels.reset_counts()
     with Phase("4 setup and fixed-base table"):
@@ -530,25 +747,10 @@ def run() -> None:
     with Phase("6 batch of six blobs"):
         rng = np.random.default_rng(4844)
         blobs = random_blobs(rng, 6)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        msm_kernels = (kernels.bucket_accumulate, kernels.bucket_reduce)
-
-        def timed(fn, *args):
-            before = [k.launches for k in msm_kernels]
-            start.record()
-            out = fn(*args)
-            end.record()
-            torch.cuda.synchronize()
-            per_call = [k.launches - b for k, b in zip(msm_kernels, before)]
-            if per_call != [1, 1]:
-                raise AssertionError(f"one call launched (accumulate, reduce) {per_call}, not once each")
-            return out, start.elapsed_time(end)
-
-        runs = [timed(ctx.blob_to_kzg_commitment, b) for b in blobs[:3]]
+        runs = [timed_call(ctx.blob_to_kzg_commitment, b) for b in blobs[:3]]
         singles = [r[0] for r in runs]
         results["ms_per_blob_single"] = [r[1] for r in runs]
-        runs = [timed(ctx.blob_to_kzg_commitment_batch, blobs) for _ in range(2)]
+        runs = [timed_call(ctx.blob_to_kzg_commitment_batch, blobs) for _ in range(2)]
         batch = runs[0][0]
         results["ms_per_blob_batch6"] = [r[1] / len(blobs) for r in runs]
         launches = {k.name: k.launches for k in kernels.ALL}  # the main path ends here
@@ -571,8 +773,62 @@ def run() -> None:
             raise AssertionError(f"the main path must launch g1_fixedbase_table once and g1_dbl "
                                  f"never ({launches})")
 
+    with Phase("7 proof vectors"):
+        for fn in ("compute_kzg_proof", "compute_blob_kzg_proof"):
+            run_vectors(ctx, fn)
+
+    with Phase("8 verify vectors"):
+        t0 = time.perf_counter()
+        for fn in ("verify_kzg_proof", "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch"):
+            run_vectors(ctx, fn)
+        results["verify_vectors_s"] = time.perf_counter() - t0
+
+    with Phase("9 prove path"):
+        rng = np.random.default_rng(4845)
+        blobs = random_blobs(rng, 6)
+        commitments = ctx.blob_to_kzg_commitment_batch(blobs)
+        kernels.reset_counts()  # the prove path starts here
+        runs = [timed_call(ctx.compute_blob_kzg_proof, b, c) for b, c in zip(blobs[:3], commitments[:3])]
+        singles = [r[0] for r in runs]
+        results["prove_ms_single"] = [r[1] for r in runs]
+        runs = [timed_call(ctx.compute_blob_kzg_proof_batch, blobs, commitments) for _ in range(2)]
+        batch = runs[0][0]
+        results["prove_ms_per_proof_batch6"] = [r[1] / len(blobs) for r in runs]
+        prove_launches = {k.name: k.launches for k in kernels.ALL}  # the prove path ends here
+        log(f"  compute_blob_kzg_proof {results['prove_ms_single']} ms per proof, "
+            f"batch of 6 {results['prove_ms_per_proof_batch6']} ms per proof; launches "
+            f"{prove_launches}; each proof and each batch launched each MSM kernel once")
+        if singles != batch[:3] or runs[1][0] != batch or len(set(batch)) != len(batch):
+            raise AssertionError("batch and single proofs disagree")
+        missing = [name for name in PROVE_KERNELS if prove_launches[name] == 0]
+        if missing or prove_launches["g1_fixedbase_table"] != 0:
+            raise AssertionError(f"the prove path's launches are wrong: {prove_launches}")
+        zs = [H.compute_challenge(b, c) for b, c in zip(blobs, commitments)]
+        split = [prove_split(ctx.backend, blobs[:k], zs[:k]) for k in (1, 6)]
+        results["prove_split"] = split
+        for sp in split:
+            per = sp["blobs"]
+            fr_dev, msm_dev = sp["fr_device"] or {}, sp["msm_device"] or {}
+            log(f"  B={per}: Fr evaluation + quotient {sp['fr_ms']:.2f} ms "
+                f"({sp['fr_ms'] / per:.2f} per proof; {fr_dev.get('kernels', 'not measured')} "
+                f"launches, device busy {fr_dev.get('busy_ms', float('nan')):.3f} ms), "
+                f"MSM + result {sp['msm_ms']:.3f} ms ({msm_dev.get('kernels', 'not measured')} "
+                f"launches, device busy {msm_dev.get('busy_ms', float('nan')):.3f} ms)")
+        single = device_work(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0]))
+        results["prove_single_device"] = single
+        log(f"  one compute_blob_kzg_proof under the profiler: {single}")
+        syncs = {"single": host_syncs(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0])),
+                 "batch6": host_syncs(lambda: ctx.compute_blob_kzg_proof_batch(blobs, commitments))}
+        results["prove_host_syncs"] = syncs
+        log(f"  synchronizing calls: {syncs['single']} per proof, {syncs['batch6']} per batch of six")
+
+    def counted(name: str) -> dict:
+        """A kernel's launches on the commit and the prove path."""
+        return {"launches": launches[name] + prove_launches[name],
+                "launches_by_path": {"commit": launches[name], "prove": prove_launches[name]}}
+
     entries = []
-    with Phase("7 kernel timing"):
+    with Phase("10 kernel timing"):
         rows = dispatch.to_table_layout(table16)
         n_members, nb = rows.shape[0], 1 << C_MAIN
         msm_times = {}
@@ -608,18 +864,29 @@ def run() -> None:
                 }
                 log(f"  {name} B={n_blobs}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
                     f"bound {max(t_bytes, t_ops):.5f} ms")
+        # the accumulation on one real quotient's members (dense 255-bit scalars)
+        acc_args = (rows, q_order, q_bstart, C_MAIN, GROUPS)
+        t_q = time_ms(lambda: kernels.bucket_accumulate(*acc_args), reps=10)
+        madds, _ = accumulate_point_ops(q_order, q_bstart)
+        q_bytes = n_members * 96 + q_order.numel() * 4 + q_bstart.numel() * 4 + 3 * 48 * GROUPS * nb
+        t_bytes, t_ops = q_bytes / HBM_BYTES_PER_S * 1e3, madds * op_imads("madd") / IMAD_PER_S * 1e3
+        quotient_acc = {"ms": t_q, "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "madds": madds}
+        log(f"  g1_bucket_accumulate on a real quotient: {madds} madds, kernel {t_q:.4f} ms, "
+            f"bound {quotient_acc['bound_ms']:.5f} ms")
         for kernel in (kernels.bucket_accumulate, kernels.bucket_reduce):
             entries.append({
                 "name": kernel.name,
                 "route": "cuda",
                 "source": f"{PKG}/csrc/msm.cu",
                 "replaces": kernel.replaces,
-                "launches": launches[kernel.name],
+                **counted(kernel.name),
                 "max_abs_err": max_err[kernel.name],
                 **msm_times[(kernel.name, 1)],
                 "library_ms": None,
                 "blobs": 1,
                 "batch6": msm_times[(kernel.name, 6)],
+                **({"quotient": quotient_acc} if kernel is kernels.bucket_accumulate else {}),
             })
         shapes = {"madd": 2048, "add": 1024, "dbl": 4096}
         for op, M in shapes.items():
@@ -644,7 +911,7 @@ def run() -> None:
                 "route": "cuda",
                 "source": f"{PKG}/csrc/g1.cu",
                 "replaces": kernel.replaces,
-                "launches": launches[kernel.name],
+                **counted(kernel.name),
                 "max_abs_err": max_err[kernel.name],
                 "ms": sum(t_kernel) / 2,
                 "plain_ms": sum(t_plain) / 2,
@@ -659,8 +926,8 @@ def run() -> None:
         # the table build at the mainnet shape; its plain time is phase 3's
         points32 = lb.to_u32_layout(points)
         n = points.shape[-1]
-        t_table = [time_ms(lambda: kernels.fixedbase_table(points32, points_valid, C_MAIN), reps=5, warm=1)
-                   for _ in range(2)]
+        t_table = [time_ms(lambda: kernels.fixedbase_table(points32, points_valid, C_MAIN),
+                           reps=5, warm=1) for _ in range(2)]
         nbytes = n * (2 * FP_BYTES + 1) + num_windows(C_MAIN) * n * 2 * FP_BYTES
         n_valid = int(points_valid.sum())
         imads = table_imads(n_valid, C_MAIN)
@@ -670,7 +937,7 @@ def run() -> None:
             "route": "cuda",
             "source": f"{PKG}/csrc/table.cu",
             "replaces": kernels.fixedbase_table.replaces,
-            "launches": launches[kernels.fixedbase_table.name],
+            **counted(kernels.fixedbase_table.name),
             "max_abs_err": max_err[kernels.fixedbase_table.name],
             "ms": sum(t_table) / 2,
             "plain_ms": table_plain_ms,

@@ -1,7 +1,9 @@
 """lambdaworks_kzg_tpu_torch: the PyTorch + CUDA (Hopper) port of
-lambdaworks_kzg_tpu. This slice commits blobs: EIP4844Context's
-blob_to_kzg_commitment and blob_to_kzg_commitment_batch, through the
-fixed-base MSM on hand-written CUDA G1 kernels (ops/kernels.py)."""
+lambdaworks_kzg_tpu. EIP4844Context serves the seven EIP-4844 entry
+points and the batched commit and proof APIs: commitments and proofs
+run on the card, through the Fr evaluation and quotient as PyTorch ops
+and the fixed-base MSM on hand-written CUDA kernels (ops/kernels.py);
+verification runs the pairing on the host."""
 
 from .constants import BYTES_PER_BLOB, FIELD_ELEMENTS_PER_BLOB
 from .models.eip4844 import EIP4844Context, KZGError

@@ -1,0 +1,51 @@
+"""The evaluation domain over Python ints: bit-reversed roots of unity,
+and the barycentric evaluation and quotient that `ops/fr_poly.py` is
+held against (the port's copy of the JAX package's `host/fft.py`,
+without the NTTs, and of its host quotient)."""
+
+from ..constants import R, fr_root_of_unity
+from .field import batch_fr_inv
+
+
+def bit_reversal_permutation(values):
+    """Out-of-place bit-reversal reorder; len(values) is a power of two."""
+    n = len(values)
+    if n & (n - 1):
+        raise ValueError("length must be a power of two")
+    bits = n.bit_length() - 1
+    return [values[int(format(i, f"0{bits}b")[::-1], 2)] for i in range(n)]
+
+
+def fr_roots_of_unity(order: int):
+    """[w^0, w^1, ..., w^(order-1)] for the primitive order-th root w."""
+    w = fr_root_of_unity(order)
+    out = [1] * order
+    for i in range(1, order):
+        out[i] = out[i - 1] * w % R
+    return out
+
+
+def barycentric_evaluate(evals_brp, z: int, order: int) -> int:
+    """p(z) from p's evaluations on the bit-reversed roots:
+    p(z) = (z^N - 1) / N * sum_i e_i w_i / (z - w_i), or the stored
+    evaluation when z is a root."""
+    roots_brp = bit_reversal_permutation(fr_roots_of_unity(order))
+    z %= R
+    for i, w in enumerate(roots_brp):
+        if w == z:
+            return evals_brp[i] % R
+    inv_denoms = batch_fr_inv([(z - w) % R for w in roots_brp])
+    total = sum(e * w % R * d % R for e, w, d in zip(evals_brp, roots_brp, inv_denoms)) % R
+    total = total * ((pow(z, order, R) - 1) % R) % R
+    return total * pow(order, R - 2, R) % R
+
+
+def quotient(evals_brp, z: int, y: int, order: int):
+    """q_i = (e_i - y) / (w_i - z) on the bit-reversed roots, for z
+    outside the domain (the JAX `HostBackend.quotient` there)."""
+    roots_brp = bit_reversal_permutation(fr_roots_of_unity(order))
+    z %= R
+    if z in roots_brp:
+        raise ValueError("z lies in the domain")
+    inv_denoms = batch_fr_inv([(w - z) % R for w in roots_brp])
+    return [(e - y) * d % R for e, d in zip(evals_brp, inv_denoms)]

@@ -1,17 +1,49 @@
-"""EIP-4844 entry points of the port: blob_to_kzg_commitment and its
-batched form. The other entry points (compute_kzg_proof,
-compute_blob_kzg_proof, verify_kzg_proof, verify_blob_kzg_proof,
-verify_blob_kzg_proof_batch) are later slices."""
+"""The EIP-4844 entry points of the port: the JAX package's seven
+(`blob_to_kzg_commitment`, `compute_kzg_proof`, `compute_blob_kzg_proof`,
+`verify_kzg_proof`, `verify_blob_kzg_proof`, `verify_blob_kzg_proof_batch`;
+the setup loaders are in `models/srs.py`) and the batched
+`blob_to_kzg_commitment_batch` and `compute_blob_kzg_proof_batch`.
 
-from typing import List, Optional, Sequence
+Commitments and proofs run on the context's device: the Fr evaluation
+and quotient as PyTorch ops, the fixed-base MSM on the Hopper kernels
+(`ops/backend.py`). Verification runs the pairing on the host
+(`models/kzg.py`), as the JAX package does by default; its blob
+evaluations run on the device. Points arriving from outside are
+decompressed and subgroup-checked one by one on the host.
+"""
 
+from typing import List, Optional, Sequence, Tuple
+
+from ..constants import BYTES_PER_FIELD_ELEMENT
 from ..host import curve as C
 from ..ops.backend import TorchBackend
+from ..utils import hashing as H
+from .kzg import KZG
 from .srs import TrustedSetup, load_mainnet_setup
 
 
 class KZGError(ValueError):
-    """Invalid input (a wrong-size or non-canonical blob)."""
+    """Invalid input: a wrong-size or non-canonical blob or field element,
+    a bad point encoding, a point off the curve or outside its subgroup,
+    or lists of different lengths."""
+
+
+def _check_g1(data: bytes, what: str):
+    if len(data) != 48:
+        raise KZGError(f"{what} must be 48 bytes")
+    try:
+        return C.decompress_g1(bytes(data), subgroup_check=True)
+    except C.DeserializationError as e:
+        raise KZGError(f"bad {what}: {e}") from e
+
+
+def _check_fr(data: bytes, what: str) -> int:
+    if len(data) != 32:
+        raise KZGError(f"{what} must be 32 bytes")
+    try:
+        return H.bytes_to_bls_field(bytes(data))
+    except ValueError as e:
+        raise KZGError(f"bad {what}: {e}") from e
 
 
 class EIP4844Context:
@@ -23,19 +55,101 @@ class EIP4844Context:
                  backend=None):
         self.setup = setup if setup is not None else load_mainnet_setup()
         self.backend = backend if backend is not None else TorchBackend(self.setup, device)
+        self.kzg = KZG(self.setup)
         self.n = self.setup.n
 
     def _scalars(self, blobs):
-        """Only the blob checks map to KZGError; a fault further down (a
-        kernel wrapper's layout check, a launch) raises as it is."""
+        """Blobs -> plain limbs on the device. Only the input checks map
+        to KZGError; a fault further down (a kernel wrapper's layout
+        check, a launch) raises as it is."""
         try:
             return self.backend.blob_scalars(blobs)
         except ValueError as e:
             raise KZGError(str(e)) from e
 
+    def _check_blob_size(self, blob: bytes) -> None:
+        if len(blob) != self.n * BYTES_PER_FIELD_ELEMENT:
+            raise KZGError(f"blob must be {self.n * BYTES_PER_FIELD_ELEMENT} bytes")
+
+    def _open(self, blobs, zs):
+        """-> [(host Jacobian proof, y)], one batch on the device."""
+        return self.backend.open_scalars(self._scalars(blobs), zs)
+
+    # -- commit and prove ---------------------------------------------------------
+
     def blob_to_kzg_commitment(self, blob: bytes) -> bytes:
         return self.blob_to_kzg_commitment_batch([blob])[0]
 
     def blob_to_kzg_commitment_batch(self, blobs: Sequence[bytes]) -> List[bytes]:
+        if not blobs:
+            return []
         scalars = self._scalars(blobs)
         return [C.compress_g1(pt) for pt in self.backend.commit_scalars(scalars)]
+
+    def compute_kzg_proof(self, blob: bytes, z_bytes: bytes) -> Tuple[bytes, bytes]:
+        z = _check_fr(z_bytes, "z")
+        (proof, y), = self._open([blob], [z])
+        return C.compress_g1(proof), H.bls_field_to_bytes(y)
+
+    def compute_blob_kzg_proof(self, blob: bytes, commitment_bytes: bytes) -> bytes:
+        return self.compute_blob_kzg_proof_batch([blob], [commitment_bytes])[0]
+
+    def compute_blob_kzg_proof_batch(self, blobs: Sequence[bytes],
+                                     commitment_bytes_list: Sequence[bytes]) -> List[bytes]:
+        """Every commitment is checked before anything else (reference
+        lib.rs:373), then every blob's proof at its challenge comes from
+        one batch on the device."""
+        if len(commitment_bytes_list) != len(blobs):
+            raise KZGError("length mismatch")
+        for blob in blobs:
+            self._check_blob_size(blob)
+        for cb in commitment_bytes_list:
+            _check_g1(cb, "commitment")
+        if not blobs:
+            return []
+        zs = [H.compute_challenge(bytes(b), bytes(cb), self.n)
+              for b, cb in zip(blobs, commitment_bytes_list)]
+        return [C.compress_g1(proof) for proof, _ in self._open(blobs, zs)]
+
+    # -- verify --------------------------------------------------------------------
+
+    def verify_kzg_proof(self, commitment_bytes: bytes, z_bytes: bytes, y_bytes: bytes,
+                         proof_bytes: bytes) -> bool:
+        commitment = _check_g1(commitment_bytes, "commitment")
+        z = _check_fr(z_bytes, "z")
+        y = _check_fr(y_bytes, "y")
+        proof = _check_g1(proof_bytes, "proof")
+        return self.kzg.verify(commitment, z, y, proof)
+
+    def verify_blob_kzg_proof(self, blob: bytes, commitment_bytes: bytes,
+                              proof_bytes: bytes) -> bool:
+        self._check_blob_size(blob)
+        commitment = _check_g1(commitment_bytes, "commitment")
+        proof = _check_g1(proof_bytes, "proof")
+        z = H.compute_challenge(bytes(blob), bytes(commitment_bytes), self.n)
+        y = self.backend.evaluate_scalars(self._scalars([blob]), [z])[0]
+        return self.kzg.verify(commitment, z, y, proof)
+
+    def verify_blob_kzg_proof_batch(self, blobs: Sequence[bytes],
+                                    commitment_bytes_list: Sequence[bytes],
+                                    proof_bytes_list: Sequence[bytes]) -> bool:
+        """True for an empty batch, as the spec has it (the reference
+        library returns false there, lib.rs:537-543)."""
+        n = len(blobs)
+        if len(commitment_bytes_list) != n or len(proof_bytes_list) != n:
+            raise KZGError("length mismatch")
+        if n == 0:
+            return True
+        if n == 1:
+            return self.verify_blob_kzg_proof(blobs[0], commitment_bytes_list[0],
+                                              proof_bytes_list[0])
+        for blob in blobs:
+            self._check_blob_size(blob)
+        c_list = [bytes(c) for c in commitment_bytes_list]
+        p_list = [bytes(p) for p in proof_bytes_list]
+        commitments = [_check_g1(c, "commitment") for c in c_list]
+        proofs = [_check_g1(p, "proof") for p in p_list]
+        zs = [H.compute_challenge(bytes(b), c, self.n) for b, c in zip(blobs, c_list)]
+        ys = self.backend.evaluate_scalars(self._scalars(blobs), zs)
+        r_powers = H.compute_r_powers(c_list, zs, ys, p_list, self.n)
+        return self.kzg.verify_batch(commitments, zs, ys, proofs, r_powers)

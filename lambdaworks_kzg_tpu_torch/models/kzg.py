@@ -1,0 +1,49 @@
+"""KZG verification on the host tier (Python ints).
+
+The port of `KZG.verify` and `KZG.verify_batch` of the JAX package's
+`models/kzg.py` on its default path: the pairing and its scalar
+multiplications run on the host (`host/pairing.py`), and the batch
+check's linear combinations through the host `g1_msm`. The port has no
+device pairing tier yet, so there is no switch for one.
+"""
+
+from ..constants import R
+from ..host import curve as C
+from ..host.pairing import pairings_verify
+
+
+class KZG:
+    """The checks of one setup, from its [1]_2 and [s]_2."""
+
+    def __init__(self, setup):
+        g2 = setup.g2_monomial
+        self.g2_one = C.g2_from_affine(g2[0]) if len(g2) >= 2 else None
+        self.g2_s = C.g2_from_affine(g2[1]) if len(g2) >= 2 else None
+
+    def _g2(self):
+        if self.g2_s is None:
+            raise ValueError("this setup holds no G2 powers: verification needs [1]_2 and [s]_2")
+        return self.g2_one, self.g2_s
+
+    def verify(self, commitment, z: int, y: int, proof) -> bool:
+        """e(C - [y]G1, [1]_2) == e(proof, [s - z]_2)."""
+        g2_one, g2_s = self._g2()
+        p_minus_y = C.point_add(commitment, C.point_neg(C.point_scalar_mul(C.G1_GENERATOR, y)))
+        x_minus_z = C.g2_add(g2_s, C.g2_neg(C.g2_scalar_mul(C.G2_GENERATOR, z)))
+        return pairings_verify(p_minus_y, g2_one, proof, x_minus_z)
+
+    def verify_batch(self, commitments, zs, ys, proofs, r_powers) -> bool:
+        """The random linear combination check, one pairing:
+        e(sum r^i proof_i, [s]_2) == e(sum r^i (C_i - [y_i]G1 + z_i proof_i), [1]_2),
+        with sum r^i [y_i]G1 folded into the commitments' combination as
+        one more point."""
+        g2_one, g2_s = self._g2()
+        proof_aff = [C.to_affine(p) for p in proofs]
+        commitment_aff = [C.to_affine(c) for c in commitments]
+        neg_y_sum = (-sum(r * y for r, y in zip(r_powers, ys))) % R
+        proof_lincomb = C.g1_msm(list(r_powers), proof_aff)
+        proof_z_lincomb = C.g1_msm([r * z % R for r, z in zip(r_powers, zs)], proof_aff)
+        c_minus_y_lincomb = C.g1_msm(list(r_powers) + [neg_y_sum],
+                                     commitment_aff + [C.to_affine(C.G1_GENERATOR)])
+        rhs = C.point_add(c_minus_y_lincomb, proof_z_lincomb)
+        return pairings_verify(rhs, g2_one, proof_lincomb, g2_s)

@@ -5,12 +5,14 @@ commitments need the bit-reversed Lagrange basis. Converting one
 (4096 decompressions, subgroup checks and an inverse G1 group FFT) is
 not part of this package yet: it reads the converted cache that the
 repository ships, chosen by the setup's digest, and raises for a setup
-without one. Small setups for tests come through `convert.py`.
+without one. Small setups for tests come through `convert.py`. The
+cache also holds the monomial G1 powers and the G2 powers [s^i]G2, of
+which verification uses [1]_2 and [s]_2.
 """
 
 import hashlib
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -35,11 +37,16 @@ class TrustedSetup:
     lagrange_points: uint32[2, 24, n], Montgomery affine coordinates of
                      the bit-reversed Lagrange basis (radix-2^16 limbs)
     lagrange_valid : bool[n], False for a point at infinity
+    g1_monomial    : affine G1 points [s^i]G, (x, y) ints or None
+    g2_monomial    : affine G2 points [s^i]G2, ((x0, x1), (y0, y1)) or
+                     None; empty for a setup that only commits
     """
 
     lagrange_points: np.ndarray
     lagrange_valid: np.ndarray
     source_digest: str
+    g1_monomial: list = field(default_factory=list)
+    g2_monomial: list = field(default_factory=list)
 
     @property
     def n(self) -> int:
@@ -83,6 +90,19 @@ def _affine_g1_from_u8(arr: np.ndarray):
     return out
 
 
+def _affine_g2_from_u8(arr: np.ndarray):
+    """uint8[n, 193] rows flag || x0 || x1 || y0 || y1 (48 bytes each,
+    big-endian) -> list of ((x0, x1), (y0, y1)) or None."""
+    out = []
+    for row in arr:
+        if row[0] == 0:
+            out.append(None)
+        else:
+            v = [int.from_bytes(row[1 + 48 * j : 49 + 48 * j].tobytes(), "big") for j in range(4)]
+            out.append(((v[0], v[1]), (v[2], v[3])))
+    return out
+
+
 def _cache_path(digest: str, cache_dir: str) -> str:
     if digest == MAINNET_DIGEST:
         return os.path.join(cache_dir, "srs_mainnet.npz")
@@ -92,8 +112,10 @@ def _cache_path(digest: str, cache_dir: str) -> str:
 def setup_from_cache(path: str, digest: str) -> TrustedSetup:
     with np.load(path) as data:
         lagrange = _affine_g1_from_u8(data["lagrange"])
+        monomial = _affine_g1_from_u8(data["monomial"])
+        g2 = _affine_g2_from_u8(data["g2"])
     points, valid = g1_ops.make_points_host(lagrange)
-    return TrustedSetup(points, valid, digest)
+    return TrustedSetup(points, valid, digest, monomial, g2)
 
 
 def load_trusted_setup_file(path: str, cache_dir: str = CACHE_DIR) -> TrustedSetup:

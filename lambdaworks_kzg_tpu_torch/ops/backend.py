@@ -1,18 +1,23 @@
-"""TorchBackend: the commit path of one trusted setup on one device.
+"""TorchBackend: the commit and prove paths of one trusted setup on one
+device.
 
 Holds the fixed-base table on the device in the accumulation's layout,
 built at init by one launch of the `g1_fixedbase_table` kernel (on a CUDA
 device; the plain version on the CPU) unless a table is handed in, and
-commits a batch of blobs through one
-`msm.msm_fixedbase_device` call and one transfer of the results.
+the Fr evaluation domain (`fr_poly.FrDomain`). It commits a batch of
+blobs through one `msm.msm_fixedbase_device` call and one transfer of
+the results, and opens a batch (proof and y for each blob) through one
+batched evaluation, one batched quotient and one such MSM of the
+quotients, which stay on the device until the MSM's result comes back.
 """
 
 import numpy as np
 import torch
 
-from ..constants import num_windows
-from . import codec, dispatch, msm
+from ..constants import R, num_windows
+from . import codec, dispatch, fr_poly, msm
 from . import limbs as lb
+from .field_ops import FR
 
 
 def resolve_device(device) -> torch.device:
@@ -61,6 +66,7 @@ class TorchBackend:
                 raise ValueError(f"fixed-base table must be {expected}, got {tuple(table.shape)}")
             self._table = dispatch.to_table_layout(table.to(self.device))
             self._table_valid = valid.to(self.device)
+        self.domain = fr_poly.FrDomain(self.n, self.device)
 
     def fixedbase(self):
         """(table [2, 24, W N] int64, valid) in the public layout."""
@@ -96,3 +102,68 @@ class TorchBackend:
         """Blobs -> host Jacobian points; every blob is checked before the
         batch's one MSM runs."""
         return self.commit_scalars(self.blob_scalars(blobs))
+
+    # -- evaluation and opening (the JAX DeviceBackend's names) ----------------
+
+    def evaluate(self, evals, z: int) -> int:
+        """p(z) from evaluation-form Fr ints."""
+        return self.domain.evaluate(list(evals), z)
+
+    def quotient(self, evals, z: int, y: int) -> list:
+        """Fr ints of q(x) = (p(x) - y) / (x - z) on the domain."""
+        q = self.domain.quotient_plain_from_mont(self.domain.mont(list(evals)), z, y)
+        return lb.limbs_to_ints(q)
+
+    def open(self, evals, z: int):
+        """Evaluation-form Fr ints -> (host Jacobian proof, y = p(z))."""
+        y = self.evaluate(evals, z)
+        q = self.domain.quotient_plain_from_mont(self.domain.mont(list(evals)), z, y)
+        return self.commit_scalars(q), y
+
+    def evaluate_scalars(self, scalars: torch.Tensor, zs) -> list:
+        """[B, 16, n] plain limbs on the device, host zs -> B ints, in one
+        batched evaluation and one transfer."""
+        return self.domain.evaluate_blobs_plain(scalars, zs)
+
+    def evaluate_blobs(self, blobs, zs) -> list:
+        return self.evaluate_scalars(self.blob_scalars(blobs), zs)
+
+    def evaluate_blob(self, blob: bytes, z: int) -> int:
+        return self.evaluate_blobs([blob], [z])[0]
+
+    def open_scalars(self, scalars: torch.Tensor, zs) -> list:
+        """[B, 16, n] plain limbs on the device, host zs -> B (host
+        Jacobian proof, y): one batched evaluation, one batched quotient,
+        one MSM of the quotients and one wait for the device, which the
+        proofs' transfer makes after everything is queued. A batch with a
+        z in the domain goes blob by blob (JAX `open_blobs`)."""
+        zs = [z % R for z in zs]
+        idx = [self.domain.root_index.get(z) for z in zs]
+        if any(i is not None for i in idx):
+            if len(zs) > 1:
+                return [self.open_scalars(scalars[b : b + 1], [z])[0] for b, z in enumerate(zs)]
+            return [self._open_in_domain(scalars[0], zs[0], idx[0])]
+        z_m, zn1_m = self.domain.z_consts(zs)  # transfers before any work is queued
+        evals_m = FR.to_mont(scalars)
+        y_m = self.domain.evaluate_mont(evals_m, z_m, zn1_m)
+        q = self.domain.quotient_mont(evals_m, y_m, z_m)
+        y = FR.from_mont(y_m)[..., 0].T  # [16, B]
+        proofs = self.commit_scalars(q)
+        return list(zip(proofs, lb.limbs_to_ints(y)))
+
+    def _open_in_domain(self, plain: torch.Tensor, z: int, idx: int):
+        """(proof, y) for z = w_idx from plain limbs [16, n]: y is the
+        stored element (JAX `open_blob`)."""
+        z_inv = self.domain.mont([pow(z, R - 2, R)])
+        onehot = torch.arange(self.n, device=self.device) == idx
+        q = self.domain.quotient_in_domain_mont(FR.to_mont(plain), onehot, z_inv)
+        proof = self.commit_scalars(q)
+        return proof, lb.limbs_to_ints(plain[:, idx : idx + 1])[0]
+
+    def open_blobs(self, blobs, zs) -> list:
+        """Blobs, host zs -> [(host Jacobian proof, y)]; ValueError on a
+        bad blob, before any work."""
+        return self.open_scalars(self.blob_scalars(blobs), zs)
+
+    def open_blob(self, blob: bytes, z: int):
+        return self.open_blobs([blob], [z])[0]

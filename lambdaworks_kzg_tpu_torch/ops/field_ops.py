@@ -9,11 +9,14 @@ version that the CUDA kernels' Fp (`csrc/fp.cuh`) is held against.
 Products are schoolbook column sums (`limbs.conv`); REDC is full-width:
 m = (t mod R) N' mod R, then (t + m N) / R, one conditional subtract of
 N. Carries are resolved exactly by `limbs.normalize`.
+
+`FP` (24 limbs) holds G1 coordinates; `FR` (16 limbs, R = 2^256, as in
+the JAX package) holds the polynomial layer's values (`ops/fr_poly.py`).
 """
 
 import torch
 
-from ..constants import P
+from ..constants import P, R
 from . import limbs as lb
 
 
@@ -111,18 +114,22 @@ class MontgomeryField:
     def from_mont(self, a: torch.Tensor) -> torch.Tensor:
         return self._redc_cols(torch.cat([a, torch.zeros_like(a)], dim=-2))
 
-    def inv(self, a: torch.Tensor) -> torch.Tensor:
-        """Fermat inversion a^(N-2); maps 0 to 0."""
-        e = self.modulus - 2
+    def pow_fixed(self, a: torch.Tensor, exponent: int) -> torch.Tensor:
+        """a^exponent for an exponent known on the host: square and
+        multiply over its bits, from the lowest (a^0 is one)."""
         res = self.one_like(a)
         base = a
-        while e:
-            if e & 1:
+        while exponent:
+            if exponent & 1:
                 res = self.mul(res, base)
-            e >>= 1
-            if e:
+            exponent >>= 1
+            if exponent:
                 base = self.sqr(base)
         return res
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Fermat inversion a^(N-2); maps 0 to 0."""
+        return self.pow_fixed(a, self.modulus - 2)
 
     @staticmethod
     def is_zero(a: torch.Tensor) -> torch.Tensor:
@@ -134,3 +141,4 @@ class MontgomeryField:
 
 
 FP = MontgomeryField(P, 24, "fp")
+FR = MontgomeryField(R, 16, "fr")

@@ -21,17 +21,28 @@ equals `g1_ops.bucket_accumulate` limb for limb, and g1_bucket_reduce
 equals `g1_ops.bucket_reduce` on those buckets and on buckets with
 points at infinity, equal pairs (the doubling branch) and opposite pairs
 (a sum at infinity). At c = 12 the reduce keeps its points in global
-memory instead of shared memory."""
+memory instead of shared memory.
 
+On the mainnet setup: the quotient of a dense seeded blob, computed on
+the card, equals the host quotient, and both MSM kernels equal their
+plain versions on its members (dense 255-bit scalars fill every bucket,
+the top window's too); one compute_blob_kzg_proof through
+EIP4844Context(device="cuda") equals the host oracle g1_msm of the host
+quotient, and verifies."""
+
+import os
 import random
 
 import pytest
 import torch
 
+from lambdaworks_kzg_tpu_torch import EIP4844Context, convert
 from lambdaworks_kzg_tpu_torch.constants import P, R
+from lambdaworks_kzg_tpu_torch.host import curve as HC, fft
 from lambdaworks_kzg_tpu_torch.models import srs
-from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb, msm
-from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, fr_poly, g1_ops, kernels, limbs as lb, msm
+from lambdaworks_kzg_tpu_torch.ops.field_ops import FP, FR
+from lambdaworks_kzg_tpu_torch.utils import hashing as H
 
 pytestmark = [
     pytest.mark.cuda,
@@ -41,6 +52,8 @@ pytestmark = [
 
 N = 32
 GROUPS = 4
+FIXEDBASE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cache",
+                         "fixedbase_62bcf72bba2b37b8_c8.npz")
 N_BLOBS = 3
 M_OPS = 128
 
@@ -168,3 +181,53 @@ def test_msm_kernels_match_plain_on_card(basis, c):
         assert kernels.bucket_reduce.launches == before + 1
         assert tuple(got.shape) == (3, 12, N_BLOBS)
         assert torch.equal(lb.to_u16_layout(got), g1_ops.bucket_reduce(buckets, c, GROUPS))
+
+
+def _dense_blob(rng, n=4096):
+    return b"".join(rng.randrange(R).to_bytes(32, "little") for _ in range(n))
+
+
+def _host_quotient(blob, z, n=4096):
+    evals = [int.from_bytes(blob[32 * i : 32 * i + 32], "little") for i in range(n)]
+    y = fft.barycentric_evaluate(evals, z, n)
+    return y, fft.quotient(evals, z, y, n)
+
+
+def test_msm_kernels_match_plain_on_a_real_quotient():
+    table16, table_valid = convert.fixedbase_from_npz(FIXEDBASE, "cuda")
+    rng = random.Random(11)
+    blob, z = _dense_blob(rng), rng.randrange(R)
+    domain = fr_poly.FrDomain(4096, "cuda")
+    z_m, zn1_m = domain.z_consts([z])
+    evals_m = FR.to_mont(lb.as_limb_tensor(codec.blob_to_limbs(blob, 4096), "cuda")[None])
+    y_m = domain.evaluate_mont(evals_m, z_m, zn1_m)
+    q = domain.quotient_mont(evals_m, y_m, z_m)
+    y, q_host = _host_quotient(blob, z)
+    assert FR.from_mont_host(y_m[0]) == [y]
+    assert lb.limbs_to_ints(q[0]) == q_host
+    digits = msm.fixedbase_digits(q, 8)
+    assert int(msm.window_digits(q, 8)[0, -1].max()) > 0x40  # the top window is live
+    order, bstart = msm.sort_members(torch.where(table_valid, digits, torch.zeros_like(digits)), 8)
+    got = kernels.bucket_accumulate(dispatch.to_table_layout(table16), order, bstart, 8, 8)
+    want = g1_ops.bucket_accumulate(table16, order, bstart, 8, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(lb.to_u16_layout(got), want)
+    reduced = kernels.bucket_reduce(got, 8, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(lb.to_u16_layout(reduced), g1_ops.bucket_reduce(want, 8, 8))
+
+
+def test_compute_blob_kzg_proof_matches_host_msm():
+    setup = srs.load_mainnet_setup()
+    ctx = EIP4844Context(setup, device="cuda")
+    blob = _dense_blob(random.Random(13))
+    commitment = ctx.blob_to_kzg_commitment(blob)
+    before = (kernels.bucket_accumulate.launches, kernels.bucket_reduce.launches)
+    proof = ctx.compute_blob_kzg_proof(blob, commitment)
+    assert (kernels.bucket_accumulate.launches, kernels.bucket_reduce.launches) == (
+        before[0] + 1, before[1] + 1)
+    _, q_host = _host_quotient(blob, H.compute_challenge(blob, commitment))
+    xs, ys = (FP.from_mont_host(setup.lagrange_points[k]) for k in range(2))
+    basis = [(x, y) if v else None for x, y, v in zip(xs, ys, setup.lagrange_valid)]
+    assert HC.compress_g1(HC.g1_msm(q_host, basis)) == proof
+    assert ctx.verify_blob_kzg_proof(blob, commitment, proof)
