@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the six kernels and the field check from
+  2. nvcc builds the nine kernels and the field check from
      lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
      linked into one library);
   3. each kernel against its plain PyTorch version on the card, limb for
@@ -27,9 +27,22 @@ Phases, each printed with its seconds:
      quotient (a dense seeded blob at a seeded z, evaluated and divided on
      the card and equal to the host's): both MSM kernels against their
      plain versions on its members, and its MSM on the kernels against
-     the host oracle g1_msm in affine form;
-  4. the mainnet setup (testdata/trusted_setup.txt and its committed
-     conversion); EIP4844Context(setup, device="cuda") builds the
+     the host oracle g1_msm in affine form; g1_decompress on the 4096
+     mainnet monomial x's and on non-square and edge x's, g1_scalar_mul
+     on 2048 lanes of per-lane 255-bit scalars (0, r, r - 1 among them)
+     and on 4096 lanes of the broadcast 1/4096, and g1_subgroup_mask on
+     4096 monomial points and 256 sums, all over lanes at infinity, with
+     Z != 1 and outside G1, the last also against the host
+     g1_in_subgroup on a sample;
+ 3b. the setup conversion: testdata/trusted_setup.txt converted on the
+     card into a temporary cache_dir, its lagrange, monomial and g2
+     byte-equal to cache/srs_mainnet.npz, with exactly one g1_decompress,
+     one g1_subgroup_mask, 13 g1_scalar_mul and 24 g1_add launches and
+     nothing else; its stages timed apart twice (host parse, G2 on the
+     host, the device part, the affine step); testdata/trusted_setup_4.txt
+     converted byte-equal to its conversion by the host oracles (per-point
+     decompression and the host G1 FFT);
+  4. EIP4844Context(converted setup, device="cuda") builds the
      fixed-base table with one g1_fixedbase_table launch and no g1_dbl
      launch, and the table must equal
      cache/fixedbase_62bcf72bba2b37b8_c8.npz bit for bit;
@@ -40,10 +53,17 @@ Phases, each printed with its seconds:
      the card;
   7. the 46 compute_kzg_proof and 12 compute_blob_kzg_proof vectors, bit
      for bit, on the card;
-  8. the 93 verify_kzg_proof, 24 verify_blob_kzg_proof and 23
-     verify_blob_kzg_proof_batch vectors (the pairing on the host, blob
-     evaluations on the card), each verdict or KZGError as the vector has
-     it, timed;
+  8. the verify path: the 93 verify_kzg_proof, 24 verify_blob_kzg_proof
+     and 23 verify_blob_kzg_proof_batch vectors (the pairing on the host,
+     blob evaluations on the card), each verdict or KZGError as the vector
+     has it, timed; each batch of n >= 2 that passes its input checks
+     launches g1_decompress and g1_subgroup_mask once and
+     g1_fixedbase_table, g1_bucket_accumulate and g1_bucket_reduce three
+     times (one generic MSM per linear combination); seeded batches of 6
+     and 64 blobs, committed and proved on the card, verify true, and
+     false with proofs 0 and 1 swapped, twice each, timed, and one true
+     batch of each size split into its stages; a generic MSM of a blob
+     over the 4096 Lagrange points equals its commitment;
   9. the prove path: three seeded blobs through compute_blob_kzg_proof
      and a batch of six through compute_blob_kzg_proof_batch (twice),
      timed with CUDA events, each call launching each MSM kernel once and
@@ -53,23 +73,30 @@ Phases, each printed with its seconds:
  10. each kernel timed with CUDA events: the MSM kernels at the path's
      shapes for one blob and for six (seeded random blobs, c = 8), and the
      accumulation on the real quotient, madd at the 2048 lanes of one
-     blob's bucket grid, add at 1024, dbl at 4096, on random lanes, and
-     the table kernel at the mainnet shape.
-Launch counts are zeroed just before phase 4 and read after phase 6 (the
-commit path), and zeroed again in phase 9 before its first proof and
-read after its last (the prove path); phase 4 checks that the table
-build made one table launch and no g1_dbl launch, phases 6 and 9 that
-each call launches each MSM kernel once. The line before the last is
-{"kernels": [...]}, with each kernel's launches on both paths; the last
-is {"ok": true, "device": {...}}. Any failure ends the run with a
-non-zero exit and without those lines.
+     blob's bucket grid, add at 1024, dbl at 4096, on random lanes, the
+     table kernel at the mainnet shape, g1_decompress on 4096 x's,
+     g1_scalar_mul on an FFT stage's 2048 lanes of 255-bit scalars (its
+     plain time is phase 3's at that shape), g1_subgroup_mask on 4096
+     points, and fp_sqr_check on 4096 elements.
+Launch counts are zeroed just before each path and read just after it:
+the conversion (phase 3b), the commit path (phases 4 to 6), the verify
+path (phase 8, after its seeded blobs are committed and proved) and the
+prove path (phase 9, from its first proof to its last); phase 3b checks
+the conversion's exact launches, phase 4 that the table build made one
+table launch and no g1_dbl launch, phases 6 and 9 that each call
+launches each MSM kernel once, phase 8 the launches of each batch. The
+line before the last is {"kernels": [...]}, with each kernel's launches
+on the four paths; the last is {"ok": true, "device": {...}}. Any
+failure ends the run with a non-zero exit and without those lines.
 """
 
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -119,14 +146,45 @@ def chain_ops(e: int, k: int) -> tuple:
     return muls, sqrs
 
 
+def pow_imads(e: int) -> int:
+    """IMADs of a^e by the cheapest sliding window of 1 to 8 bits."""
+    return min(m * IMAD_PER_FP_MUL + s * IMAD_PER_FP_SQR
+               for m, s in (chain_ops(e, k) for k in range(1, 9)))
+
+
 def inv_imads() -> int:
-    """IMADs of a^(p - 2) by the cheapest sliding window of 1 to 8 bits
-    (5 bits: 82 products and 378 squarings). fp::inv runs the 1-bit
-    chain, 228 products and 380 squarings."""
+    """IMADs of a^(p - 2) (5-bit window: 82 products and 378 squarings).
+    fp::inv runs the 1-bit chain, 228 products and 380 squarings."""
     from lambdaworks_kzg_tpu_torch.constants import P
 
-    return min(m * IMAD_PER_FP_MUL + s * IMAD_PER_FP_SQR
-               for m, s in (chain_ops(P - 2, k) for k in range(1, 9)))
+    return pow_imads(P - 2)
+
+
+def decompress_imads(n: int) -> int:
+    """IMADs g1_decompress needs for n lanes: x^3 (a squaring and a
+    product), the power (p+1)/4 at its cheapest window (the kernel runs
+    the 1-bit chain), y0^2 for the square test and one product out of
+    Montgomery form."""
+    from lambdaworks_kzg_tpu_torch.constants import FP_SQRT_EXP
+
+    return n * (pow_imads(FP_SQRT_EXP) + 2 * IMAD_PER_FP_MUL + 2 * IMAD_PER_FP_SQR)
+
+
+def ladder_imads(k: int) -> int:
+    """IMADs of [k]P on a finite point of G1 by right-to-left double and
+    add: bit_length - 1 doublings and popcount - 1 adds (the first add
+    lands on the empty accumulator and needs no products)."""
+    if k == 0:
+        return 0
+    return (k.bit_length() - 1) * op_imads("dbl") + (bin(k).count("1") - 1) * op_imads("add")
+
+
+def subgroup_imads(n_finite: int) -> int:
+    """IMADs g1_subgroup_mask needs for n_finite lanes (lanes at infinity
+    need none): two ladders by |x|, BETA X, and the cross-multiplied
+    equality (6 products, 2 squarings)."""
+    x_abs = 0xD201000000010000
+    return n_finite * (2 * ladder_imads(x_abs) + 7 * IMAD_PER_FP_MUL + 2 * IMAD_PER_FP_SQR)
 
 
 def table_imads(n_valid: int, c: int) -> int:
@@ -149,6 +207,16 @@ CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
 PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce")
+# one conversion of the mainnet setup (n = 4096): one decompression, one
+# subgroup check, 12 FFT stages of one scalar_mul and two adds, and [1/n]
+CONVERT_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_scalar_mul": 13, "g1_add": 24}
+# one verify_blob_kzg_proof_batch of n >= 2 blobs whose inputs pass the
+# checks: one batched decompression and subgroup check, three generic MSMs
+VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fixedbase_table": 3,
+                         "g1_bucket_accumulate": 3, "g1_bucket_reduce": 3}
+SETUP_4 = os.path.join(HERE, "testdata", "trusted_setup_4.txt")
+SRS_4_NAME = "srs_0f1c825ca54c4fef.npz"  # its cache name (not committed)
+SRS_MAINNET = os.path.join(HERE, "cache", "srs_mainnet.npz")
 CONSENSUS = os.path.join(HERE, "testdata", "consensus")
 # the arguments of each entry point as a vector's input names them, and
 # how many vectors each has
@@ -310,27 +378,52 @@ def check_real_quotient(setup, table16, table_valid, max_err: dict):
     return order, bstart
 
 
+def launch_counts() -> dict:
+    """Each kernel's launch count, by name."""
+    from lambdaworks_kzg_tpu_torch.ops import kernels
+
+    return {k.name: k.launches for k in kernels.ALL}
+
+
+def check_verify_batch_launches(what: str, before: dict) -> None:
+    """One verify_blob_kzg_proof_batch of n >= 2 blobs that passed its input
+    checks made VERIFY_BATCH_LAUNCHES and nothing else."""
+    delta = {name: n - before[name] for name, n in launch_counts().items()}
+    want = {name: VERIFY_BATCH_LAUNCHES.get(name, 0) for name in delta}
+    if delta != want:
+        raise AssertionError(f"{what}: launches {delta}, not {want}")
+
+
 def run_vectors(ctx, fn: str) -> int:
     """Every consensus vector of one entry point through ctx; a KZGError
-    stands for the vector's null output. Raises unless all agree."""
+    stands for the vector's null output. Raises unless all agree. A
+    verify_blob_kzg_proof_batch vector of n >= 2 blobs with a verdict
+    must launch VERIFY_BATCH_LAUNCHES."""
     from lambdaworks_kzg_tpu_torch import KZGError
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
 
     names = sorted(os.listdir(os.path.join(CONSENSUS, fn, "small")))
-    t0, wrong = time.perf_counter(), []
+    t0, wrong, counted_batches = time.perf_counter(), [], 0
     for name in names:
         case = load_case(os.path.join(CONSENSUS, fn, "small", name, "data.yaml"))
+        before = launch_counts()
         try:
             got = getattr(ctx, fn)(*(case["input"][a] for a in VECTOR_ARGS[fn]))
         except KZGError:
             got = None
+        if (fn == "verify_blob_kzg_proof_batch" and case["output"] is not None
+                and len(case["input"]["blobs"]) >= 2):
+            check_verify_batch_launches(name, before)
+            counted_batches += 1
         if isinstance(got, tuple):
             got = list(got)
         if got != case["output"] or type(got) is not type(case["output"]):
             wrong.append(name)
     dt = time.perf_counter() - t0
     log(f"  {fn}: {len(names) - len(wrong)}/{len(names)} correct in {dt:.2f} s "
-        f"({dt / len(names) * 1e3:.1f} ms per vector)")
+        f"({dt / len(names) * 1e3:.1f} ms per vector)"
+        + (f"; {counted_batches} batches of n >= 2 launched {VERIFY_BATCH_LAUNCHES} each"
+           if counted_batches else ""))
     if wrong or len(names) != VECTOR_COUNTS[fn]:
         raise AssertionError(f"{fn}: wrong on {wrong} ({len(names)} vectors)")
     return len(names)
@@ -623,6 +716,213 @@ def check_kernel(op: str, args16) -> int:
     return same(op, lb.to_u16_layout(getattr(kernels, op)(*k_args)), plain)
 
 
+def outside_g1(count: int):
+    """Affine curve points outside G1, scanning x up from 2."""
+    from lambdaworks_kzg_tpu_torch.constants import P
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+    from lambdaworks_kzg_tpu_torch.host.field import fp_sqrt
+
+    out, x = [], 2
+    while len(out) < count:
+        y = fp_sqrt((x * x % P * x + 4) % P)
+        if y is not None and not HC.g1_in_subgroup((x, y, 1)):
+            out.append((x, y))
+        x += 1
+    return out
+
+
+def monomial_lanes(setup, n: int, dev, seed: int):
+    """[3, 24, n] Jacobian lanes from the setup's monomial G1 powers: Z != 1
+    on every third lane (one doubling), every 64th lane at infinity and
+    lanes 3, 67, 131 .. (every 64th from 3, up to 16 of them) outside G1
+    -> (lanes, host Jacobians, finite bool list)."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops, limbs as lb
+
+    pts = list(setup.g1_monomial[:n])
+    bad = outside_g1(16)
+    for j, i in enumerate(range(3, n, 64)):
+        pts[i] = bad[j % 16]
+    for i in range(0, n, 64):
+        pts[i] = None
+    aff, valid = g1_ops.make_points_host(pts)
+    jac = g1_ops.lift(lb.as_limb_tensor(aff, dev), torch.from_numpy(valid).to(dev))
+    lane = torch.arange(n, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n, generator=g).to(dev)
+    jac = torch.where((lane % 3 == 1)[None, None], g1_ops.dbl(jac), jac)[:, :, perm].contiguous()
+    return jac, [pts[i] is not None for i in perm.tolist()]
+
+
+def check_batch_kernels(setup, dev, max_err: dict) -> float:
+    """g1_decompress, g1_scalar_mul and g1_subgroup_mask against their plain
+    versions on the card, limb for limb, at the conversion's shapes ->
+    the plain g1_scalar_mul's ms at 2048 lanes of 255-bit scalars (CUDA
+    events), the shape phase 10 times the kernel at."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.constants import P, R
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+    from lambdaworks_kzg_tpu_torch.host.field import fp_sqrt
+    from lambdaworks_kzg_tpu_torch.ops import g1_batch, g1_ops, kernels, limbs as lb
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    def check(kernel, what, got16, want16):
+        max_err[kernel.name] = max(max_err[kernel.name], same(f"{kernel.name} {what}", got16, want16))
+        log(f"  {kernel.name} {what}: equal to plain, limb for limb")
+
+    # g1_decompress: the 4096 monomial x's, then 0, 1, p - 1, p - 2, a
+    # non-square, x's of points outside G1; seeded sign bits
+    non_square = [x for x in range(1, 200) if fp_sqrt((x ** 3 + 4) % P) is None][:4]
+    xs = [pt[0] for pt in setup.g1_monomial] + [0, 1, P - 1, P - 2] + non_square
+    xs += [pt[0] for pt in outside_g1(4)]
+    x16 = lb.as_limb_tensor(FP.to_mont_host(xs), dev)
+    want = torch.rand(len(xs), generator=torch.Generator().manual_seed(1)).to(dev) < 0.5
+    y, qr = kernels.decompress(lb.to_u32_layout(x16), want)
+    y_plain, qr_plain = g1_ops.decompress_xy(x16, want)
+    check(kernels.decompress, f"M={len(xs)} (y)", lb.to_u16_layout(y), y_plain)
+    check(kernels.decompress, f"M={len(xs)} (square test)", qr.long(), qr_plain.long())
+    expect_qr = [fp_sqrt((x ** 3 + 4) % P) is not None for x in xs]
+    if qr.tolist() != expect_qr:
+        raise AssertionError("g1_decompress: the square test differs from the host's")
+
+    # g1_scalar_mul: 2048 lanes with per-lane 255-bit scalars, 0 and r,
+    # over lanes at infinity, Z != 1 and outside G1; then one broadcast
+    # scalar (1/4096, the FFT's last step) on 4096 lanes
+    jac, finite = monomial_lanes(setup, 2048, dev, seed=2)
+    rng = random.Random(8)
+    ks = [rng.randrange(1 << 255) for _ in range(2048)]
+    ks[5], ks[6], ks[7] = 0, R, R - 1
+    scalars16 = lb.as_limb_tensor(lb.ints_to_limbs(ks, 16), dev)
+    got = kernels.scalar_mul(lb.to_u32_layout(jac), lb.to_u32_layout(scalars16), 256)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = g1_ops.scalar_mul(jac, scalars16, 256)
+    end.record()
+    torch.cuda.synchronize()
+    scalar_mul_plain_ms = start.elapsed_time(end)
+    check(kernels.scalar_mul, "M=2048 (per-lane 255-bit scalars)", lb.to_u16_layout(got), plain)
+    host_in, host_out = g1_ops.points_to_host(jac[:, :, :64]), g1_ops.points_to_host(
+        lb.to_u16_layout(got)[:, :, :64])
+    for pt, out, k in zip(host_in, host_out, ks):
+        if not HC.points_eq(out, HC.point_scalar_mul_raw(pt, k) if pt[2] else HC.INFINITY):
+            raise AssertionError("g1_scalar_mul differs from the host scalar multiplication")
+    jac4k, _ = monomial_lanes(setup, 4096, dev, seed=3)
+    n_inv = pow(4096, R - 2, R)
+    got = g1_batch.scalar_mul_fixed(jac4k, n_inv)
+    check(kernels.scalar_mul, "M=4096 (broadcast 1/4096)", got,
+          g1_batch.scalar_mul_fixed(jac4k, n_inv, ops=g1_ops))
+
+    # g1_subgroup_mask: 4096 monomial lanes (some outside G1, some at
+    # infinity) and 256 sums of neighbours; a sample against the host
+    sums = g1_ops.add(jac4k[:, :, :256], jac4k[:, :, 1:257])
+    lanes = torch.cat([jac4k, sums], dim=-1).contiguous()
+    got = kernels.subgroup_mask(lb.to_u32_layout(lanes))
+    plain = g1_ops.subgroup_mask(lanes)
+    check(kernels.subgroup_mask, f"M={lanes.shape[-1]}", got.long(), plain.long())
+    sample = list(range(0, lanes.shape[-1], 17))
+    host = g1_ops.points_to_host(lanes[:, :, sample])
+    if [bool(got[i]) for i in sample] != [HC.g1_in_subgroup(pt) for pt in host]:
+        raise AssertionError("g1_subgroup_mask differs from the host g1_in_subgroup")
+    log(f"  g1_subgroup_mask: {int((~got).sum())} of {lanes.shape[-1]} lanes outside G1, "
+        f"{len(sample)} sampled lanes equal to the host g1_in_subgroup")
+    return scalar_mul_plain_ms
+
+
+def convert_stages(path: str, dev) -> dict:
+    """One conversion of a setup file, its stages timed apart: the host
+    parse, the G2 decompressions (host), the device part (decompression,
+    subgroup check and inverse FFT, to a synchronize) and the affine step
+    with the bit reversal (host)."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.host import fft
+    from lambdaworks_kzg_tpu_torch.models import srs
+    from lambdaworks_kzg_tpu_torch.ops import g1_batch
+
+    t = [time.perf_counter()]
+    with open(path, "r", encoding="utf-8") as f:
+        g1_bytes, g2_bytes = srs._parse_setup_text(f.read())
+    t.append(time.perf_counter())
+    srs._decompress_g2_list(g2_bytes)
+    t.append(time.perf_counter())
+    pts, is_inf, err = g1_batch.decompress_batch(g1_bytes, device=dev)
+    jac = g1_batch.lift_affine(pts, torch.from_numpy(~is_inf).to(dev))
+    lagrange = g1_batch.g1_fft_device(jac, inverse=True)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    brp = torch.tensor(fft.bit_reversal_permutation(list(range(len(g1_bytes)))), device=dev)
+    g1_batch.jacobians_to_host_affine(lagrange.index_select(-1, brp))
+    g1_batch.jacobians_to_host_affine(jac)
+    t.append(time.perf_counter())
+    if err.any():
+        raise AssertionError("a setup point failed to decompress")
+    names = ("parse_s", "g2_host_s", "device_s", "affine_host_s")
+    return {name: t[i + 1] - t[i] for i, name in enumerate(names)}
+
+
+def verify_split(ctx, blobs, commitments, proofs) -> dict:
+    """The stages of one verify_blob_kzg_proof_batch timed apart on the host
+    clock, each ending in a transfer to the host: the batched
+    decompression and subgroup check, the challenges (host hashing), the
+    blob evaluations on the card, the three generic MSMs alone, and
+    KZG.verify_batch (the same MSMs and the host pairing)."""
+    from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+    from lambdaworks_kzg_tpu_torch.utils import hashing as H
+
+    backend, n = ctx.backend, len(blobs)
+    t = [time.perf_counter()]
+    points = backend.decompress_g1_batch(commitments + proofs)
+    t.append(time.perf_counter())
+    zs = [H.compute_challenge(b, c, ctx.n) for b, c in zip(blobs, commitments)]
+    t.append(time.perf_counter())
+    ys = backend.evaluate_scalars(backend.blob_scalars(blobs), zs)
+    t.append(time.perf_counter())
+    rs = H.compute_r_powers(commitments, zs, ys, proofs, ctx.n)
+    aff = [HC.to_affine(p) for p in points]
+    backend.msm(rs, aff[n:])
+    backend.msm([r * z % R for r, z in zip(rs, zs)], aff[n:])
+    backend.msm(rs + [(-sum(r * y for r, y in zip(rs, ys))) % R],
+                aff[:n] + [HC.to_affine(HC.G1_GENERATOR)])
+    t.append(time.perf_counter())
+    if not ctx.kzg.verify_batch(points[:n], zs, ys, points[n:], rs):
+        raise AssertionError("the split batch verification rejected a true batch")
+    t.append(time.perf_counter())
+    names = ("decompress_ms", "challenges_ms", "evaluate_ms", "three_msm_ms", "msm_and_pairing_ms")
+    return {name: (t[i + 1] - t[i]) * 1e3 for i, name in enumerate(names)}
+
+
+def host_conversion(path: str) -> dict:
+    """A setup file converted by the port's host oracles, as a cache's
+    arrays: each G1 point decompressed and subgroup-checked in Python
+    ints, the host inverse G1 FFT, the bit reversal."""
+    from lambdaworks_kzg_tpu_torch.host import curve as HC, fft
+    from lambdaworks_kzg_tpu_torch.models import srs
+
+    with open(path, "r", encoding="utf-8") as f:
+        g1_bytes, g2_bytes = srs._parse_setup_text(f.read())
+    monomial = [HC.decompress_g1(b, subgroup_check=True) for b in g1_bytes]
+    lagrange = fft.bit_reversal_permutation(fft.g1_fft(monomial, inverse=True))
+    return {"lagrange": srs._affine_g1_to_u8([HC.to_affine(p) for p in lagrange]),
+            "monomial": srs._affine_g1_to_u8([HC.to_affine(p) for p in monomial]),
+            "g2": srs._affine_g2_to_u8(srs._decompress_g2_list(g2_bytes))}
+
+
+def same_npz(got_path: str, want) -> None:
+    """The cache file at got_path holds `want`'s lagrange, monomial and g2
+    arrays (another cache file's path, or a dict of arrays)."""
+    import numpy as np
+
+    with np.load(got_path) as got:
+        want = dict(np.load(want)) if isinstance(want, str) else want
+        for key in ("lagrange", "monomial", "g2"):
+            if got[key].dtype != want[key].dtype or not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"{got_path}: {key} differs")
+
+
 def time_ms(fn, reps: int, warm: int = 2) -> float:
     """Device ms per call. The launches queue up behind a ~20 ms spin on
     the card, so a kernel shorter than its wrapper's host cost is timed
@@ -650,10 +950,13 @@ def run() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs an NVIDIA card")
 
-    from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGError, convert, load_mainnet_setup
-    from lambdaworks_kzg_tpu_torch.constants import num_windows
+    from lambdaworks_kzg_tpu_torch import (EIP4844Context, KZGError, convert, load_mainnet_setup,
+                                           load_trusted_setup_file)
+    from lambdaworks_kzg_tpu_torch.models import srs
+    from lambdaworks_kzg_tpu_torch.constants import P, R, num_windows
     from lambdaworks_kzg_tpu_torch.host import curve as HC
     from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, g1_ops, kernels, limbs as lb, msm
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
     from lambdaworks_kzg_tpu_torch.utils import hashing as H
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
 
@@ -677,7 +980,7 @@ def run() -> None:
     setup = load_mainnet_setup()
     points = lb.as_limb_tensor(setup.lagrange_points, dev)
     points_valid = torch.from_numpy(setup.lagrange_valid.copy()).to(dev)
-    max_err = {k.name: 0 for k in kernels.ALL}
+    max_err = {k.name: 0 for k in kernels.ALL + (kernels.sqr_check,)}
     with Phase("3 kernels vs plain"):
         check_sqr(dev, 4096, seed=5)
         lane = torch.arange(256, device=dev)
@@ -705,15 +1008,45 @@ def run() -> None:
             check_msm_kernels(f"synthetic c={c} B={n_blobs}", synth, order, bstart, c, max_err,
                               extra_buckets=synthetic_buckets(points, c, n_blobs, seed=c))
         q_order, q_bstart = check_real_quotient(setup, table16, table_valid, max_err)
+        scalar_mul_plain_ms = check_batch_kernels(setup, dev, max_err)
+
+    kernels.reset_counts()  # the conversion path starts here
+    with Phase("3b setup conversion"):
+        tmp = tempfile.mkdtemp(prefix="lwkzg_srs_")
+        try:
+            t0 = time.perf_counter()
+            converted = load_trusted_setup_file(srs.MAINNET_SETUP_PATH, cache_dir=tmp, device="cuda")
+            torch.cuda.synchronize()
+            results["convert_s"] = time.perf_counter() - t0
+            convert_launches = launch_counts()  # the path ends here
+            expected = {k.name: CONVERT_LAUNCHES.get(k.name, 0) for k in kernels.ALL}
+            if convert_launches != expected:
+                raise AssertionError(f"the conversion's launches are {convert_launches}, not {expected}")
+            same_npz(os.path.join(tmp, "srs_mainnet.npz"), SRS_MAINNET)
+            if not (np.array_equal(converted.lagrange_points, setup.lagrange_points)
+                    and converted.g1_monomial == setup.g1_monomial
+                    and converted.g2_monomial == setup.g2_monomial):
+                raise AssertionError("the converted setup differs from the committed one")
+            log(f"  mainnet setup converted on the card in {results['convert_s']:.3f} s, "
+                f"lagrange, monomial and g2 byte-equal to {os.path.relpath(SRS_MAINNET, HERE)}; "
+                f"launches {convert_launches}")
+            results["convert_stages"] = [convert_stages(srs.MAINNET_SETUP_PATH, dev) for _ in range(2)]
+            log(f"  stages (two runs): {results['convert_stages']}")
+            load_trusted_setup_file(SETUP_4, cache_dir=tmp, device="cuda")
+            same_npz(os.path.join(tmp, SRS_4_NAME), host_conversion(SETUP_4))
+            log(f"  degree-4 setup converted on the card into {SRS_4_NAME}, byte-equal to its "
+                "conversion by the host oracles")
+        finally:
+            shutil.rmtree(tmp)
 
     kernels.reset_counts()
     with Phase("4 setup and fixed-base table"):
         t0 = time.perf_counter()
-        ctx = EIP4844Context(setup, device="cuda")
+        ctx = EIP4844Context(converted, device="cuda")
         torch.cuda.synchronize()
         results["table_build_s"] = time.perf_counter() - t0
         results["table_kernel_ms_phase3"] = table_kernel_ms
-        built = {k.name: k.launches for k in kernels.ALL}
+        built = launch_counts()
         if built["g1_fixedbase_table"] != 1 or built["g1_dbl"] != 0:
             raise AssertionError(f"one table build must launch g1_fixedbase_table once and g1_dbl "
                                  f"never ({built})")
@@ -753,7 +1086,7 @@ def run() -> None:
         runs = [timed_call(ctx.blob_to_kzg_commitment_batch, blobs) for _ in range(2)]
         batch = runs[0][0]
         results["ms_per_blob_batch6"] = [r[1] / len(blobs) for r in runs]
-        launches = {k.name: k.launches for k in kernels.ALL}  # the main path ends here
+        launches = launch_counts()  # the main path ends here
         log(f"  single {results['ms_per_blob_single']} ms/blob, "
             f"batch of 6 {results['ms_per_blob_batch6']} ms/blob; launches {launches}; "
             "each commit and each batch launched each MSM kernel once")
@@ -777,11 +1110,48 @@ def run() -> None:
         for fn in ("compute_kzg_proof", "compute_blob_kzg_proof"):
             run_vectors(ctx, fn)
 
-    with Phase("8 verify vectors"):
+    with Phase("8 verify path"):
+        rng = np.random.default_rng(4846)
+        batches = {}
+        for count in (6, 64):
+            blobs = random_blobs(rng, count)
+            cs = ctx.blob_to_kzg_commitment_batch(blobs)
+            batches[count] = (blobs, cs, ctx.compute_blob_kzg_proof_batch(blobs, cs))
+        kernels.reset_counts()  # the verify path starts here
         t0 = time.perf_counter()
         for fn in ("verify_kzg_proof", "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch"):
             run_vectors(ctx, fn)
         results["verify_vectors_s"] = time.perf_counter() - t0
+        results["verify_batch_ms"] = {}
+        for count, (blobs, cs, ps) in batches.items():
+            swapped = [ps[1], ps[0]] + ps[2:]  # proofs 0 and 1 swapped
+            for verdict, proofs in ((True, ps), (False, swapped), (True, ps), (False, swapped)):
+                before = launch_counts()
+                t0 = time.perf_counter()
+                got = ctx.verify_blob_kzg_proof_batch(blobs, cs, proofs)
+                ms = (time.perf_counter() - t0) * 1e3
+                check_verify_batch_launches(f"{count} seeded blobs", before)
+                if got is not verdict:
+                    raise AssertionError(f"{count} seeded blobs: verdict {got}, not {verdict}")
+                results["verify_batch_ms"].setdefault(f"{count} {verdict}".lower(), []).append(ms)
+        verify_launches = launch_counts()  # the verify path ends here
+        log(f"  verify_blob_kzg_proof_batch of seeded blobs (true, then proofs 0 and 1 swapped), "
+            f"ms per call: {results['verify_batch_ms']}; verify path launches {verify_launches}")
+        results["verify_split"] = {count: verify_split(ctx, *batch) for count, batch in batches.items()}
+        log(f"  one true batch's stages, ms: {results['verify_split']}")
+        missing = [name for name in VERIFY_BATCH_LAUNCHES if verify_launches[name] == 0]
+        stray = [name for name, n in verify_launches.items() if n and name not in VERIFY_BATCH_LAUNCHES]
+        if missing or stray:
+            raise AssertionError(f"the verify path's launches are wrong: {verify_launches}")
+        blob, commitment = batches[6][0][0], batches[6][1][0]
+        evals = [int.from_bytes(blob[32 * i : 32 * i + 32], "little") for i in range(setup.n)]
+        t0 = time.perf_counter()
+        point = ctx.backend.msm(evals, basis_affine(setup))
+        results["generic_msm_4096_ms"] = (time.perf_counter() - t0) * 1e3
+        if HC.compress_g1(point) != commitment:
+            raise AssertionError("the generic MSM over the Lagrange basis differs from the commitment")
+        log(f"  generic MSM of a blob over the 4096 Lagrange points equals its commitment "
+            f"({results['generic_msm_4096_ms']:.1f} ms)")
 
     with Phase("9 prove path"):
         rng = np.random.default_rng(4845)
@@ -794,7 +1164,7 @@ def run() -> None:
         runs = [timed_call(ctx.compute_blob_kzg_proof_batch, blobs, commitments) for _ in range(2)]
         batch = runs[0][0]
         results["prove_ms_per_proof_batch6"] = [r[1] / len(blobs) for r in runs]
-        prove_launches = {k.name: k.launches for k in kernels.ALL}  # the prove path ends here
+        prove_launches = launch_counts()  # the prove path ends here
         log(f"  compute_blob_kzg_proof {results['prove_ms_single']} ms per proof, "
             f"batch of 6 {results['prove_ms_per_proof_batch6']} ms per proof; launches "
             f"{prove_launches}; each proof and each batch launched each MSM kernel once")
@@ -823,9 +1193,10 @@ def run() -> None:
         log(f"  synchronizing calls: {syncs['single']} per proof, {syncs['batch6']} per batch of six")
 
     def counted(name: str) -> dict:
-        """A kernel's launches on the commit and the prove path."""
-        return {"launches": launches[name] + prove_launches[name],
-                "launches_by_path": {"commit": launches[name], "prove": prove_launches[name]}}
+        """A kernel's launches on the conversion, commit, verify and prove paths."""
+        by_path = {"convert": convert_launches.get(name, 0), "commit": launches.get(name, 0),
+                   "verify": verify_launches.get(name, 0), "prove": prove_launches.get(name, 0)}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     entries = []
     with Phase("10 kernel timing"):
@@ -951,6 +1322,56 @@ def run() -> None:
         log(f"  g1_fixedbase_table N={n} c={C_MAIN} ({n_valid} valid lanes, {imads} IMADs): "
             f"kernel {t_table[0]:.4f} / {t_table[1]:.4f} ms, plain {table_plain_ms:.1f} ms, "
             f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+
+        # the batched G1 kernels at the conversion's shapes: 4096 x's, an
+        # FFT stage's 2048 lanes with 255-bit twiddle-like scalars, 4096
+        # points in G1; and the field check on 4096 elements
+        x16 = lb.as_limb_tensor(FP.to_mont_host([pt[0] for pt in setup.g1_monomial]), dev)
+        want = torch.rand(n, generator=torch.Generator().manual_seed(9)).to(dev) < 0.5
+        aff, valid = g1_ops.make_points_host(setup.g1_monomial)
+        jac = g1_ops.lift(lb.as_limb_tensor(aff, dev), torch.from_numpy(valid).to(dev)).contiguous()
+        rng_k = random.Random(10)
+        ks = [rng_k.randrange(1 << 254, R) for _ in range(n // 2)]
+        k16 = lb.as_limb_tensor(lb.ints_to_limbs(ks, 16), dev)
+        half = jac[:, :, : n // 2].contiguous()
+        sq_in = lb.to_u32_layout(lb.as_limb_tensor(
+            lb.ints_to_limbs([random.Random(11).randrange(P) for _ in range(n)], 24), dev))
+        batch_cases = (
+            # kernel, plain (None: phase 3's time at this shape), kernel
+            # args, plain args, lanes, bytes, IMADs
+            (kernels.decompress, g1_ops.decompress_xy, (lb.to_u32_layout(x16), want), (x16, want), n,
+             n * 2 * (FP_BYTES + 1), decompress_imads(n)),
+            (kernels.scalar_mul, None,
+             (lb.to_u32_layout(half), lb.to_u32_layout(k16), 256), (), n // 2,
+             n // 2 * (2 * 3 * FP_BYTES + 32), sum(ladder_imads(k) for k in ks)),
+            (kernels.subgroup_mask, g1_ops.subgroup_mask, (lb.to_u32_layout(jac),), (jac,), n,
+             n * (3 * FP_BYTES + 1), subgroup_imads(int(valid.sum()))),
+            (kernels.sqr_check, lambda a: (FP.sqr(a), FP.mul(a, a)), (sq_in,),
+             (lb.to_u16_layout(sq_in),), n, n * 3 * FP_BYTES, n * (IMAD_PER_FP_SQR + IMAD_PER_FP_MUL)),
+        )
+        for kernel, plain_fn, k_args, p_args, lanes, nbytes, imads in batch_cases:
+            t_kernel = [time_ms(lambda: kernel(*k_args), reps=20, warm=2) for _ in range(2)]
+            t_plain = ([scalar_mul_plain_ms] if plain_fn is None
+                       else [time_ms(lambda: plain_fn(*p_args), reps=1, warm=0)])
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
+            src = "g1.cu" if kernel is kernels.sqr_check else "g1_batch.cu"
+            entry = {
+                "name": kernel.name,
+                "route": "cuda",
+                "source": f"{PKG}/csrc/{src}",
+                "replaces": kernel.replaces,
+                **counted(kernel.name),
+                "max_abs_err": max_err.get(kernel.name, 0),
+                "ms": sum(t_kernel) / 2,
+                "plain_ms": t_plain[0],
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None,
+                "lanes": lanes,
+            }
+            entries.append(entry)
+            log(f"  {kernel.name} M={lanes}: kernel {t_kernel[0]:.4f} / {t_kernel[1]:.4f} ms, plain "
+                f"{entry['plain_ms']:.1f} ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
 
     log(json.dumps({"end_to_end": results, "card": card}))
     log(json.dumps({"kernels": entries}))

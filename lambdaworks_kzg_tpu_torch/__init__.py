@@ -3,11 +3,20 @@ lambdaworks_kzg_tpu. EIP4844Context serves the seven EIP-4844 entry
 points and the batched commit and proof APIs: commitments and proofs
 run on the card, through the Fr evaluation and quotient as PyTorch ops
 and the fixed-base MSM on hand-written CUDA kernels (ops/kernels.py);
-verification runs the pairing on the host."""
+verification runs the pairing on the host, with batch verification's
+point decompression and linear combinations on the card. A trusted setup
+without a cached conversion is converted on the card
+(load_trusted_setup_file)."""
 
 from .constants import BYTES_PER_BLOB, FIELD_ELEMENTS_PER_BLOB
 from .models.eip4844 import EIP4844Context, KZGError
-from .models.srs import TrustedSetup, load_mainnet_setup, load_trusted_setup_file
+from .models.srs import (
+    TrustedSetup,
+    create_dev_setup,
+    load_mainnet_setup,
+    load_trusted_setup_file,
+    load_trusted_setup_from_bytes,
+)
 
 __all__ = [
     "BYTES_PER_BLOB",
@@ -15,6 +24,8 @@ __all__ = [
     "EIP4844Context",
     "KZGError",
     "TrustedSetup",
+    "create_dev_setup",
     "load_mainnet_setup",
     "load_trusted_setup_file",
+    "load_trusted_setup_from_bytes",
 ]

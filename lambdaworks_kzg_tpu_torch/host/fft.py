@@ -1,9 +1,11 @@
 """The evaluation domain over Python ints: bit-reversed roots of unity,
-and the barycentric evaluation and quotient that `ops/fr_poly.py` is
-held against (the port's copy of the JAX package's `host/fft.py`,
-without the NTTs, and of its host quotient)."""
+the barycentric evaluation and quotient that `ops/fr_poly.py` is held
+against, and the G1 group FFT that `ops/g1_batch.g1_fft_device` is held
+against (the port's copy of the JAX package's `host/fft.py`, without the
+Fr NTT, and of its host quotient)."""
 
 from ..constants import R, fr_root_of_unity
+from . import curve as C
 from .field import batch_fr_inv
 
 
@@ -23,6 +25,36 @@ def fr_roots_of_unity(order: int):
     for i in range(1, order):
         out[i] = out[i - 1] * w % R
     return out
+
+
+def g1_fft(points, inverse: bool = False):
+    """Radix-2 FFT over G1 (Jacobian tuples), natural order in and out:
+    butterflies are point additions, twiddles scalar multiplications.
+    The inverse FFT of the setup's monomial powers is its Lagrange basis."""
+    n = len(points)
+    if n & (n - 1):
+        raise ValueError("length must be a power of two")
+    a = bit_reversal_permutation(list(points))
+    length = 2
+    while length <= n:
+        w_len = fr_root_of_unity(length)
+        if inverse:
+            w_len = pow(w_len, R - 2, R)
+        half = length // 2
+        tw = [1] * half
+        for i in range(1, half):
+            tw[i] = tw[i - 1] * w_len % R
+        for start in range(0, n, length):
+            for j in range(half):
+                u = a[start + j]
+                t = C.point_scalar_mul(a[start + j + half], tw[j])
+                a[start + j] = C.point_add(u, t)
+                a[start + j + half] = C.point_add(u, C.point_neg(t))
+        length *= 2
+    if inverse:
+        n_inv = pow(n, R - 2, R)
+        a = [C.point_scalar_mul(pt, n_inv) for pt in a]
+    return a
 
 
 def barycentric_evaluate(evals_brp, z: int, order: int) -> int:

@@ -8,8 +8,11 @@ Commitments and proofs run on the context's device: the Fr evaluation
 and quotient as PyTorch ops, the fixed-base MSM on the Hopper kernels
 (`ops/backend.py`). Verification runs the pairing on the host
 (`models/kzg.py`), as the JAX package does by default; its blob
-evaluations run on the device. Points arriving from outside are
-decompressed and subgroup-checked one by one on the host.
+evaluations run on the device. `verify_blob_kzg_proof_batch` decompresses
+and subgroup-checks its 2n points in one batched pass and forms its
+three linear combinations with the generic MSM, both on the device, as
+the JAX device branch does; the single checks decompress their points on
+the host.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -55,7 +58,7 @@ class EIP4844Context:
                  backend=None):
         self.setup = setup if setup is not None else load_mainnet_setup()
         self.backend = backend if backend is not None else TorchBackend(self.setup, device)
-        self.kzg = KZG(self.setup)
+        self.kzg = KZG(self.setup, self.backend)
         self.n = self.setup.n
 
     def _scalars(self, blobs):
@@ -147,8 +150,11 @@ class EIP4844Context:
             self._check_blob_size(blob)
         c_list = [bytes(c) for c in commitment_bytes_list]
         p_list = [bytes(p) for p in proof_bytes_list]
-        commitments = [_check_g1(c, "commitment") for c in c_list]
-        proofs = [_check_g1(p, "proof") for p in p_list]
+        try:  # one batched decompression and subgroup check of all 2n points
+            points = self.backend.decompress_g1_batch(c_list + p_list)
+        except ValueError as e:
+            raise KZGError(str(e)) from e
+        commitments, proofs = points[:n], points[n:]
         zs = [H.compute_challenge(bytes(b), c, self.n) for b, c in zip(blobs, c_list)]
         ys = self.backend.evaluate_scalars(self._scalars(blobs), zs)
         r_powers = H.compute_r_powers(c_list, zs, ys, p_list, self.n)

@@ -1,10 +1,12 @@
-"""KZG verification on the host tier (Python ints).
+"""KZG verification: the pairing on the host tier (Python ints), the
+batch check's linear combinations through the backend's MSM.
 
 The port of `KZG.verify` and `KZG.verify_batch` of the JAX package's
 `models/kzg.py` on its default path: the pairing and its scalar
 multiplications run on the host (`host/pairing.py`), and the batch
-check's linear combinations through the host `g1_msm`. The port has no
-device pairing tier yet, so there is no switch for one.
+check's three linear combinations go through `backend.msm` (the generic
+MSM on the device, `ops/backend.py`). The port has no device pairing
+tier yet, so there is no switch for one.
 """
 
 from ..constants import R
@@ -13,9 +15,11 @@ from ..host.pairing import pairings_verify
 
 
 class KZG:
-    """The checks of one setup, from its [1]_2 and [s]_2."""
+    """The checks of one setup, from its [1]_2 and [s]_2; `backend`
+    supplies `msm(scalars, points_affine)` for the batch check."""
 
-    def __init__(self, setup):
+    def __init__(self, setup, backend):
+        self.backend = backend
         g2 = setup.g2_monomial
         self.g2_one = C.g2_from_affine(g2[0]) if len(g2) >= 2 else None
         self.g2_s = C.g2_from_affine(g2[1]) if len(g2) >= 2 else None
@@ -38,12 +42,13 @@ class KZG:
         with sum r^i [y_i]G1 folded into the commitments' combination as
         one more point."""
         g2_one, g2_s = self._g2()
+        msm = self.backend.msm
         proof_aff = [C.to_affine(p) for p in proofs]
         commitment_aff = [C.to_affine(c) for c in commitments]
         neg_y_sum = (-sum(r * y for r, y in zip(r_powers, ys))) % R
-        proof_lincomb = C.g1_msm(list(r_powers), proof_aff)
-        proof_z_lincomb = C.g1_msm([r * z % R for r, z in zip(r_powers, zs)], proof_aff)
-        c_minus_y_lincomb = C.g1_msm(list(r_powers) + [neg_y_sum],
-                                     commitment_aff + [C.to_affine(C.G1_GENERATOR)])
+        proof_lincomb = msm(list(r_powers), proof_aff)
+        proof_z_lincomb = msm([r * z % R for r, z in zip(r_powers, zs)], proof_aff)
+        c_minus_y_lincomb = msm(list(r_powers) + [neg_y_sum],
+                                commitment_aff + [C.to_affine(C.G1_GENERATOR)])
         rhs = C.point_add(c_minus_y_lincomb, proof_z_lincomb)
         return pairings_verify(rhs, g2_one, proof_lincomb, g2_s)

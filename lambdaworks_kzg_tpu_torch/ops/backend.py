@@ -1,5 +1,5 @@
-"""TorchBackend: the commit and prove paths of one trusted setup on one
-device.
+"""TorchBackend: the commit, prove and batch-verify paths of one trusted
+setup on one device.
 
 Holds the fixed-base table on the device in the accumulation's layout,
 built at init by one launch of the `g1_fixedbase_table` kernel (on a CUDA
@@ -9,13 +9,17 @@ blobs through one `msm.msm_fixedbase_device` call and one transfer of
 the results, and opens a batch (proof and y for each blob) through one
 batched evaluation, one batched quotient and one such MSM of the
 quotients, which stay on the device until the MSM's result comes back.
+Batch verification decompresses its points in one batched pass
+(`decompress_g1_batch`) and forms its linear combinations with the
+generic MSM (`msm`), both on the device.
 """
 
 import numpy as np
 import torch
 
 from ..constants import R, num_windows
-from . import codec, dispatch, fr_poly, msm
+from ..host import curve as HC
+from . import codec, dispatch, fr_poly, g1_batch, g1_ops, msm
 from . import limbs as lb
 from .field_ops import FR
 
@@ -167,3 +171,37 @@ class TorchBackend:
 
     def open_blob(self, blob: bytes, z: int):
         return self.open_blobs([blob], [z])[0]
+
+    # -- batch verification (the JAX DeviceBackend's names) --------------------
+
+    def msm(self, scalars, points_affine, scalar_bits: int = 255):
+        """sum_i k_i P_i over host affine points ((x, y) or None) -> host
+        Jacobian point, on this device: the generic MSM at the window
+        `auto_window` picks for len(points). Scalars are taken mod r;
+        ValueError for one at or above 2^scalar_bits after that."""
+        points = list(points_affine)
+        scalars = list(scalars)
+        if len(points) != len(scalars):
+            raise ValueError("scalar and point counts differ")
+        if not points:
+            return HC.INFINITY
+        pts, valid = g1_ops.make_points_host(points)
+        return msm.msm(lb.as_limb_tensor(pts, self.device),
+                       torch.from_numpy(valid).to(self.device),
+                       msm.scalars_to_tensor(scalars, self.device),
+                       auto_window(len(points)), scalar_bits, GROUPS)
+
+    def decompress_g1_batch(self, compressed) -> list:
+        """48-byte compressed points -> host Jacobians, decompressed and
+        subgroup-checked in one batched pass on this device; ValueError
+        naming the first bad index."""
+        compressed = [bytes(b) for b in compressed]
+        if not compressed:
+            return []
+        if any(len(b) != 48 for b in compressed):
+            raise ValueError("a compressed G1 point must be 48 bytes")
+        pts, is_inf, err = g1_batch.decompress_batch(compressed, device=self.device)
+        if err.any():
+            raise ValueError(f"bad G1 point at index {int(np.argmax(err))}")
+        valid = torch.from_numpy(~is_inf).to(self.device)
+        return g1_ops.points_to_host(g1_batch.lift_affine(pts, valid))

@@ -11,6 +11,11 @@ once per table or bucket array, not once per op. `ops/g1_ops.py` offers
 the same names the MSM calls, with the identity layout, so code written
 against this module runs the plain versions on any device when handed
 `g1_ops`.
+
+The routes of the batched G1 steps (`ops/g1_batch.py`) take and return
+the public layout and convert around each launch: `decompress_xy`,
+`scalar_mul`, `subgroup_mask` and `add` run once per batch or per FFT
+stage, not in a loop of ops.
 """
 
 import torch
@@ -61,3 +66,36 @@ def from_table_layout(table: torch.Tensor) -> torch.Tensor:
     if not table.is_cuda:
         return table
     return lb.to_u16_layout(table.permute(1, 2, 0))
+
+
+# -- the batched G1 steps, public layout in and out ------------------------
+
+
+def decompress_xy(x16, want_largest):
+    """x [24, B] Montgomery + want_largest bool[B] -> (y [24, B], qr bool[B])."""
+    if x16.is_cuda:
+        y, qr = kernels.decompress(lb.to_u32_layout(x16), want_largest.contiguous())
+        return lb.to_u16_layout(y), qr
+    return g1_ops.decompress_xy(x16, want_largest)
+
+
+def scalar_mul(points16, scalars16, nbits: int):
+    """[3, 24, B] Jacobian, [16, B] or [16, 1] plain scalars -> [k_b] P_b."""
+    if points16.is_cuda:
+        out = kernels.scalar_mul(lb.to_u32_layout(points16), lb.to_u32_layout(scalars16), nbits)
+        return lb.to_u16_layout(out)
+    return g1_ops.scalar_mul(points16, scalars16, nbits)
+
+
+def subgroup_mask(points16):
+    """[3, 24, B] Jacobian -> bool[B], P in G1."""
+    if points16.is_cuda:
+        return kernels.subgroup_mask(lb.to_u32_layout(points16))
+    return g1_ops.subgroup_mask(points16)
+
+
+def add(p16, q16):
+    """Complete Jacobian add of [3, 24, B] points."""
+    if p16.is_cuda:
+        return lb.to_u16_layout(kernels.add(lb.to_u32_layout(p16), lb.to_u32_layout(q16)))
+    return g1_ops.add(p16, q16)

@@ -1,10 +1,14 @@
-"""G1 point operations in plain PyTorch: the plain versions of the six
+"""G1 point operations in plain PyTorch: the plain versions of the nine
 CUDA kernels (`ops/kernels.py`), and the CPU path. `madd`, `add` and `dbl`
 are the point ops; `bucket_accumulate` and `bucket_reduce` are the
 fixed-base MSM's two stages, written over them as the JAX package writes
 them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
 `_tree_sum_lanes`); `fixedbase_table` builds the MSM's table, as
-`build_fixedbase_tables` does there.
+`build_fixedbase_tables` does there. `decompress_xy`, `scalar_mul` and
+`subgroup_mask` are the batched G1 steps of the JAX package's
+`ops/g1_batch.py` (`_xy_from_x` + `_pick_sign`, the `fori_loop`s of
+`scalar_mul_fixed` / `scalar_mul_per_lane`, `subgroup_mask` with
+`_jacobian_eq_mask`), which `ops/g1_batch.py` here drives.
 
 Points are Jacobian (X, Y, Z) in Montgomery form, one [..., 3, L, B]
 radix-2^16 int64 tensor (coordinate, limb, lane); infinity is Z == 0.
@@ -17,7 +21,7 @@ the JAX result.
 import numpy as np
 import torch
 
-from ..constants import num_windows
+from ..constants import BLS_X, B_G1_MONT, FP_HALF, FP_SQRT_EXP, G1_BETA, num_windows
 from . import limbs as lb
 from .field_ops import FP
 from .formulas import jacobian_add_core, jacobian_dbl, jacobian_madd_core
@@ -234,6 +238,90 @@ def fixedbase_table(points: torch.Tensor, valid: torch.Tensor, c: int):
     aff = to_affine_windows(torch.stack(shifted))  # [W, 2, L, N]
     table = aff.permute(1, 2, 0, 3).reshape(2, L, -1)
     return table, valid.repeat(w_count)
+
+
+# -- batched decompression, scalar multiplication, subgroup check -----------
+# (plain versions of csrc/g1_batch.cu)
+
+
+_BETA_MONT = G1_BETA * FP.R % FP.modulus
+
+
+def _const(value: int, like: torch.Tensor) -> torch.Tensor:
+    """A radix-2^16 [L, 1] constant on like's device."""
+    return lb.as_limb_tensor(lb.int_to_limbs(value, L), like.device)
+
+
+def xy_from_x(x: torch.Tensor):
+    """x [L, B] Montgomery -> (y0 = (x^3 + 4)^((p+1)/4) Montgomery [L, B],
+    qr bool[B]: y0^2 == x^3 + 4, a square root existed). JAX `_xy_from_x`."""
+    rhs = FP.add(FP.mul(FP.sqr(x), x), _const(B_G1_MONT, x))
+    y0 = FP.pow_fixed(rhs, FP_SQRT_EXP)
+    return y0, FP.eq(FP.sqr(y0), rhs)
+
+
+def pick_sign(y0: torch.Tensor, want_largest: torch.Tensor) -> torch.Tensor:
+    """y0 or p - y0, so that "y > (p-1)/2" matches want_largest bool[B]
+    (the compressed sign bit). JAX `_pick_sign`: its compare_ge with the
+    eq_half and zero fixups is y > (p-1)/2."""
+    y = FP.from_mont(y0)
+    _, le_half = FP._sub_borrow(_const(FP_HALF, y), y)  # (p-1)/2 >= y
+    return lb.select(~le_half != want_largest, FP.neg(y0), y0)
+
+
+def decompress_xy(x: torch.Tensor, want_largest: torch.Tensor):
+    """x [L, B] Montgomery + want_largest bool[B] -> (y [L, B] Montgomery,
+    qr bool[B]); the plain version of the kernel g1_decompress."""
+    y0, qr = xy_from_x(x)
+    return pick_sign(y0, want_largest), qr
+
+
+def scalar_mul(points: torch.Tensor, scalars: torch.Tensor, nbits: int = 256) -> torch.Tensor:
+    """[k_b] P_b: Jacobian [3, L, B] and plain scalars [16, B] (or [16, 1]
+    for one scalar on every lane) -> [3, L, B], bits at or above nbits
+    ignored. JAX `scalar_mul_per_lane` / `scalar_mul_fixed`: right to left,
+    acc = add(acc, base) where the bit is set, then base = dbl(base),
+    from acc at infinity. The loop ends at the highest set bit of any
+    lane: acc does not change after it, so the limbs are JAX's."""
+    shift = (nbits - 16 * torch.arange(16, device=scalars.device)).clamp(0, 16)[:, None]
+    bits = scalars & ((1 << shift) - 1)
+    live_limbs = torch.nonzero(bits.any(dim=-1))
+    if live_limbs.numel() == 0:
+        return torch.zeros_like(points)
+    limb = int(live_limbs.max())
+    top = 16 * limb + int(bits[limb].max()).bit_length()
+    acc, base = torch.zeros_like(points), points
+    for i in range(top):
+        bit = ((bits[i // 16] >> (i % 16)) & 1).bool().expand(points.shape[-1])
+        if bool(bit.any()):  # where no lane adds, acc stays as it is
+            acc = _sel_pt(bit, add(acc, base), acc)
+        if i + 1 < top:
+            base = dbl(base)
+    return acc
+
+
+def jacobian_eq_mask(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """bool[B]: p == q as curve points (cross-multiplied Jacobian test,
+    JAX `_jacobian_eq_mask`)."""
+    X1, Y1, Z1 = p.unbind(-3)
+    X2, Y2, Z2 = q.unbind(-3)
+    Z11, Z22 = FP.sqr(Z1), FP.sqr(Z2)
+    ex = FP.eq(FP.mul(X1, Z22), FP.mul(X2, Z11))
+    ey = FP.eq(FP.mul(FP.mul(Y1, Z2), Z22), FP.mul(FP.mul(Y2, Z1), Z11))
+    inf1, inf2 = FP.is_zero(Z1), FP.is_zero(Z2)
+    return torch.where(inf1 | inf2, inf1 == inf2, ex & ey)
+
+
+def subgroup_mask(points: torch.Tensor) -> torch.Tensor:
+    """bool[B]: P in G1 by Scott's endomorphism test, sigma(P) == -[x^2]P
+    with sigma(X, Y, Z) = (BETA X, Y, Z); lanes at infinity pass. The
+    plain version of the kernel g1_subgroup_mask (JAX `subgroup_mask`)."""
+    x_abs = lb.as_limb_tensor(lb.int_to_limbs(-BLS_X, 16), points.device)
+    xx = scalar_mul(scalar_mul(points, x_abs, 64), x_abs, 64)
+    sigma = torch.stack([FP.mul(points[0], _const(_BETA_MONT, points)),
+                         points[1], points[2]])
+    neg_xx = torch.stack([xx[0], FP.neg(xx[1]), xx[2]])
+    return jacobian_eq_mask(sigma, neg_xx)
 
 
 # -- the op-namespace interface of ops/dispatch.py, identity layout ---------

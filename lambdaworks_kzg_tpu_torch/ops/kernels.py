@@ -1,5 +1,5 @@
-"""The Hopper kernels (`csrc/g1.cu`, `csrc/msm.cu`, `csrc/table.cu`), their
-build and their wrappers.
+"""The Hopper kernels (`csrc/g1.cu`, `csrc/msm.cu`, `csrc/table.cu`,
+`csrc/g1_batch.cu`), their build and their wrappers.
 
 `g1_madd`, `g1_add` and `g1_dbl` (g1.cu) replace the TPU kernels `madd`,
 `add` and `dbl` of `lambdaworks_kzg_tpu/ops/pallas_g1_v2.py` (and the
@@ -11,7 +11,12 @@ in one launch per batch of blobs; their plain versions are
 `g1_ops.bucket_accumulate` and `g1_ops.bucket_reduce`.
 `g1_fixedbase_table` (table.cu) builds the fixed-base table, doublings and
 affine step, in one launch straight into the accumulation's row layout;
-its plain version is `g1_ops.fixedbase_table`. `fp_sqr_check` (g1.cu)
+its plain version is `g1_ops.fixedbase_table`. `g1_decompress`,
+`g1_scalar_mul` and `g1_subgroup_mask` (g1_batch.cu) run the batched G1
+steps of setup conversion and batch verification (`ops/g1_batch.py`),
+each whole loop in one launch; their plain versions are
+`g1_ops.decompress_xy`, `g1_ops.scalar_mul` and `g1_ops.subgroup_mask`.
+`fp_sqr_check` (g1.cu)
 returns the field's square and product a * a, to hold one against the
 other. The notes at the top of the sources say what bounds each kernel
 on the card.
@@ -26,7 +31,9 @@ Wrappers take the kernel layout, int32 tensors that hold u32 limbs
 (`limbs.to_u32_layout`): [3, 12, M] Jacobian, [2, 12, M] affine, a bool[M]
 mask, and for the MSM the table as rows [W N, 2, 12] with int32 `order`
 and `bstart`, all contiguous on one CUDA device; the table build takes
-the basis as [2, 12, N] affine with valid bool[N] and returns the rows.
+the basis as [2, 12, N] affine with valid bool[N] and returns the rows;
+the batched G1 kernels take x as [12, M], scalars as [8, M] u32 words
+(or [8, 1], one scalar for every lane) and return bool[M] masks.
 They allocate the output with `torch.empty`, launch on the current
 stream, raise when the launch fails, and count their launches.
 """
@@ -47,7 +54,7 @@ from ..constants import num_windows
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("g1.cu", "msm.cu", "table.cu")
+SOURCES = ("g1.cu", "msm.cu", "table.cu", "g1_batch.cu")
 HEADERS = ("fp.cuh", "g1.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -136,12 +143,18 @@ def _load():
             lib.lwkzg_g1_bucket_reduce.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
             lib.lwkzg_g1_fixedbase_table.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
             lib.lwkzg_fp_sqr_check.argtypes = [vp, vp, vp, ci, vp]
+            lib.lwkzg_g1_decompress.argtypes = [vp, vp, vp, vp, ci, vp]
+            lib.lwkzg_g1_scalar_mul.argtypes = [vp, vp, ci, vp, ci, ci, vp]
+            lib.lwkzg_g1_subgroup_mask.argtypes = [vp, vp, ci, vp]
             fns = {
                 "madd": lib.lwkzg_g1_madd, "add": lib.lwkzg_g1_add, "dbl": lib.lwkzg_g1_dbl,
                 "bucket_accumulate": lib.lwkzg_g1_bucket_accumulate,
                 "bucket_reduce": lib.lwkzg_g1_bucket_reduce,
                 "fixedbase_table": lib.lwkzg_g1_fixedbase_table,
                 "sqr_check": lib.lwkzg_fp_sqr_check,
+                "decompress": lib.lwkzg_g1_decompress,
+                "scalar_mul": lib.lwkzg_g1_scalar_mul,
+                "subgroup_mask": lib.lwkzg_g1_subgroup_mask,
             }
             for fn in fns.values():
                 fn.restype = ci
@@ -315,6 +328,49 @@ def _sqr_check(k: _Kernel, a: torch.Tensor):
     return sq, mm
 
 
+def _decompress(k: _Kernel, x: torch.Tensor, want_largest: torch.Tensor):
+    """x [12, M] Montgomery + want_largest bool[M] -> (y [12, M], qr
+    bool[M]): y^2 = x^3 + 4 where qr, with "y > (p-1)/2" as asked."""
+    m = x.shape[-1]
+    _check(x, "x", (NL, m), x.device)
+    _check(want_largest, "want_largest", (m,), x.device, torch.bool)
+    y = torch.empty_like(x)
+    qr = torch.empty(m, dtype=torch.bool, device=x.device)
+    if m:
+        _run("decompress", x, x.data_ptr(), want_largest.data_ptr(), y.data_ptr(), qr.data_ptr(), m)
+        k.launches += 1
+    return y, qr
+
+
+def _scalar_mul(k: _Kernel, p: torch.Tensor, scalars: torch.Tensor, nbits: int):
+    """p [3, 12, M] Jacobian, scalars [8, M] (or [8, 1] for every lane)
+    plain u32 words -> [k_m] P_m [3, 12, M]; bits at or above nbits are
+    not read."""
+    if not 0 <= nbits <= 256:
+        raise ValueError(f"nbits must be in [0, 256], got {nbits}")
+    m = p.shape[-1]
+    _check(p, "p", (3, NL, m), p.device)
+    lanes = 1 if scalars.dim() == 2 and scalars.shape[-1] == 1 else m
+    _check(scalars, "scalars", (8, lanes), p.device)
+    out = torch.empty_like(p)
+    if m:
+        _run("scalar_mul", p, p.data_ptr(), scalars.data_ptr(), int(lanes != 1), out.data_ptr(), m,
+             nbits)
+        k.launches += 1
+    return out
+
+
+def _subgroup_mask(k: _Kernel, p: torch.Tensor):
+    """p [3, 12, M] Jacobian -> bool[M], P in G1; infinity passes."""
+    m = p.shape[-1]
+    _check(p, "p", (3, NL, m), p.device)
+    out = torch.empty(m, dtype=torch.bool, device=p.device)
+    if m:
+        _run("subgroup_mask", p, p.data_ptr(), out.data_ptr(), m)
+        k.launches += 1
+    return out
+
+
 _V2 = "lambdaworks_kzg_tpu/ops/pallas_g1_v2.py"
 madd = _Kernel("g1_madd", f"{_V2}:353", _madd)
 add = _Kernel("g1_add", f"{_V2}:376", _add)
@@ -325,7 +381,15 @@ bucket_accumulate = _Kernel("g1_bucket_accumulate", f"{_V2}:353", _bucket_accumu
 bucket_reduce = _Kernel("g1_bucket_reduce", f"{_V2}:376", _bucket_reduce)
 # the doubling scan and affine step of the table build (ops/msm.py:714-750)
 fixedbase_table = _Kernel("g1_fixedbase_table", f"{_V2}:392", _fixedbase_table)
-ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce, fixedbase_table)
+# the square root and sign choice of decompression (XLA field ops in
+# lambdaworks_kzg_tpu/ops/g1_batch.py:156-179), and the fori_loops of add
+# and dbl launches in its scalar_mul_fixed / scalar_mul_per_lane (:45-85)
+# and subgroup_mask (:126-145)
+decompress = _Kernel("g1_decompress", "lambdaworks_kzg_tpu/ops/g1_batch.py:156", _decompress)
+scalar_mul = _Kernel("g1_scalar_mul", f"{_V2}:376", _scalar_mul)
+subgroup_mask = _Kernel("g1_subgroup_mask", f"{_V2}:392", _subgroup_mask)
+ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce, fixedbase_table, decompress, scalar_mul,
+       subgroup_mask)
 # a check of the field's square, off every path (the TPU kernels' _sqr_acc)
 sqr_check = _Kernel("fp_sqr_check", "lambdaworks_kzg_tpu/ops/pallas_g1.py:142", _sqr_check)
 

@@ -1,4 +1,5 @@
-"""Fixed-base Pippenger MSM over the trusted setup's commitment basis.
+"""Fixed-base Pippenger MSM over the trusted setup's commitment basis,
+and the generic MSM over any points built on it.
 
 The port of the fixed-base part of the JAX package's `ops/msm.py`
 (`build_fixedbase_tables`, `msm_fixedbase_device`; its fold
@@ -10,6 +11,15 @@ MSM then feeds all W N (digit, shifted point) pairs into one 2^c-bucket
 grid, split over `groups` lane groups, and needs no Horner combine over
 windows. A batch of blobs shares one sort, one bucket accumulation and
 one reduce.
+
+The generic MSM (`msm_device`, `msm`; JAX `msm_device` +
+`combine_windows_host`) is a fixed-base MSM over a table built for the
+call: one table build, one sort, one accumulation and one reduce, on
+the same three kernels, and no Horner combine over windows. Its result
+is the same group element as JAX's, so the two compare in affine form.
+JAX's `parts` and top-window alias split (a TPU sort and lock-step
+workaround) have no counterpart; a scalar at or above 2^scalar_bits
+raises where JAX drops its high windows.
 
 Every function takes `ops`, the point-op namespace: `ops/dispatch.py`
 (the default: Hopper kernels for CUDA tensors, plain versions on the
@@ -104,3 +114,35 @@ def scalars_to_tensor(scalar_ints, device="cpu") -> torch.Tensor:
     return lb.as_limb_tensor(
         lb.ints_to_limbs([s % R for s in scalar_ints], 16), device
     )
+
+
+# -- the generic MSM ---------------------------------------------------------
+
+
+def check_scalar_bits(scalars: torch.Tensor, scalar_bits: int) -> None:
+    """ValueError unless every [16, N] plain scalar is below 2^scalar_bits."""
+    if not 1 <= scalar_bits <= 256:
+        raise ValueError(f"scalar_bits must be in [1, 256], got {scalar_bits}")
+    shift = (scalar_bits - 16 * torch.arange(16, device=scalars.device)).clamp(0, 16)
+    if bool((scalars >> shift[:, None]).any()):
+        raise ValueError(f"a scalar is not below 2^{scalar_bits}")
+
+
+def msm_device(points: torch.Tensor, valid: torch.Tensor, scalars: torch.Tensor, c: int,
+               scalar_bits: int = 255, groups: int = 8, ops=dispatch) -> torch.Tensor:
+    """sum_i k_i P_i -> Jacobian [3, *, 1] in `ops`' layout.
+
+    points: [2, 24, N] public affine Montgomery limbs with valid bool[N]
+    (an invalid point counts as infinity); scalars: [16, N] plain Fr
+    limbs, each below 2^scalar_bits. The table [2^(c w)] P_i is built for
+    this call (`ops.fixedbase_table`: one g1_fixedbase_table launch on a
+    CUDA device), then the fixed-base MSM runs over it."""
+    check_scalar_bits(scalars, scalar_bits)
+    table, table_valid = ops.fixedbase_table(points, valid, c)
+    return msm_fixedbase_device(table, table_valid, scalars, c, groups, ops)
+
+
+def msm(points, valid, scalars, c: int, scalar_bits: int = 255, groups: int = 8, ops=dispatch):
+    """Generic MSM -> host Jacobian point (Python ints)."""
+    pt = msm_device(points, valid, scalars, c, scalar_bits, groups, ops)
+    return g1_ops.points_to_host(ops.from_op_layout(pt))[0]

@@ -137,11 +137,17 @@ def test_mainnet_setup_matches_jax():
 
 
 def test_setup_without_cache_raises(tmp_path):
+    """A setup with no cache is converted on the device it names: with the
+    default device="cuda" and no card that raises, with no CPU fallback,
+    and writes nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
     text = open(os.path.join(REPO, "testdata", "trusted_setup_4.txt")).read()
     path = tmp_path / "setup.txt"
     path.write_text(text)
-    with pytest.raises(srs.SetupLoadError, match="no converted cache"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         srs.load_trusted_setup_file(str(path), cache_dir=str(tmp_path))
+    assert os.listdir(tmp_path) == ["setup.txt"]
 
 
 @pytest.fixture(scope="module")

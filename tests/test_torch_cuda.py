@@ -28,7 +28,19 @@ the card, equals the host quotient, and both MSM kernels equal their
 plain versions on its members (dense 255-bit scalars fill every bucket,
 the top window's too); one compute_blob_kzg_proof through
 EIP4844Context(device="cuda") equals the host oracle g1_msm of the host
-quotient, and verifies."""
+quotient, and verifies.
+
+Batched G1 (csrc/g1_batch.cu), limb for limb against the plain versions
+on the card: g1_decompress on setup x's, non-squares, 0 and p - 1 with
+both signs; g1_scalar_mul on per-lane 255-bit scalars, 0, r, a truncated
+nbits and one broadcast scalar, over lanes at infinity, Z != 1 and curve
+points outside G1; g1_subgroup_mask on the same lanes, also against the
+host g1_in_subgroup; g1_fft_device at n = 16 in both directions, stage
+for stage the same through g1_scalar_mul and g1_add as through the plain
+versions; the generic MSM against the host g1_msm; and one conversion of
+testdata/trusted_setup.txt, byte-equal to cache/srs_mainnet.npz, with
+one g1_decompress, one g1_subgroup_mask, 13 g1_scalar_mul and 24 g1_add
+launches."""
 
 import os
 import random
@@ -39,8 +51,10 @@ import torch
 from lambdaworks_kzg_tpu_torch import EIP4844Context, convert
 from lambdaworks_kzg_tpu_torch.constants import P, R
 from lambdaworks_kzg_tpu_torch.host import curve as HC, fft
+from lambdaworks_kzg_tpu_torch.host.field import fp_sqrt
 from lambdaworks_kzg_tpu_torch.models import srs
-from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, fr_poly, g1_ops, kernels, limbs as lb, msm
+from lambdaworks_kzg_tpu_torch.ops import (codec, dispatch, fr_poly, g1_batch, g1_ops, kernels,
+                                           limbs as lb, msm)
 from lambdaworks_kzg_tpu_torch.ops.field_ops import FP, FR
 from lambdaworks_kzg_tpu_torch.utils import hashing as H
 
@@ -231,3 +245,145 @@ def test_compute_blob_kzg_proof_matches_host_msm():
     basis = [(x, y) if v else None for x, y, v in zip(xs, ys, setup.lagrange_valid)]
     assert HC.compress_g1(HC.g1_msm(q_host, basis)) == proof
     assert ctx.verify_blob_kzg_proof(blob, commitment, proof)
+
+
+def _outside_g1(count: int):
+    """Affine curve points outside G1, scanning x up from 2."""
+    out, x = [], 2
+    while len(out) < count:
+        y = fp_sqrt((x * x % P * x + 4) % P)
+        if y is not None and not HC.g1_in_subgroup((x, y, 1)):
+            out.append((x, y))
+        x += 1
+    return out
+
+
+@pytest.fixture(scope="module")
+def batch_lanes():
+    """[3, 24, 64] Jacobian lanes on the card: mainnet monomial points, every
+    third doubled (Z != 1), lanes 5 and 17 at infinity, lanes 8..11 outside
+    G1; and the host points they hold (None at infinity)."""
+    setup = srs.load_mainnet_setup()
+    pts = list(setup.g1_monomial[:64])
+    pts[8:12] = _outside_g1(4)
+    pts[5] = pts[17] = None
+    aff, valid = g1_ops.make_points_host(pts)
+    jac = g1_ops.lift(lb.as_limb_tensor(aff, "cuda"), torch.from_numpy(valid).cuda())
+    lane = torch.arange(64, device="cuda")
+    jac = torch.where((lane % 3 == 1)[None, None], g1_ops.dbl(jac), jac).contiguous()
+    host = [None if pt is None else HC.to_affine(HC.point_double(HC.from_affine(pt)))
+            if i % 3 == 1 else pt for i, pt in enumerate(pts)]
+    return jac, host
+
+
+def test_decompress_kernel_matches_plain_on_card():
+    setup = srs.load_mainnet_setup()
+    xs = [pt[0] for pt in setup.g1_monomial[:56]]
+    non_square = next(x for x in range(1, 100) if fp_sqrt((x * x * x + 4) % P) is None)
+    xs += [0, P - 1, non_square, 1, 2, 3, P - 2, (1 << 380) % P]
+    x16 = lb.as_limb_tensor(FP.to_mont_host(xs), "cuda")
+    want = torch.arange(len(xs), device="cuda") % 2 == 0
+    before = kernels.decompress.launches
+    y, qr = kernels.decompress(lb.to_u32_layout(x16), want)
+    torch.cuda.synchronize()
+    assert kernels.decompress.launches == before + 1
+    y_plain, qr_plain = g1_ops.decompress_xy(x16, want)
+    assert torch.equal(lb.to_u16_layout(y), y_plain)
+    assert torch.equal(qr, qr_plain)
+    assert bool(qr[:56].all()) and not bool(qr[58])
+
+
+def test_scalar_mul_kernel_matches_plain_on_card(batch_lanes):
+    jac, host = batch_lanes
+    rng = random.Random(17)
+    ks = [rng.randrange(1 << 255) for _ in range(64)]
+    ks[0], ks[1], ks[2], ks[3] = 0, R, R - 1, 1
+    scalars = lb.as_limb_tensor(lb.ints_to_limbs(ks, 16), "cuda")
+    for nbits in (256, 100):
+        before = kernels.scalar_mul.launches
+        got = kernels.scalar_mul(lb.to_u32_layout(jac), lb.to_u32_layout(scalars), nbits)
+        torch.cuda.synchronize()
+        assert kernels.scalar_mul.launches == before + 1
+        want = g1_ops.scalar_mul(jac, scalars, nbits)
+        assert torch.equal(lb.to_u16_layout(got), want)
+    for pt, aff, k in zip(g1_ops.points_to_host(lb.to_u16_layout(got)), host, ks):
+        want_pt = HC.INFINITY if aff is None else HC.point_scalar_mul_raw(
+            HC.from_affine(aff), k % (1 << 100))
+        assert HC.points_eq(pt, want_pt)
+    n_inv = pow(4096, R - 2, R)
+    got = g1_batch.scalar_mul_fixed(jac, n_inv)
+    assert torch.equal(got, g1_batch.scalar_mul_fixed(jac, n_inv, ops=g1_ops))
+
+
+def test_subgroup_mask_kernel_matches_plain_on_card(batch_lanes):
+    jac, host = batch_lanes
+    sums = g1_ops.add(jac, torch.roll(jac, 1, dims=-1))  # G1 + non-G1 sums too
+    lanes = torch.cat([jac, sums], dim=-1).contiguous()
+    before = kernels.subgroup_mask.launches
+    got = kernels.subgroup_mask(lb.to_u32_layout(lanes))
+    torch.cuda.synchronize()
+    assert kernels.subgroup_mask.launches == before + 1
+    assert torch.equal(got, g1_ops.subgroup_mask(lanes))
+    assert got[:64].tolist() == [aff is None or HC.g1_in_subgroup(HC.from_affine(aff))
+                                 for aff in host]
+    assert not bool(got[8:12].any()) and bool(got[5]) and bool(got[17])
+    assert got.tolist() == [HC.g1_in_subgroup(pt) for pt in g1_ops.points_to_host(lanes)]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+def test_fft_stages_match_plain_on_card(inverse):
+    """g1_fft_device at n = 16 through g1_scalar_mul and g1_add equals the
+    plain versions' FFT limb for limb, and the host FFT."""
+    setup = srs.load_mainnet_setup()
+    pts = setup.g1_monomial[:16]
+    aff, valid = g1_ops.make_points_host(pts)
+    jac = g1_ops.lift(lb.as_limb_tensor(aff, "cuda"), torch.from_numpy(valid).cuda())
+    before = (kernels.scalar_mul.launches, kernels.add.launches)
+    got = g1_batch.g1_fft_device(jac, inverse=inverse)
+    torch.cuda.synchronize()
+    assert (kernels.scalar_mul.launches - before[0], kernels.add.launches - before[1]) == (
+        4 + inverse, 8)
+    assert torch.equal(got, g1_batch.g1_fft_device(jac, inverse=inverse, ops=g1_ops))
+    want = fft.g1_fft([HC.from_affine(pt) for pt in pts], inverse=inverse)
+    assert g1_batch.jacobians_to_host_affine(got) == [HC.to_affine(pt) for pt in want]
+
+
+def test_generic_msm_matches_host_msm_on_card():
+    setup = srs.load_mainnet_setup()
+    pts = list(setup.g1_monomial[:65])
+    pts[7] = None
+    rng = random.Random(19)
+    ks = [rng.randrange(R) for _ in pts]
+    ks[0], ks[1] = 0, R - 1
+    ctx_backend = EIP4844Context(setup, device="cuda").backend
+    before = [k.launches for k in (kernels.fixedbase_table, kernels.bucket_accumulate,
+                                   kernels.bucket_reduce)]
+    got = ctx_backend.msm(ks, pts)
+    after = [k.launches for k in (kernels.fixedbase_table, kernels.bucket_accumulate,
+                                  kernels.bucket_reduce)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert HC.to_affine(got) == HC.to_affine(HC.g1_msm(ks, pts))
+    with pytest.raises(ValueError, match="2\\^248"):
+        ctx_backend.msm([1 << 250], pts[2:3], scalar_bits=248)
+
+
+def test_mainnet_conversion_matches_cache(tmp_path):
+    """testdata/trusted_setup.txt converted on the card, with no cache,
+    equals cache/srs_mainnet.npz byte for byte."""
+    import numpy as np
+
+    kernels.reset_counts()
+    setup = srs.load_trusted_setup_file(srs.MAINNET_SETUP_PATH, cache_dir=str(tmp_path),
+                                        device="cuda")
+    counts = {k.name: k.launches for k in kernels.ALL}
+    assert counts["g1_decompress"] == 1 and counts["g1_subgroup_mask"] == 1
+    assert counts["g1_scalar_mul"] == 13 and counts["g1_add"] == 24
+    assert counts["g1_dbl"] == 0 and counts["g1_madd"] == 0
+    assert os.listdir(tmp_path) == ["srs_mainnet.npz"]
+    with np.load(tmp_path / "srs_mainnet.npz") as got, np.load(
+            os.path.join(os.path.dirname(FIXEDBASE), "srs_mainnet.npz")) as want:
+        for key in ("lagrange", "monomial", "g2"):
+            assert np.array_equal(got[key], want[key]), key
+    ref = srs.load_mainnet_setup()
+    assert np.array_equal(setup.lagrange_points, ref.lagrange_points)
+    assert setup.g1_monomial == ref.g1_monomial and setup.g2_monomial == ref.g2_monomial

@@ -16,6 +16,11 @@ lane at infinity.
   `g1_ops.madd` over the same members, limb for limb; the batched reduce
   equals each blob's alone and the host oracle, on buckets with
   infinities, equal pairs (the doubling branch) and opposite pairs;
+- the generic MSM (`msm.msm`, a fixed-base MSM over a table built for
+  the call) equals the JAX host `g1_msm` in affine form at c in {4, 8}
+  with points at infinity, zero scalars and r - 1, and
+  `TorchBackend.msm` does at its own window; a scalar at or above
+  2^scalar_bits raises;
 - `slow`: the table and MSM equal the JAX package's
   `msm.build_fixedbase_tables` and `msm.msm_fixedbase` (about three
   minutes of XLA-on-CPU compile and run at these shapes, measured on this
@@ -36,7 +41,9 @@ from lambdaworks_kzg_tpu.constants import R
 from lambdaworks_kzg_tpu.host import curve as HC
 from lambdaworks_kzg_tpu.models import srs
 from lambdaworks_kzg_tpu.ops import g1_ops as JG, msm as JM
+from lambdaworks_kzg_tpu_torch import convert
 from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb, msm
+from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend
 from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
 
 N = 32
@@ -336,3 +343,42 @@ def test_fixedbase_table_kernel_refuses_what_it_does_not_take(basis):
         with pytest.raises(ValueError, match="window bits"):
             kernels.fixedbase_table(pts, ok, c)
     assert [k.launches for k in kernels.ALL] == [0] * len(kernels.ALL)
+
+
+def _generic_inputs(basis, count, seed):
+    """`count` basis points with one at infinity, scalars with a zero and
+    r - 1."""
+    pts_aff = list(basis[0][:count])
+    pts_aff[2] = None
+    rng = random.Random(seed)
+    scalars = [rng.randrange(R) for _ in pts_aff]
+    scalars[0], scalars[1] = 0, R - 1
+    return pts_aff, scalars
+
+
+@pytest.mark.parametrize("c", [4, 8])
+def test_generic_msm_matches_host_oracle(basis, c):
+    pts_aff, scalars = _generic_inputs(basis, 6, seed=c)
+    points, valid = g1_ops.make_points_host(pts_aff)
+    got = msm.msm(lb.as_limb_tensor(points), torch.from_numpy(valid), msm.scalars_to_tensor(scalars),
+                  c, groups=GROUPS)
+    assert HC.to_affine(HC.FP_OPS, got) == HC.to_affine(HC.FP_OPS, HC.g1_msm(scalars, pts_aff))
+
+
+def test_backend_msm_matches_host_oracle_and_checks_scalar_bits(basis, port_tables):
+    """TorchBackend.msm on a dev setup's backend (window auto_window(7) =
+    4), as batch verification calls it."""
+    _, _, points, valid = basis
+    setup = convert.setup_from_numpy(points, valid)
+    backend = TorchBackend(setup, "cpu", fixedbase=port_tables[4])
+    pts_aff, scalars = _generic_inputs(basis, 7, seed=5)
+    got = backend.msm(scalars, pts_aff)
+    assert HC.to_affine(HC.FP_OPS, got) == HC.to_affine(HC.FP_OPS, HC.g1_msm(scalars, pts_aff))
+    assert HC.is_infinity(HC.FP_OPS, backend.msm([], []))
+    with pytest.raises(ValueError, match="2\\^248"):
+        backend.msm([1 << 250], pts_aff[:1], scalar_bits=248)
+    with pytest.raises(ValueError, match="counts"):
+        backend.msm([1, 2], pts_aff[:1])
+    msm.check_scalar_bits(msm.scalars_to_tensor([R - 1]), 255)
+    with pytest.raises(ValueError, match="2\\^254"):
+        msm.check_scalar_bits(msm.scalars_to_tensor([R - 1]), 254)
