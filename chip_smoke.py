@@ -7,12 +7,15 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the nine kernels and the field check from
+  2. nvcc builds the nine kernels and the two field checks from
      lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
      linked into one library);
   3. each kernel against its plain PyTorch version on the card, limb for
      limb: fp::sqr against fp::mul(a, a) and the plain square on random
-     elements and on 0, 1, p - 1 and R mod p; g1_fixedbase_table against
+     elements and on 0, 1, p - 1 and R mod p; the cooperative field of
+     fp_coop.cuh (fp_coop_check: mul, sqr, add, sub, is_zero, eq) against
+     fp::mul, fp::sqr and the plain field on all pairs of 0, 1, p - 1,
+     p - 2, 2, R mod p and random pairs; g1_fixedbase_table against
      g1_ops.fixedbase_table at c = 4, 8 and 12 on 256 lanes of the mainnet
      basis with every 7th lane invalid, and at the mainnet shape (4096
      lanes, c = 8); g1_madd, g1_add and g1_dbl at lane counts 1 to 4096 (and 200,
@@ -30,15 +33,19 @@ Phases, each printed with its seconds:
      the host oracle g1_msm in affine form; g1_decompress on the 4096
      mainnet monomial x's and on non-square and edge x's, g1_scalar_mul
      on 2048 lanes of per-lane 255-bit scalars (0, r, r - 1 among them)
-     and on 4096 lanes of the broadcast 1/4096, and g1_subgroup_mask on
-     4096 monomial points and 256 sums, all over lanes at infinity, with
-     Z != 1 and outside G1, the last also against the host
-     g1_in_subgroup on a sample;
+     and on 4096 lanes of the broadcast 1/4096, and in the conversion's
+     split mode on 2048 lanes of the inverse FFT's last-stage twiddles
+     (a sample of the lanes in G1 also against the host [k]P) and on 4096
+     lanes of the broadcast 1/4096, g1_subgroup_mask on 4096 monomial
+     points and 256 sums, all over lanes at infinity, with Z != 1 and
+     outside G1, the last also against the host g1_in_subgroup on a
+     sample; then both modes of g1_scalar_mul and g1_subgroup_mask at 1,
+     12, 31, 33 and 128 lanes (the block and warp edges);
  3b. the setup conversion: testdata/trusted_setup.txt converted on the
      card into a temporary cache_dir, its lagrange, monomial and g2
      byte-equal to cache/srs_mainnet.npz, with exactly one g1_decompress,
-     one g1_subgroup_mask, 13 g1_scalar_mul and 24 g1_add launches and
-     nothing else; its stages timed apart twice (host parse, G2 on the
+     one g1_subgroup_mask, 13 g1_scalar_mul (split mode) and 24 g1_add
+     launches and nothing else; its stages timed apart twice (host parse, G2 on the
      host, the device part, the affine step); testdata/trusted_setup_4.txt
      converted byte-equal to its conversion by the host oracles (per-point
      decompression and the host G1 FFT);
@@ -75,9 +82,12 @@ Phases, each printed with its seconds:
      accumulation on the real quotient, madd at the 2048 lanes of one
      blob's bucket grid, add at 1024, dbl at 4096, on random lanes, the
      table kernel at the mainnet shape, g1_decompress on 4096 x's,
-     g1_scalar_mul on an FFT stage's 2048 lanes of 255-bit scalars (its
-     plain time is phase 3's at that shape), g1_subgroup_mask on 4096
-     points, and fp_sqr_check on 4096 elements.
+     g1_scalar_mul in the split mode on an FFT stage (2048 lanes, the
+     last stage's twiddles; its plain time is phase 3's at that shape)
+     and on [1/n] (4096 lanes), with the bound of the split schedule's
+     work and, beside it, of the double-and-add's on the same scalars,
+     g1_subgroup_mask on 4096, 128 and 12 points, and the two field
+     checks on 4096 elements.
 Launch counts are zeroed just before each path and read just after it:
 the conversion (phase 3b), the commit path (phases 4 to 6), the verify
 path (phase 8, after its seeded blobs are committed and proved) and the
@@ -179,6 +189,30 @@ def ladder_imads(k: int) -> int:
     return (k.bit_length() - 1) * op_imads("dbl") + (bin(k).count("1") - 1) * op_imads("add")
 
 
+def window_imads(k: int) -> int:
+    """IMADs of [k]P for a 128-bit k on a finite point of G1 by the split
+    mode's schedule (g1_ops.window_mul): the table 0, P, .., 15P (7
+    doublings and 7 adds), then from the top 4-bit window acc = T[digit]
+    and per window 4 doublings and an add; while acc is at infinity its
+    doublings need no products, and neither does the add that lifts it or
+    an add of T[0]."""
+    digits = [(k >> (4 * w)) & 15 for w in range(32)]
+    ops = 7 * (op_imads("dbl") + op_imads("add"))
+    started = digits[31] != 0
+    for d in reversed(digits[:31]):
+        if started:
+            ops += 4 * op_imads("dbl") + (op_imads("add") if d else 0)
+        started = started or d != 0
+    return ops
+
+
+def split_imads(k: int) -> int:
+    """IMADs of g1_scalar_mul's split mode for one lane with scalar k < r:
+    both 128-bit halves (`window_imads`), BETA X, and the final add."""
+    k2, k1 = divmod(k, 0xD201000000010000 ** 2)
+    return window_imads(k1) + window_imads(k2) + IMAD_PER_FP_MUL + op_imads("add")
+
+
 def subgroup_imads(n_finite: int) -> int:
     """IMADs g1_subgroup_mask needs for n_finite lanes (lanes at infinity
     need none): two ladders by |x|, BETA X, and the cross-multiplied
@@ -204,6 +238,10 @@ def table_imads(n_valid: int, c: int) -> int:
 # Lane counts of phase 3 for the per-op kernels (and 200, a block and a
 # partial one), each holding the exceptional lanes its lane pattern reaches
 CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
+# Lane counts of phase 3 for g1_scalar_mul and g1_subgroup_mask (8 or 16
+# threads a lane, blocks of 64): inside one warp, a warp and one lane
+# more or less, four blocks; 4096 is checked at the conversion's shape
+EDGE_LANES = (1, 12, 31, 33, 128)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
 PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce")
@@ -704,6 +742,36 @@ def check_sqr(dev, count: int, seed: int) -> None:
     log(f"  fp::sqr M={count}: equal to fp::mul(a, a) and to the plain square")
 
 
+def check_coop(dev, count: int, seed: int) -> int:
+    """The cooperative field (fp_coop.cuh, through fp_coop_check) against
+    fp::mul, fp::sqr and the plain sum, difference, zero test and equality,
+    on all pairs of 0, 1, p - 1, p - 2, 2, R mod p and seeded random
+    elements -> max |limb error|."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.constants import P
+    from lambdaworks_kzg_tpu_torch.ops import kernels, limbs as lb
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    rng = random.Random(seed)
+    edge = [0, 1, P - 1, P - 2, 2, (1 << 384) % P]
+    pairs = [(x, y) for x in edge for y in edge]
+    pairs += [(rng.randrange(P), rng.randrange(P)) for _ in range(count - len(pairs))]
+    a16, b16 = (lb.as_limb_tensor(lb.ints_to_limbs(v, 24), dev) for v in zip(*pairs))
+    out = kernels.coop_check(lb.to_u32_layout(a16), lb.to_u32_layout(b16))
+    err = max(same("fpc::mul against fp::mul", out[0], out[4]),
+              same("fpc::sqr against fp::sqr", out[1], out[5]),
+              same("fpc::mul against FP.mul", lb.to_u16_layout(out[0]), FP.mul(a16, b16)),
+              same("fpc::add against FP.add", lb.to_u16_layout(out[2]), FP.add(a16, b16)),
+              same("fpc::sub against FP.sub", lb.to_u16_layout(out[3]), FP.sub(a16, b16)))
+    if (out[6, 0].tolist() != [int(x == 0) for x, _ in pairs]
+            or out[6, 1].tolist() != [int(x == y) for x, y in pairs]):
+        raise AssertionError("fpc::is_zero or fpc::eq differs from the host")
+    log(f"  fp_coop_check M={count}: the cooperative mul, sqr, add, sub, is_zero and eq equal "
+        "fp.cuh's and the plain field's")
+    return err
+
+
 def check_kernel(op: str, args16) -> int:
     """Kernel vs plain version on the same inputs, limb for limb -> max
     |limb error|."""
@@ -755,11 +823,13 @@ def monomial_lanes(setup, n: int, dev, seed: int):
     return jac, [pts[i] is not None for i in perm.tolist()]
 
 
-def check_batch_kernels(setup, dev, max_err: dict) -> float:
-    """g1_decompress, g1_scalar_mul and g1_subgroup_mask against their plain
-    versions on the card, limb for limb, at the conversion's shapes ->
-    the plain g1_scalar_mul's ms at 2048 lanes of 255-bit scalars (CUDA
-    events), the shape phase 10 times the kernel at."""
+def check_batch_kernels(setup, dev, max_err: dict) -> dict:
+    """g1_decompress, g1_scalar_mul (both modes) and g1_subgroup_mask
+    against their plain versions on the card, limb for limb, at the
+    conversion's shapes and at the lane counts EDGE_LANES -> the plain
+    g1_scalar_mul's ms at 2048 lanes (CUDA events), in the general mode
+    (255-bit scalars) and in the split mode (an FFT stage's twiddles), the
+    shape phase 10 times the kernel at."""
     import torch
 
     from lambdaworks_kzg_tpu_torch.constants import P, R
@@ -815,6 +885,42 @@ def check_batch_kernels(setup, dev, max_err: dict) -> float:
     check(kernels.scalar_mul, "M=4096 (broadcast 1/4096)", got,
           g1_batch.scalar_mul_fixed(jac4k, n_inv, ops=g1_ops))
 
+    # the split mode, as the conversion runs it: the inverse FFT's last
+    # stage (2048 lanes of its twiddles) and [1/4096] on 4096 lanes; the
+    # lanes outside G1 equal the plain version too, and a sample of those
+    # in G1 the host [k]P
+    stages, n_inv = g1_batch._twiddles(4096, True)
+    split16 = lb.as_limb_tensor(g1_batch._split_limbs(stages[-1]), dev)
+    got = kernels.scalar_mul(lb.to_u32_layout(jac), lb.to_u32_layout(split16), 128, split=True)
+    start.record()
+    plain = g1_ops.scalar_mul_endo(jac, split16)
+    end.record()
+    torch.cuda.synchronize()
+    split_plain_ms = start.elapsed_time(end)
+    check(kernels.scalar_mul, "M=2048 split mode (last-stage twiddles)", lb.to_u16_layout(got), plain)
+    host_out = g1_ops.points_to_host(lb.to_u16_layout(got)[:, :, :64])
+    for pt, out, k in zip(g1_ops.points_to_host(jac[:, :, :64]), host_out, stages[-1]):
+        if pt[2] and HC.g1_in_subgroup(pt) and not HC.points_eq(out, HC.point_scalar_mul_raw(pt, k)):
+            raise AssertionError("g1_scalar_mul's split mode differs from the host [k]P in G1")
+    inv_split = g1_batch._split_limbs([n_inv])
+    check(kernels.scalar_mul, "M=4096 split mode (broadcast 1/4096)",
+          g1_batch.scalar_mul_in_g1(jac4k, inv_split),
+          g1_batch.scalar_mul_in_g1(jac4k, inv_split, ops=g1_ops))
+
+    # the block and warp edges: both modes and the subgroup check
+    for M in EDGE_LANES:
+        lanes = jac4k[:, :, :M].contiguous()
+        short = lb.as_limb_tensor(lb.ints_to_limbs([rng.randrange(1 << 16) for _ in range(M)], 16), dev)
+        got = kernels.scalar_mul(lb.to_u32_layout(lanes), lb.to_u32_layout(short), 16)
+        check(kernels.scalar_mul, f"M={M} (16-bit scalars)", lb.to_u16_layout(got),
+              g1_ops.scalar_mul(lanes, short, 16))
+        ks16 = lb.as_limb_tensor(g1_batch._split_limbs([rng.randrange(R) for _ in range(M)]), dev)
+        got = kernels.scalar_mul(lb.to_u32_layout(lanes), lb.to_u32_layout(ks16), 128, split=True)
+        check(kernels.scalar_mul, f"M={M} split mode", lb.to_u16_layout(got),
+              g1_ops.scalar_mul_endo(lanes, ks16))
+        got = kernels.subgroup_mask(lb.to_u32_layout(lanes))
+        check(kernels.subgroup_mask, f"M={M}", got.long(), g1_ops.subgroup_mask(lanes).long())
+
     # g1_subgroup_mask: 4096 monomial lanes (some outside G1, some at
     # infinity) and 256 sums of neighbours; a sample against the host
     sums = g1_ops.add(jac4k[:, :, :256], jac4k[:, :, 1:257])
@@ -828,7 +934,7 @@ def check_batch_kernels(setup, dev, max_err: dict) -> float:
         raise AssertionError("g1_subgroup_mask differs from the host g1_in_subgroup")
     log(f"  g1_subgroup_mask: {int((~got).sum())} of {lanes.shape[-1]} lanes outside G1, "
         f"{len(sample)} sampled lanes equal to the host g1_in_subgroup")
-    return scalar_mul_plain_ms
+    return {"general": scalar_mul_plain_ms, "split": split_plain_ms}
 
 
 def convert_stages(path: str, dev) -> dict:
@@ -955,7 +1061,7 @@ def run() -> None:
     from lambdaworks_kzg_tpu_torch.models import srs
     from lambdaworks_kzg_tpu_torch.constants import P, R, num_windows
     from lambdaworks_kzg_tpu_torch.host import curve as HC
-    from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, g1_ops, kernels, limbs as lb, msm
+    from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, g1_batch, g1_ops, kernels, limbs as lb, msm
     from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
     from lambdaworks_kzg_tpu_torch.utils import hashing as H
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
@@ -980,9 +1086,10 @@ def run() -> None:
     setup = load_mainnet_setup()
     points = lb.as_limb_tensor(setup.lagrange_points, dev)
     points_valid = torch.from_numpy(setup.lagrange_valid.copy()).to(dev)
-    max_err = {k.name: 0 for k in kernels.ALL + (kernels.sqr_check,)}
+    max_err = {k.name: 0 for k in kernels.ALL + (kernels.sqr_check, kernels.coop_check)}
     with Phase("3 kernels vs plain"):
         check_sqr(dev, 4096, seed=5)
+        max_err["fp_coop_check"] = check_coop(dev, 4096, seed=6)
         lane = torch.arange(256, device=dev)
         for c in (4, 8, 12):
             err, _, _ = check_table(f"c={c} N=256, every 7th lane invalid", points[:, :, :256],
@@ -1008,7 +1115,7 @@ def run() -> None:
             check_msm_kernels(f"synthetic c={c} B={n_blobs}", synth, order, bstart, c, max_err,
                               extra_buckets=synthetic_buckets(points, c, n_blobs, seed=c))
         q_order, q_bstart = check_real_quotient(setup, table16, table_valid, max_err)
-        scalar_mul_plain_ms = check_batch_kernels(setup, dev, max_err)
+        batch_plain_ms = check_batch_kernels(setup, dev, max_err)
 
     kernels.reset_counts()  # the conversion path starts here
     with Phase("3b setup conversion"):
@@ -1323,55 +1430,97 @@ def run() -> None:
             f"kernel {t_table[0]:.4f} / {t_table[1]:.4f} ms, plain {table_plain_ms:.1f} ms, "
             f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
 
-        # the batched G1 kernels at the conversion's shapes: 4096 x's, an
-        # FFT stage's 2048 lanes with 255-bit twiddle-like scalars, 4096
-        # points in G1; and the field check on 4096 elements
+        # the batched G1 kernels at the path's shapes: g1_decompress on 4096
+        # x's; g1_scalar_mul in the conversion's split mode on an FFT
+        # stage (2048 lanes, the inverse FFT's last-stage twiddles) and on
+        # [1/n] (4096 lanes, one scalar); g1_subgroup_mask on 4096 points
+        # (a conversion), 128 and 12 (batch verifications of 64 and 6
+        # blobs); and the two field checks on 4096 elements
         x16 = lb.as_limb_tensor(FP.to_mont_host([pt[0] for pt in setup.g1_monomial]), dev)
         want = torch.rand(n, generator=torch.Generator().manual_seed(9)).to(dev) < 0.5
         aff, valid = g1_ops.make_points_host(setup.g1_monomial)
         jac = g1_ops.lift(lb.as_limb_tensor(aff, dev), torch.from_numpy(valid).to(dev)).contiguous()
-        rng_k = random.Random(10)
-        ks = [rng_k.randrange(1 << 254, R) for _ in range(n // 2)]
-        k16 = lb.as_limb_tensor(lb.ints_to_limbs(ks, 16), dev)
-        half = jac[:, :, : n // 2].contiguous()
-        sq_in = lb.to_u32_layout(lb.as_limb_tensor(
-            lb.ints_to_limbs([random.Random(11).randrange(P) for _ in range(n)], 24), dev))
-        batch_cases = (
-            # kernel, plain (None: phase 3's time at this shape), kernel
-            # args, plain args, lanes, bytes, IMADs
-            (kernels.decompress, g1_ops.decompress_xy, (lb.to_u32_layout(x16), want), (x16, want), n,
-             n * 2 * (FP_BYTES + 1), decompress_imads(n)),
-            (kernels.scalar_mul, None,
-             (lb.to_u32_layout(half), lb.to_u32_layout(k16), 256), (), n // 2,
-             n // 2 * (2 * 3 * FP_BYTES + 32), sum(ladder_imads(k) for k in ks)),
-            (kernels.subgroup_mask, g1_ops.subgroup_mask, (lb.to_u32_layout(jac),), (jac,), n,
-             n * (3 * FP_BYTES + 1), subgroup_imads(int(valid.sum()))),
-            (kernels.sqr_check, lambda a: (FP.sqr(a), FP.mul(a, a)), (sq_in,),
-             (lb.to_u16_layout(sq_in),), n, n * 3 * FP_BYTES, n * (IMAD_PER_FP_SQR + IMAD_PER_FP_MUL)),
-        )
-        for kernel, plain_fn, k_args, p_args, lanes, nbytes, imads in batch_cases:
-            t_kernel = [time_ms(lambda: kernel(*k_args), reps=20, warm=2) for _ in range(2)]
-            t_plain = ([scalar_mul_plain_ms] if plain_fn is None
-                       else [time_ms(lambda: plain_fn(*p_args), reps=1, warm=0)])
+        jac32 = lb.to_u32_layout(jac)
+        half32 = jac32[:, :, : n // 2].contiguous()
+        stages, n_inv = g1_batch._twiddles(n, True)
+        k_stage = lb.to_u32_layout(lb.as_limb_tensor(g1_batch._split_limbs(stages[-1]), dev))
+        k_inv = lb.to_u32_layout(lb.as_limb_tensor(g1_batch._split_limbs([n_inv]), dev))
+        rng_f = random.Random(11)
+        f_a, f_b = (lb.to_u32_layout(lb.as_limb_tensor(
+            lb.ints_to_limbs([rng_f.randrange(P) for _ in range(n)], 24), dev)) for _ in range(2))
+        n_valid = int(valid.sum())
+
+        def bound(nbytes: int, imads: int) -> dict:
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
-            src = "g1.cu" if kernel is kernels.sqr_check else "g1_batch.cu"
-            entry = {
-                "name": kernel.name,
-                "route": "cuda",
-                "source": f"{PKG}/csrc/{src}",
-                "replaces": kernel.replaces,
-                **counted(kernel.name),
-                "max_abs_err": max_err.get(kernel.name, 0),
-                "ms": sum(t_kernel) / 2,
-                "plain_ms": t_plain[0],
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
-                "lanes": lanes,
-            }
+            return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+        def timed(fn, reps: int) -> float:
+            return sum(time_ms(fn, reps=reps, warm=2) for _ in range(2)) / 2
+
+        def entry_for(kernel, src: str, ms: float, plain_ms: float, nbytes: int, imads: int,
+                      lanes: int, **extra) -> dict:
+            entry = {"name": kernel.name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+                     "replaces": kernel.replaces, **counted(kernel.name),
+                     "max_abs_err": max_err.get(kernel.name, 0), "ms": ms, "plain_ms": plain_ms,
+                     **bound(nbytes, imads), "library_ms": None, "lanes": lanes, **extra}
             entries.append(entry)
-            log(f"  {kernel.name} M={lanes}: kernel {t_kernel[0]:.4f} / {t_kernel[1]:.4f} ms, plain "
-                f"{entry['plain_ms']:.1f} ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+            log(f"  {kernel.name} M={lanes}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+                f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+            return entry
+
+        entry_for(kernels.decompress, "g1_batch.cu",
+                  timed(lambda: kernels.decompress(lb.to_u32_layout(x16), want), 20),
+                  time_ms(lambda: g1_ops.decompress_xy(x16, want), reps=1, warm=0),
+                  n * 2 * (FP_BYTES + 1), decompress_imads(n), n)
+
+        # g1_scalar_mul: each shape's bound from the split schedule's work,
+        # and beside it (ladder_bound_ms) the bound of the general
+        # double-and-add's work on the same scalars
+        shapes = {}
+        for shape, pts32, ks, lanes, k32, reps in (
+                ("fft_stage", half32, stages[-1], n // 2, k_stage, 20),
+                ("inv_n", jac32, [n_inv] * n_valid, n, k_inv, 10)):
+            ms = timed(lambda: kernels.scalar_mul(pts32, k32, 128, split=True), reps)
+            nbytes = lanes * 2 * 3 * FP_BYTES + k32.numel() * 4
+            shapes[shape] = {"lanes": lanes, "ms": ms,
+                             **bound(nbytes, sum(split_imads(k) for k in ks)),
+                             "ladder_bound_ms": bound(nbytes, sum(ladder_imads(k) for k in ks))["bound_ms"]}
+            log(f"  g1_scalar_mul split mode, {shape} M={lanes}: kernel {ms:.4f} ms, bound "
+                f"{shapes[shape]['bound_ms']:.5f} ms, double-and-add bound "
+                f"{shapes[shape]['ladder_bound_ms']:.5f} ms")
+        stage = shapes["fft_stage"]
+        entry_for(kernels.scalar_mul, "g1_batch.cu", stage["ms"], batch_plain_ms["split"],
+                  n // 2 * 2 * 3 * FP_BYTES + k_stage.numel() * 4,
+                  sum(split_imads(k) for k in stages[-1]), n // 2, mode="split",
+                  ladder_bound_ms=stage["ladder_bound_ms"], shapes=shapes,
+                  plain_general_ms=batch_plain_ms["general"])
+
+        # g1_subgroup_mask at a conversion's and two batch verifications' sizes
+        shapes = {}
+        for lanes in (n, 128, 12):
+            pts32 = jac32[:, :, :lanes].contiguous()
+            ms = timed(lambda: kernels.subgroup_mask(pts32), 20)
+            shapes[f"m{lanes}"] = {"lanes": lanes, "ms": ms,
+                                   **bound(lanes * (3 * FP_BYTES + 1),
+                                           subgroup_imads(int(valid[:lanes].sum())))}
+            log(f"  g1_subgroup_mask M={lanes}: kernel {ms:.4f} ms, bound "
+                f"{shapes[f'm{lanes}']['bound_ms']:.5f} ms")
+        entry_for(kernels.subgroup_mask, "g1_batch.cu", shapes[f"m{n}"]["ms"],
+                  time_ms(lambda: g1_ops.subgroup_mask(jac), reps=1, warm=0),
+                  n * (3 * FP_BYTES + 1), subgroup_imads(n_valid), n, shapes=shapes)
+
+        # the field checks: fp::sqr and fp::mul(a, a); the cooperative mul,
+        # sqr, add, sub, is_zero and eq beside fp::mul and fp::sqr
+        entry_for(kernels.sqr_check, "g1.cu", timed(lambda: kernels.sqr_check(f_a), 20),
+                  time_ms(lambda: (FP.sqr(lb.to_u16_layout(f_a)), FP.mul(lb.to_u16_layout(f_a),
+                                                                         lb.to_u16_layout(f_a))),
+                          reps=1, warm=0),
+                  n * 3 * FP_BYTES, n * (IMAD_PER_FP_SQR + IMAD_PER_FP_MUL), n)
+        a16, b16 = lb.to_u16_layout(f_a), lb.to_u16_layout(f_b)
+        entry_for(kernels.coop_check, "g1_batch.cu", timed(lambda: kernels.coop_check(f_a, f_b), 20),
+                  time_ms(lambda: (FP.mul(a16, b16), FP.sqr(a16), FP.add(a16, b16), FP.sub(a16, b16),
+                                   FP.is_zero(a16), FP.eq(a16, b16)), reps=1, warm=0),
+                  n * 9 * FP_BYTES, n * (3 * IMAD_PER_FP_MUL + IMAD_PER_FP_SQR), n)
 
     log(json.dumps({"end_to_end": results, "card": card}))
     log(json.dumps({"kernels": entries}))

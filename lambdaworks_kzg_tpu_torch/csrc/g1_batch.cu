@@ -1,6 +1,7 @@
 // Batched G1 kernels for Hopper (sm_90a): g1_decompress, g1_scalar_mul and
 // g1_subgroup_mask, the setup conversion's and the batch verification's
-// point steps.
+// point steps, and fp_coop_check, which holds the cooperative field
+// (fp_coop.cuh) against fp.cuh.
 //
 // They replace the per-step launches of the TPU kernels add and dbl of
 // lambdaworks_kzg_tpu/ops/pallas_g1_v2.py (_add_kernel, _dbl_kernel), which
@@ -9,47 +10,82 @@
 //   g1_decompress    <- _xy_from_x + _pick_sign (:156, :169): rhs = x^3 + 4,
 //                       y0 = rhs^((p+1)/4), qr = (y0^2 == rhs), and y0 or
 //                       p - y0 so that "y > (p-1)/2" matches the sign bit;
-//   g1_scalar_mul    <- scalar_mul_fixed (:45) and scalar_mul_per_lane
-//                       (:67): right-to-left double-and-add over the
-//                       complete add, the whole loop in one launch;
+//   g1_scalar_mul    <- scalar_mul_fixed (:45) and scalar_mul_per_lane (:67),
+//                       the loops of the G1 FFT (g1_fft_device :241):
+//                       right-to-left double-and-add over the complete add,
+//                       the whole loop in one launch; and, for points known
+//                       to lie in G1, a split mode (below);
 //   g1_subgroup_mask <- subgroup_mask (:126) with _jacobian_eq_mask: two
 //                       multiplications by |x| (64 bits) and the
 //                       cross-multiplied test sigma(P) == -[x^2]P.
-// Their plain versions are ops/g1_ops.py decompress_xy, scalar_mul and
-// subgroup_mask.
+// Their plain versions are ops/g1_ops.py decompress_xy, scalar_mul,
+// scalar_mul_endo and subgroup_mask.
 //
 // Layout as g1.cu: limbs-first u32 arrays in Montgomery form, [12, M] for
 // an Fp value, [3, 12, M] Jacobian; scalars [8, M] plain u32 words, or
 // [8, 1] with k_stride 0 for one scalar on every lane; bools as uint8.
 //
-// Design: one thread per lane with its whole chain in registers, blocks of
-// one warp, so an FFT stage's 2048 lanes spread over 64 SMs. The group law
-// is g1.cuh's, in the plain versions' order with their exceptional lanes,
-// so every output equals the plain version limb for limb. A lane's loop
-// ends at its scalar's highest set bit: the accumulator does not change
-// after it. The square root's power has one fixed value, so its chain
-// (left to right over (p+1)/4) need not be the plain version's.
+// What bounds them: the operations, in chains. g1_scalar_mul on a 255-bit
+// scalar runs ~254 doublings and ~128 adds per lane; g1_subgroup_mask 126
+// doublings and 10 adds (~1,170 Montgomery products); g1_decompress a
+// 379-bit power. A product is 588 dependent multiply-adds in one thread
+// (~2,900 cycles on an H100), a lane's products depend on each other, and
+// the path gives few lanes: an FFT stage 2048, the subgroup check 4096 in
+// a conversion and 12 to 128 in a batch verification. So one thread per
+// lane (the first design) left the card's 528 SM sub-partitions with under
+// one warp each, waiting on one chain's latency: 34x and 12x the bounds.
 //
-// What bounds them: the operations. g1_scalar_mul on a 255-bit scalar runs
-// ~254 doublings and ~128 adds, ~3,900 Montgomery products and squarings
-// in one dependent chain per lane, against 320 bytes in and 144 out;
-// g1_decompress a 379-bit power (378 squarings, 189 products) against 49
-// bytes in and 49 out; g1_subgroup_mask 126 doublings and 12 adds against
-// 144 bytes in. At the path's 2048 to 4096 lanes a launch holds at most
-// one warp per SM sub-partition, so one thread's chain latency, not the
-// card's multiply rate, sets its time.
+// Design of g1_scalar_mul and g1_subgroup_mask, against the chain:
+//   - a group of fpc::kT = 4 threads shares every field element and every
+//     product (fp_coop.cuh): ~1,570 cycles a product against ~2,900;
+//   - two groups (a pair, 8 threads) share every point op: both hold the
+//     operands and each computes one of two independent products
+//     (fpc::mul2), so a doubling is 4 products deep instead of 8 and an
+//     add 8 instead of 16;
+//   - so a lane has 8 threads (16 in the split mode), and blocks hold 64
+//     threads, two warps: an FFT stage (2048 lanes, split mode) and a
+//     conversion's subgroup check (4096 lanes) make 1024 warps each.
+// Every thread of a warp runs every field op (the shuffles and ballots
+// name the whole warp): a branch on one lane's data (a scalar bit, a point
+// at infinity, the same-x fixups) is a select, or a branch on a warp-wide
+// any. The group law is g1.cuh's, with the plain versions' values, order
+// and exceptional lanes, so every output equals the plain version limb for
+// limb. A ladder runs to the highest set bit of any lane of the warp: a
+// lane's accumulator does not change after its own.
+//
+// The split mode of g1_scalar_mul serves only the setup conversion's FFT,
+// whose points have passed the subgroup check. For P in G1, sigma(P) =
+// (BETA X, Y, Z) = -[x^2]P (the identity g1_subgroup_mask tests), so with
+// k = k1 + k2 x^2 (k1 < x^2, k2 < 2^128, split on the host) the kernel
+// computes [k1]P + [k2]sigma'(P), sigma'(P) = (BETA X, -Y, Z) = [x^2]P.
+// Two pairs run the two 128-bit halves side by side, each left to right
+// in 4-bit windows over a table 0, P, .., 15P in shared memory (7
+// doublings and 7 adds to build, then 124 doublings and 31 adds): ~1,540
+// products in a lane's chain against ~5,840 for the general ladder, whose
+// warps run the add on nearly every step. Then the second pair hands its
+// point to the first, which adds. On a point outside G1 the split gives
+// another point than [k]P; the general mode stays for every other caller.
+//
+// g1_decompress keeps the first design (one thread per lane, blocks of one
+// warp); its chain is one power, and it is next in line.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "g1.cuh"
+#include "fp_coop.cuh"
 
 namespace {
 
 using fp::Fp;
-using g1::Jac;
+using fpc::Fq;
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 32;  // g1_decompress: one thread per lane
+constexpr int kBlock = 64;    // the cooperative kernels: 16 groups of fpc::kT
+constexpr int kPair = 2 * fpc::kT;  // threads per lane: a pair of groups
 constexpr int kScalarWords = 8;
+constexpr int kHalfWords = 4;  // one half of a split scalar: 128 bits
+constexpr int kWindow = 4;
+constexpr int kTable = 1 << kWindow;
+constexpr int kCoords = 3 * fpc::kS;  // a thread's words of a Jacobian point
 
 // (p + 1) / 4: 379 bits, the top set bit is bit 26 of word 11
 __constant__ Fp kSqrtExp = {{0xffffeaabu, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu,
@@ -106,25 +142,188 @@ __device__ __noinline__ Fp pow_sqrt(Fp a) {
   return r;
 }
 
+// -- the group law on the cooperative field: g1.cuh's formulas, order and
+// exceptional lanes ----------------------------------------------------
+
+struct CJac {
+  Fq X, Y, Z;
+};
+
+__device__ __forceinline__ CJac load_cjac(const uint32_t* __restrict__ p, int M, int m) {
+  CJac r;
+  r.X = fpc::load(p, M, m);
+  r.Y = fpc::load(p + (size_t)fp::NL * M, M, m);
+  r.Z = fpc::load(p + (size_t)2 * fp::NL * M, M, m);
+  return r;
+}
+
+__device__ __forceinline__ void store_cjac(uint32_t* __restrict__ out, int M, int m,
+                                           const CJac& r) {
+  fpc::store(out, M, m, r.X);
+  fpc::store(out + (size_t)fp::NL * M, M, m, r.Y);
+  fpc::store(out + (size_t)2 * fp::NL * M, M, m, r.Z);
+}
+
+__device__ __forceinline__ CJac cjac_zero() {
+  CJac r;
+  r.X = fpc::zero();
+  r.Y = fpc::zero();
+  r.Z = fpc::zero();
+  return r;
+}
+
+// dbl-2009-l (a = 0) on a pair of groups, both holding p: the products
+// run two at a time (fpc::mul2), 4 deep instead of 7. The values are the
+// plain version's (formulas.py): S = 2((X + YY)^2 - XX - YYYY) = 4 X YY
+// and Z3 = (Y + Z)^2 - YY - ZZ = 2 Y Z, fully reduced, so the limbs are
+// too. Z = 0 stays Z = 0.
+__device__ __forceinline__ CJac cjac_dbl(const CJac& p) {
+  using namespace fpc;
+  Fq XX, YY, MM, YYYY, YZ, XYY;
+  mul2(p.X, p.X, p.Y, p.Y, XX, YY);
+  const Fq M = add(add(XX, XX), XX);
+  mul2(M, M, YY, YY, MM, YYYY);
+  mul2(p.Y, p.Z, p.X, YY, YZ, XYY);
+  const Fq S = dbl(dbl(XYY));
+  const Fq T = sub(MM, add(S, S));
+  const Fq Y8 = dbl(dbl(dbl(YYYY)));
+  CJac r;
+  r.X = T;
+  r.Y = sub(mul(M, sub(S, T)), Y8);
+  r.Z = dbl(YZ);
+  return r;
+}
+
+__device__ __forceinline__ CJac csel(bool c, const CJac& a, const CJac& b) {
+  CJac r;
+#pragma unroll
+  for (int k = 0; k < fpc::kS; ++k) {
+    r.X.v[k] = c ? a.X.v[k] : b.X.v[k];
+    r.Y.v[k] = c ? a.Y.v[k] : b.Y.v[k];
+    r.Z.v[k] = c ? a.Z.v[k] : b.Z.v[k];
+  }
+  return r;
+}
+
+// complete p + q on a pair of groups, both holding p and q: add-2007-bl
+// with its 16 products two at a time (8 deep), then the plain version's
+// fixups in its precedence (same x: the doubling or infinity; q at
+// infinity gives p, then p at infinity gives q) as selects, so every lane
+// of the warp runs the same code; the doubling runs only where a lane of
+// the warp needs it
+__device__ __forceinline__ CJac cjac_add(const CJac& p, const CJac& q) {
+  using namespace fpc;
+  const bool p_inf = is_zero(p.Z);
+  const bool q_inf = is_zero(q.Z);
+  Fq Z1Z1, Z2Z2, U1, U2, t1, t2, S1, S2;
+  mul2(p.Z, p.Z, q.Z, q.Z, Z1Z1, Z2Z2);
+  mul2(p.X, Z2Z2, q.X, Z1Z1, U1, U2);
+  mul2(p.Y, q.Z, q.Y, p.Z, t1, t2);
+  mul2(t1, Z2Z2, t2, Z1Z1, S1, S2);
+  const Fq H = sub(U2, U1);
+  const Fq Rr = sub(S2, S1);
+  const bool h_zero = is_zero(H);  // a ballot: every thread, before any &&
+  const bool same_x = !p_inf && !q_inf && h_zero;
+  const Fq ZZ = add(p.Z, q.Z);
+  Fq HH, ZZ2, J, V, RR, S1J, Y3, Z3;
+  mul2(H, H, ZZ, ZZ, HH, ZZ2);
+  const Fq I = dbl(dbl(HH));
+  mul2(H, I, U1, I, J, V);
+  const Fq r2 = add(Rr, Rr);
+  mul2(r2, r2, S1, J, RR, S1J);
+  CJac r;
+  r.X = sub(sub(RR, J), add(V, V));
+  mul2(r2, sub(V, r.X), sub(sub(ZZ2, Z1Z1), Z2Z2), H, Y3, Z3);
+  r.Y = sub(Y3, add(S1J, S1J));
+  r.Z = Z3;
+  if (warp_any(same_x)) {
+    const bool r_zero = is_zero(Rr);
+    r = csel(same_x && r_zero, cjac_dbl(p), r);
+    r = csel(same_x && !r_zero, cjac_zero(), r);
+  }
+  return csel(q_inf, p, csel(p_inf, q, r));
+}
+
 // [k] base for the NW-word scalar s, right to left as the plain version:
-// from acc at infinity, for each bit up to the highest set one,
-// acc = jac_add(acc, base) where the bit is set, then base = jac_dbl(base)
-// while a set bit is left above.
+// from acc at infinity, for each bit up to the highest set one of any
+// lane of the warp, acc = add(acc, base) where the bit is set, then
+// base = dbl(base) while a set bit is left above (acc does not change
+// after a lane's own highest bit).
 template <int NW>
-__device__ __forceinline__ Jac scalar_mul_words(Jac base, const uint32_t (&s)[NW]) {
+__device__ __forceinline__ CJac ladder(CJac base, const uint32_t (&s)[NW]) {
   int top = -1;
 #pragma unroll
   for (int j = 0; j < NW; ++j)
     if (s[j]) top = 32 * j + 31 - __clz((int)s[j]);
-  Jac acc = g1::jac_zero();
+  top = __reduce_max_sync(fpc::kWarp, top);  // the same loop on every lane
+  CJac acc = cjac_zero();
 #pragma unroll 1
   for (int i = 0; i <= top; ++i) {
     uint32_t word = 0u;  // s[i / 32], selected without a dynamic index
 #pragma unroll
     for (int j = 0; j < NW; ++j)
       if (j == (i >> 5)) word = s[j];
-    if ((word >> (i & 31)) & 1u) acc = g1::jac_add(acc, base);
-    if (i < top) base = g1::jac_dbl(base);
+    const bool bit = (word >> (i & 31)) & 1u;
+    if (fpc::warp_any(bit)) acc = csel(bit, cjac_add(acc, base), acc);
+    if (i < top) base = cjac_dbl(base);
+  }
+  return acc;
+}
+
+// The window table: entry e's words of this thread at tab[e][0 .. 8][tid],
+// so a warp's 32 threads touch 32 banks whatever entry each group reads.
+using Table = uint32_t (*)[kCoords][kBlock];
+
+__device__ __forceinline__ void put(Table tab, int e, const CJac& P) {
+#pragma unroll
+  for (int k = 0; k < fpc::kS; ++k) {
+    tab[e][k][threadIdx.x] = P.X.v[k];
+    tab[e][fpc::kS + k][threadIdx.x] = P.Y.v[k];
+    tab[e][2 * fpc::kS + k][threadIdx.x] = P.Z.v[k];
+  }
+}
+
+__device__ __forceinline__ CJac get(Table tab, int e) {
+  CJac P;
+#pragma unroll
+  for (int k = 0; k < fpc::kS; ++k) {
+    P.X.v[k] = tab[e][k][threadIdx.x];
+    P.Y.v[k] = tab[e][fpc::kS + k][threadIdx.x];
+    P.Z.v[k] = tab[e][2 * fpc::kS + k][threadIdx.x];
+  }
+  return P;
+}
+
+// window w (bits 4w .. 4w + 3) of a 128-bit scalar
+__device__ __forceinline__ int digit(const uint32_t (&s)[kHalfWords], int w) {
+  uint32_t word = 0u;
+#pragma unroll
+  for (int j = 0; j < kHalfWords; ++j)
+    if (j == (w >> 3)) word = s[j];
+  return (int)((word >> ((w & 7) * kWindow)) & (kTable - 1));
+}
+
+// [s] P for a 128-bit s, left to right in 4-bit windows, as the plain
+// g1_ops.window_mul: the table T[0] = infinity, T[1] = P, T[2j] =
+// dbl(T[j]), T[2j+1] = add(T[2j], P); acc = T[top digit], then per window
+// four doublings and acc = add(acc, T[digit]).
+__device__ __forceinline__ CJac window_mul(const CJac& P, const uint32_t (&s)[kHalfWords],
+                                           Table tab) {
+  put(tab, 0, cjac_zero());
+  put(tab, 1, P);
+#pragma unroll 1
+  for (int j = 1; j < kTable / 2; ++j) {
+    const CJac d = cjac_dbl(get(tab, j));
+    put(tab, 2 * j, d);
+    put(tab, 2 * j + 1, cjac_add(d, P));
+  }
+  constexpr int kWindows = 32 * kHalfWords / kWindow;
+  CJac acc = get(tab, digit(s, kWindows - 1));
+#pragma unroll 1
+  for (int w = kWindows - 2; w >= 0; --w) {
+#pragma unroll 1
+    for (int d = 0; d < kWindow; ++d) acc = cjac_dbl(acc);
+    acc = cjac_add(acc, get(tab, digit(s, w)));
   }
   return acc;
 }
@@ -149,12 +348,21 @@ __global__ void __launch_bounds__(kThreads)
   fp::store(y_out, M, m, flip ? fp::sub(fp::zero(), y0) : y0);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Lane of thread t for `per` threads per lane: threads past the last lane
+// compute lane M - 1 again (every thread of a warp takes part in its
+// shuffles) and store nothing.
+__device__ __forceinline__ int lane_of(int per, int M, bool& live) {
+  const int m = (blockIdx.x * blockDim.x + threadIdx.x) / per;
+  live = m < M;
+  return live ? m : M - 1;
+}
+
+__global__ void __launch_bounds__(kBlock)
     g1_scalar_mul_kernel(const uint32_t* __restrict__ p,
                          const uint32_t* __restrict__ k, int k_stride,
                          uint32_t* __restrict__ out, int M, int nbits) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
+  bool live;
+  const int m = lane_of(kPair, M, live);
   const size_t row = k_stride ? (size_t)M : 1;
   const size_t col = k_stride ? (size_t)m : 0;
   uint32_t s[kScalarWords];
@@ -166,33 +374,102 @@ __global__ void __launch_bounds__(kThreads)
     else if (nbits < lo + 32) w &= (1u << (nbits - lo)) - 1u;
     s[j] = w;
   }
-  g1::store_jac(out, M, m, scalar_mul_words(g1::load_jac(p, M, m), s));
+  const CJac r = ladder(load_cjac(p, M, m), s);
+  if (live && !fpc::second()) store_cjac(out, M, m, r);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Split mode: words 0-3 of lane m's scalar hold k1, words 4-7 k2; the
+// lane's first pair of groups computes [k1]P, its second [k2]sigma'(P),
+// and the first adds them.
+__global__ void __launch_bounds__(kBlock)
+    g1_scalar_mul_split_kernel(const uint32_t* __restrict__ p,
+                               const uint32_t* __restrict__ k, int k_stride,
+                               uint32_t* __restrict__ out, int M) {
+  __shared__ uint32_t tab[kTable][kCoords][kBlock];
+  bool live;
+  const int m = lane_of(2 * kPair, M, live);
+  const bool half = (threadIdx.x / kPair) & 1;
+  const size_t row = k_stride ? (size_t)M : 1;
+  const size_t col = k_stride ? (size_t)m : 0;
+  uint32_t s[kHalfWords];
+#pragma unroll
+  for (int j = 0; j < kHalfWords; ++j) s[j] = k[(kHalfWords * half + j) * row + col];
+  CJac P = load_cjac(p, M, m);
+  const Fq bx = fpc::mul(P.X, fpc::words_of(kBeta));  // sigma'(P) = (BETA X, -Y, Z)
+  const Fq ny = fpc::neg(P.Y);
+#pragma unroll
+  for (int j = 0; j < fpc::kS; ++j) {
+    P.X.v[j] = half ? bx.v[j] : P.X.v[j];
+    P.Y.v[j] = half ? ny.v[j] : P.Y.v[j];
+  }
+  const CJac r = window_mul(P, s, tab);
+  CJac other;  // the second pair's point, at the same thread of the first
+#pragma unroll
+  for (int j = 0; j < fpc::kS; ++j) {
+    other.X.v[j] = __shfl_down_sync(fpc::kWarp, r.X.v[j], kPair, 2 * kPair);
+    other.Y.v[j] = __shfl_down_sync(fpc::kWarp, r.Y.v[j], kPair, 2 * kPair);
+    other.Z.v[j] = __shfl_down_sync(fpc::kWarp, r.Z.v[j], kPair, 2 * kPair);
+  }
+  const CJac sum = cjac_add(r, other);
+  if (live && !half && !fpc::second()) store_cjac(out, M, m, sum);
+}
+
+__global__ void __launch_bounds__(kBlock)
     g1_subgroup_mask_kernel(const uint32_t* __restrict__ p,
                             uint8_t* __restrict__ out, int M) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const Jac P = g1::load_jac(p, M, m);
+  bool live;
+  const int m = lane_of(kPair, M, live);
+  const CJac P = load_cjac(p, M, m);
   const uint32_t x_abs[2] = {kXAbsLo, kXAbsHi};
-  Jac xx = P;
+  CJac xx = P;
 #pragma unroll 1
-  for (int r = 0; r < 2; ++r) xx = scalar_mul_words(xx, x_abs);
+  for (int r = 0; r < 2; ++r) xx = ladder(xx, x_abs);
   // sigma(P) = (BETA X, Y, Z) against -[x^2]P = (X', -Y', Z')
-  const Fp beta = kBeta;
-  const Fp X1 = fp::mul(P.X, beta);
-  const Fp Y2 = fp::sub(fp::zero(), xx.Y);
-  const Fp Z11 = fp::sqr(P.Z);
-  const Fp Z22 = fp::sqr(xx.Z);
-  const bool ex = fp_eq(fp::mul(X1, Z22), fp::mul(xx.X, Z11));
-  const bool ey = fp_eq(fp::mul(fp::mul(P.Y, xx.Z), Z22), fp::mul(fp::mul(Y2, P.Z), Z11));
-  const bool inf1 = fp::is_zero(P.Z);
-  const bool inf2 = fp::is_zero(xx.Z);
-  out[m] = (inf1 || inf2) ? (inf1 == inf2) : (ex && ey);
+  const Fq X1 = fpc::mul(P.X, fpc::words_of(kBeta));
+  const Fq Y2 = fpc::neg(xx.Y);
+  const Fq Z11 = fpc::sqr(P.Z);
+  const Fq Z22 = fpc::sqr(xx.Z);
+  const bool ex = fpc::eq(fpc::mul(X1, Z22), fpc::mul(xx.X, Z11));
+  const bool ey = fpc::eq(fpc::mul(fpc::mul(P.Y, xx.Z), Z22), fpc::mul(fpc::mul(Y2, P.Z), Z11));
+  const bool inf1 = fpc::is_zero(P.Z);
+  const bool inf2 = fpc::is_zero(xx.Z);
+  if (live && threadIdx.x % kPair == 0) out[m] = (inf1 || inf2) ? (inf1 == inf2) : (ex && ey);
+}
+
+// lane m of [12, M] arrays a, b below p -> out [7, 12, M]: the cooperative
+// mul(a, b), sqr(a), add(a, b), sub(a, b), then fp::mul(a, b), fp::sqr(a),
+// and in plane 6 the cooperative is_zero(a) (limb 0) and eq(a, b) (limb 1)
+__global__ void __launch_bounds__(kBlock)
+    fp_coop_check_kernel(const uint32_t* __restrict__ a,
+                         const uint32_t* __restrict__ b,
+                         uint32_t* __restrict__ out, int M) {
+  bool live;
+  const int m = lane_of(fpc::kT, M, live);
+  const size_t plane = (size_t)fp::NL * M;
+  const Fq x = fpc::load(a, M, m);
+  const Fq y = fpc::load(b, M, m);
+  const Fq r[4] = {fpc::mul(x, y), fpc::sqr(x), fpc::add(x, y), fpc::sub(x, y)};
+  const bool x_zero = fpc::is_zero(x), x_eq_y = fpc::eq(x, y);
+  Fq flags = fpc::zero();
+  flags.v[0] = fpc::rank() == 0 && x_zero;
+  flags.v[1] = fpc::rank() == 0 && x_eq_y;
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) fpc::store(out + i * plane, M, m, r[i]);
+  fpc::store(out + 6 * plane, M, m, flags);
+  if (fpc::rank() == 0) {
+    const Fp X = fp::load(a, M, m);
+    fp::store(out + 4 * plane, M, m, fp::mul(X, fp::load(b, M, m)));
+    fp::store(out + 5 * plane, M, m, fp::sqr(X));
+  }
 }
 
 inline int blocks_for(int M) { return (M + kThreads - 1) / kThreads; }
+
+// blocks of kBlock threads for M lanes of `per_lane` threads each
+inline int coop_blocks(int M, int per_lane) {
+  return (int)(((long long)M * per_lane + kBlock - 1) / kBlock);
+}
 
 }  // namespace
 
@@ -206,17 +483,32 @@ extern "C" int lwkzg_g1_decompress(const void* x, const void* want_largest,
   return (int)cudaGetLastError();
 }
 
+// split != 0: the split mode (k1, k2 in words 0-3 and 4-7; nbits unused)
 extern "C" int lwkzg_g1_scalar_mul(const void* p, const void* k, int k_stride,
-                                   void* out, int M, int nbits, void* stream) {
-  g1_scalar_mul_kernel<<<blocks_for(M), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (const uint32_t*)k, k_stride, (uint32_t*)out, M,
-      nbits);
+                                   void* out, int M, int nbits, int split,
+                                   void* stream) {
+  if (split) {
+    g1_scalar_mul_split_kernel<<<coop_blocks(M, 2 * kPair), kBlock, 0,
+                                 (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (const uint32_t*)k, k_stride, (uint32_t*)out, M);
+  } else {
+    g1_scalar_mul_kernel<<<coop_blocks(M, kPair), kBlock, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (const uint32_t*)k, k_stride, (uint32_t*)out, M,
+        nbits);
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int lwkzg_g1_subgroup_mask(const void* p, void* out, int M,
                                       void* stream) {
-  g1_subgroup_mask_kernel<<<blocks_for(M), kThreads, 0, (cudaStream_t)stream>>>(
+  g1_subgroup_mask_kernel<<<coop_blocks(M, kPair), kBlock, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (uint8_t*)out, M);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lwkzg_fp_coop_check(const void* a, const void* b, void* out,
+                                   int M, void* stream) {
+  fp_coop_check_kernel<<<coop_blocks(M, fpc::kT), kBlock, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, M);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,7 @@ from ..constants import NUM_G2_POINTS, R, TRUSTED_SETUP_NUM_G1_POINTS
 from ..host import curve as C
 from ..host import fft as FFT
 from ..ops import g1_batch, g1_ops
-from ..ops.backend import resolve_device
+from ..ops.dispatch import resolve_device
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CACHE_DIR = os.path.join(_REPO, "cache")
@@ -173,7 +173,9 @@ def _convert_g1(g1_bytes, device):
     if err.any():
         raise SetupLoadError(f"bad g1 point at index {int(np.argmax(err))}")
     jac = g1_batch.lift_affine(pts_aff, torch.from_numpy(~is_inf).to(device))
-    lagrange_jac = g1_batch.g1_fft_device(jac, inverse=True)
+    # every point passed the subgroup check above, so the FFT may split its
+    # scalars through the G1 endomorphism
+    lagrange_jac = g1_batch.g1_fft_device(jac, inverse=True, in_g1=True)
     brp = torch.tensor(FFT.bit_reversal_permutation(list(range(len(g1_bytes)))), device=device)
     lagrange = g1_batch.jacobians_to_host_affine(lagrange_jac.index_select(-1, brp))
     return g1_batch.jacobians_to_host_affine(jac), lagrange

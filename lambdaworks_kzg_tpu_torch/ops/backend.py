@@ -20,19 +20,9 @@ import torch
 from ..constants import R, num_windows
 from ..host import curve as HC
 from . import codec, dispatch, fr_poly, g1_batch, g1_ops, msm
+from .dispatch import resolve_device
 from . import limbs as lb
 from .field_ops import FR
-
-
-def resolve_device(device) -> torch.device:
-    """A torch.device; CUDA that is not there raises (no CPU fallback)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain "
-            "PyTorch versions on the CPU"
-        )
-    return device
 
 
 GROUPS = 8  # lane groups of the bucket grid, as the JAX DeviceBackend fixes them

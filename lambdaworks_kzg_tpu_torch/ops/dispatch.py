@@ -14,14 +14,29 @@ against this module runs the plain versions on any device when handed
 
 The routes of the batched G1 steps (`ops/g1_batch.py`) take and return
 the public layout and convert around each launch: `decompress_xy`,
-`scalar_mul`, `subgroup_mask` and `add` run once per batch or per FFT
-stage, not in a loop of ops.
+`scalar_mul`, `scalar_mul_endo`, `subgroup_mask` and `add` run once per
+batch or per FFT stage, not in a loop of ops.
+
+`resolve_device` turns a device argument into a `torch.device` and
+raises where CUDA is asked for and absent: the entry points run on the
+card unless the caller asks for the CPU.
 """
 
 import torch
 
 from ..constants import num_windows
 from . import g1_ops, kernels, limbs as lb
+
+
+def resolve_device(device) -> torch.device:
+    """A torch.device; CUDA that is not there raises (no CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU"
+        )
+    return device
 
 
 def fixedbase_table(points16, valid, c: int):
@@ -85,6 +100,16 @@ def scalar_mul(points16, scalars16, nbits: int):
         out = kernels.scalar_mul(lb.to_u32_layout(points16), lb.to_u32_layout(scalars16), nbits)
         return lb.to_u16_layout(out)
     return g1_ops.scalar_mul(points16, scalars16, nbits)
+
+
+def scalar_mul_endo(points16, split16):
+    """[3, 24, B] Jacobian points of G1, [16, B] or [16, 1] split scalars
+    (k1 in limbs 0-7, k2 in limbs 8-15) -> [k1 + k2 x^2] P_b."""
+    if points16.is_cuda:
+        out = kernels.scalar_mul(lb.to_u32_layout(points16), lb.to_u32_layout(split16), 128,
+                                 split=True)
+        return lb.to_u16_layout(out)
+    return g1_ops.scalar_mul_endo(points16, split16)
 
 
 def subgroup_mask(points16):

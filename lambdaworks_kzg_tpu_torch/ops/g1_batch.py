@@ -12,6 +12,14 @@ runs the Pallas `add` and `dbl` kernels from XLA `fori_loop`s, one
 `g1_ops.scalar_mul` and `g1_ops.subgroup_mask` (over
 `jacobian_eq_mask`).
 
+The setup conversion's FFT (`g1_fft_device(..., in_g1=True)`) splits
+each scalar through the G1 endomorphism, k = k1 + k2 x^2 with k1, k2
+below 2^128 (`split_scalar`, cached per FFT length), and runs the
+kernel's split mode (`ops.scalar_mul_endo`): [k1]P + [k2]sigma'(P) with
+sigma'(P) = (BETA X, -Y, Z) = [x^2]P. That holds only for points in G1,
+which the conversion has checked; every other call takes the general
+double-and-add, which gives [k]P for any curve point.
+
 Every function takes `ops`, as `ops/msm.py` does: `ops/dispatch.py`
 (the default: a CUDA tensor goes to the kernels, a CPU tensor to the
 plain versions) or `ops/g1_ops.py` (the plain versions on any device).
@@ -21,16 +29,19 @@ The flag and range parsing of compressed bytes stays on the host, in
 numpy, as in JAX.
 """
 
+import functools
+
 import numpy as np
 import torch
 
-from ..constants import P, R, fr_root_of_unity
+from ..constants import BLS_X, P, R, fr_root_of_unity
 from ..host import curve as HC
 from ..host import fft as HFFT
 from . import dispatch, g1_ops, limbs as lb
 from .field_ops import FP
 
 L = FP.L
+X2 = BLS_X * BLS_X  # x^2: sigma'(P) = [x^2]P on G1, 128 bits
 
 
 def lift_affine(points_aff: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -56,6 +67,28 @@ def scalar_mul_per_lane(points_jac: torch.Tensor, scalars_plain: torch.Tensor,
     return ops.scalar_mul(points_jac, scalars_plain, 256)
 
 
+def split_scalar(k: int) -> tuple:
+    """k in [0, r) -> (k1, k2) with k = k1 + k2 x^2, k1 < x^2, k2 < 2^128."""
+    if not 0 <= k < R:
+        raise ValueError("scalar must be in [0, r)")
+    k2, k1 = divmod(k, X2)
+    return k1, k2
+
+
+def _split_limbs(ks) -> np.ndarray:
+    """Scalars below r -> [16, n] plain limbs, k1 in limbs 0-7, k2 in 8-15."""
+    halves = [split_scalar(k) for k in ks]
+    return np.concatenate([lb.ints_to_limbs([h[0] for h in halves], 8),
+                           lb.ints_to_limbs([h[1] for h in halves], 8)])
+
+
+def scalar_mul_in_g1(points_jac: torch.Tensor, split_limbs, ops=dispatch) -> torch.Tensor:
+    """[k_b]P_b for points of G1 only, through the endomorphism split:
+    split_limbs [16, B] or [16, 1] numpy limbs as `_split_limbs` gives
+    them."""
+    return ops.scalar_mul_endo(points_jac, lb.as_limb_tensor(split_limbs, points_jac.device))
+
+
 def subgroup_mask_definitional(points_jac: torch.Tensor, ops=dispatch) -> torch.Tensor:
     """bool[B]: [r]P == infinity, the definition the fast check is held
     against."""
@@ -67,14 +100,16 @@ def subgroup_mask(points_jac: torch.Tensor, ops=dispatch) -> torch.Tensor:
     return ops.subgroup_mask(points_jac)
 
 
-def decompress_batch(compressed, subgroup_check: bool = True, device="cpu", ops=dispatch):
-    """Batched G1 decompression of n 48-byte strings.
+def decompress_batch(compressed, subgroup_check: bool = True, device="cuda", ops=dispatch):
+    """Batched G1 decompression of n 48-byte strings on `device` (the
+    card unless "cpu" is asked for; raises where CUDA is absent).
 
     Returns (points_aff [2, L, n] Montgomery on `device`, infinity
     bool[n], error bool[n]), the flags as numpy. Three control bits, the
     sign picks the lexicographically larger y, then the subgroup check.
     Error lanes (no compression bit, a bad infinity, x >= p, no square
     root, outside G1) and lanes at infinity are zero in points_aff."""
+    device = dispatch.resolve_device(device)
     n = len(compressed)
     arr = np.frombuffer(b"".join(compressed), dtype=np.uint8).reshape(n, 48)
     c_bit = (arr[:, 0] >> 7) & 1
@@ -111,37 +146,64 @@ def _neg_y(p_jac: torch.Tensor) -> torch.Tensor:
     return torch.stack([p_jac[0], FP.neg(p_jac[1]), p_jac[2]], dim=0)
 
 
-def g1_fft_device(points_jac: torch.Tensor, inverse: bool = False, ops=dispatch) -> torch.Tensor:
+@functools.lru_cache(maxsize=8)
+def _twiddles(n: int, inverse: bool) -> tuple:
+    """Per stage of the length-n FFT, the twiddle of each odd lane (a
+    stage of length l repeats w^0 .. w^(l/2 - 1) n/l times), and 1/n."""
+    stages, length = [], 2
+    while length <= n:
+        w = fr_root_of_unity(length)
+        if inverse:
+            w = pow(w, R - 2, R)
+        tw = [1] * (length // 2)
+        for j in range(1, length // 2):
+            tw[j] = tw[j - 1] * w % R
+        stages.append(tw * (n // length))
+        length *= 2
+    return tuple(stages), pow(n, R - 2, R)
+
+
+@functools.lru_cache(maxsize=8)
+def _split_twiddles(n: int, inverse: bool) -> tuple:
+    """`_twiddles` split through the endomorphism: [16, n/2] limbs per
+    stage and [16, 1] for 1/n (numpy)."""
+    stages, n_inv = _twiddles(n, inverse)
+    return tuple(_split_limbs(tw) for tw in stages), _split_limbs([n_inv])
+
+
+def g1_fft_device(points_jac: torch.Tensor, inverse: bool = False, ops=dispatch,
+                  in_g1: bool = False) -> torch.Tensor:
     """Radix-2 FFT over G1, [3, L, n] -> [3, L, n], natural order in and
     out (as host/fft.g1_fft). Per stage of n/2 butterflies: one per-lane
     scalar multiplication of the odd half by its twiddles, a negation of
     its Y, and two batched adds; the inverse ends with [1/n] on every
-    lane."""
+    lane. in_g1: every point is in G1 (the caller has checked), so the
+    scalar multiplications split through the endomorphism (the kernel's
+    split mode); on a point outside G1 that gives another result."""
     n = points_jac.shape[-1]
     if n & (n - 1):
         raise ValueError("the FFT length must be a power of two")
     dev = points_jac.device
     brp = torch.tensor(HFFT.bit_reversal_permutation(list(range(n))), device=dev)
     a = points_jac.index_select(-1, brp)
+    stages, n_inv = _twiddles(n, inverse)
+    split = _split_twiddles(n, inverse) if in_g1 else None
     length = 2
-    while length <= n:
+    for s, tw in enumerate(stages):
         half = length // 2
-        w = fr_root_of_unity(length)
-        if inverse:
-            w = pow(w, R - 2, R)
-        tw = [1] * half
-        for j in range(1, half):
-            tw[j] = tw[j - 1] * w % R
         a4 = a.reshape(3, L, n // length, length)
         even = a4[..., :half].reshape(3, L, n // 2)
         odd = a4[..., half:].reshape(3, L, n // 2)
-        t = scalar_mul_per_lane(odd, _scalar_tensor(tw * (n // length), dev), ops)
+        if in_g1:
+            t = scalar_mul_in_g1(odd, split[0][s], ops)
+        else:
+            t = scalar_mul_per_lane(odd, _scalar_tensor(tw, dev), ops)
         out_e = ops.add(even, t).reshape(3, L, n // length, half)
         out_o = ops.add(even, _neg_y(t)).reshape(3, L, n // length, half)
         a = torch.cat([out_e, out_o], dim=-1).reshape(3, L, n)
         length *= 2
     if inverse:
-        a = scalar_mul_fixed(a, pow(n, R - 2, R), ops)
+        a = scalar_mul_in_g1(a, split[1], ops) if in_g1 else scalar_mul_fixed(a, n_inv, ops)
     return a
 
 

@@ -8,7 +8,9 @@ them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
 `subgroup_mask` are the batched G1 steps of the JAX package's
 `ops/g1_batch.py` (`_xy_from_x` + `_pick_sign`, the `fori_loop`s of
 `scalar_mul_fixed` / `scalar_mul_per_lane`, `subgroup_mask` with
-`_jacobian_eq_mask`), which `ops/g1_batch.py` here drives.
+`_jacobian_eq_mask`), which `ops/g1_batch.py` here drives;
+`scalar_mul_endo` is the schedule of the kernel's split mode, for points
+in G1 (the setup conversion's FFT).
 
 Points are Jacobian (X, Y, Z) in Montgomery form, one [..., 3, L, B]
 radix-2^16 int64 tensor (coordinate, limb, lane); infinity is Z == 0.
@@ -298,6 +300,59 @@ def scalar_mul(points: torch.Tensor, scalars: torch.Tensor, nbits: int = 256) ->
         if i + 1 < top:
             base = dbl(base)
     return acc
+
+
+WINDOW = 4  # bits per window of window_mul
+SPLIT_BITS = 128  # the width of each half of a split scalar
+
+
+def _window_table(points: torch.Tensor) -> torch.Tensor:
+    """[3, L, B] -> [2^WINDOW, 3, L, B]: T[0] = infinity, T[1] = P,
+    T[2j] = dbl(T[j]), T[2j+1] = add(T[2j], P)."""
+    table = [torch.zeros_like(points), points]
+    for j in range(1, (1 << WINDOW) // 2):
+        d = dbl(table[j])
+        table += [d, add(d, points)]
+    return torch.stack(table)
+
+
+def window_mul(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """[k_b] P_b for SPLIT_BITS-bit scalars [8, B] (or [8, 1]) plain
+    16-bit limbs, left to right in WINDOW-bit windows over
+    `_window_table`: acc = T[top digit], then per window WINDOW doublings
+    and acc = add(acc, T[digit]). The schedule of the kernel's split mode
+    (`window_mul` in csrc/g1_batch.cu), so the limbs are the kernel's."""
+    table = _window_table(points)
+    n = points.shape[-1]
+    per_limb = 16 // WINDOW
+
+    def pick(w: int) -> torch.Tensor:
+        d = (scalars[w // per_limb] >> (WINDOW * (w % per_limb))) & ((1 << WINDOW) - 1)
+        idx = d.expand(n).reshape(1, 1, 1, n).expand(1, *table.shape[1:])
+        return table.gather(0, idx)[0]
+
+    windows = SPLIT_BITS // WINDOW
+    acc = pick(windows - 1)
+    for w in range(windows - 2, -1, -1):
+        for _ in range(WINDOW):
+            acc = dbl(acc)
+        acc = add(acc, pick(w))
+    return acc
+
+
+def scalar_mul_endo(points: torch.Tensor, split: torch.Tensor) -> torch.Tensor:
+    """[k1]P + [k2]sigma'(P), sigma'(P) = (BETA X, -Y, Z), for Jacobian
+    [3, L, B] and split scalars [16, B] (or [16, 1]) plain 16-bit limbs,
+    k1 in limbs 0-7 and k2 in limbs 8-15. For P in G1, sigma'(P) = [x^2]P,
+    so this is [k1 + k2 x^2]P. The plain version of the kernel
+    g1_scalar_mul's split mode: both halves through `window_mul` (here
+    side by side on 2B lanes), then one add."""
+    n = points.shape[-1]
+    sigma = torch.stack([FP.mul(points[0], _const(_BETA_MONT, points)), FP.neg(points[1]),
+                         points[2]])
+    k = split.expand(16, n)
+    both = window_mul(torch.cat([points, sigma], dim=-1), torch.cat([k[:8], k[8:]], dim=-1))
+    return add(both[..., :n], both[..., n:])
 
 
 def jacobian_eq_mask(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

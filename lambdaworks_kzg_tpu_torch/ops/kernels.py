@@ -15,11 +15,16 @@ its plain version is `g1_ops.fixedbase_table`. `g1_decompress`,
 `g1_scalar_mul` and `g1_subgroup_mask` (g1_batch.cu) run the batched G1
 steps of setup conversion and batch verification (`ops/g1_batch.py`),
 each whole loop in one launch; their plain versions are
-`g1_ops.decompress_xy`, `g1_ops.scalar_mul` and `g1_ops.subgroup_mask`.
-`fp_sqr_check` (g1.cu)
-returns the field's square and product a * a, to hold one against the
-other. The notes at the top of the sources say what bounds each kernel
-on the card.
+`g1_ops.decompress_xy`, `g1_ops.scalar_mul` (`g1_ops.scalar_mul_endo` in
+the split mode) and `g1_ops.subgroup_mask`; `g1_scalar_mul` and
+`g1_subgroup_mask` run on the cooperative field of `fp_coop.cuh` (four
+threads per element, eight to a lane).
+`fp_sqr_check` (g1.cu) returns the field's square and product a * a, to
+hold one against the other, and `fp_coop_check` (g1_batch.cu) the
+cooperative field's product, square, sum, difference, zero test and
+equality beside fp.cuh's product and square.
+The notes at the top of the sources say what bounds each kernel on the
+card.
 
 Build: at first use `nvcc` compiles each source for sm_90a, all at once,
 and links the objects into one shared library with a plain C
@@ -55,7 +60,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("g1.cu", "msm.cu", "table.cu", "g1_batch.cu")
-HEADERS = ("fp.cuh", "g1.cuh")
+HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NL = 12  # 32-bit limbs per Fp element in the kernel layout
@@ -144,7 +149,8 @@ def _load():
             lib.lwkzg_g1_fixedbase_table.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
             lib.lwkzg_fp_sqr_check.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_decompress.argtypes = [vp, vp, vp, vp, ci, vp]
-            lib.lwkzg_g1_scalar_mul.argtypes = [vp, vp, ci, vp, ci, ci, vp]
+            lib.lwkzg_g1_scalar_mul.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp]
+            lib.lwkzg_fp_coop_check.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_subgroup_mask.argtypes = [vp, vp, ci, vp]
             fns = {
                 "madd": lib.lwkzg_g1_madd, "add": lib.lwkzg_g1_add, "dbl": lib.lwkzg_g1_dbl,
@@ -155,6 +161,7 @@ def _load():
                 "decompress": lib.lwkzg_g1_decompress,
                 "scalar_mul": lib.lwkzg_g1_scalar_mul,
                 "subgroup_mask": lib.lwkzg_g1_subgroup_mask,
+                "coop_check": lib.lwkzg_fp_coop_check,
             }
             for fn in fns.values():
                 fn.restype = ci
@@ -204,8 +211,8 @@ class _Kernel:
         self._launch = launch
         self.launches = 0
 
-    def __call__(self, *args):
-        return self._launch(self, *args)
+    def __call__(self, *args, **kwargs):
+        return self._launch(self, *args, **kwargs)
 
 
 def _madd(k: _Kernel, p: torch.Tensor, q: torch.Tensor, live: torch.Tensor):
@@ -342,12 +349,17 @@ def _decompress(k: _Kernel, x: torch.Tensor, want_largest: torch.Tensor):
     return y, qr
 
 
-def _scalar_mul(k: _Kernel, p: torch.Tensor, scalars: torch.Tensor, nbits: int):
+def _scalar_mul(k: _Kernel, p: torch.Tensor, scalars: torch.Tensor, nbits: int,
+                split: bool = False):
     """p [3, 12, M] Jacobian, scalars [8, M] (or [8, 1] for every lane)
     plain u32 words -> [k_m] P_m [3, 12, M]; bits at or above nbits are
-    not read."""
+    not read. split: words 0-3 hold k1 and words 4-7 k2 (nbits must be
+    128, each half's width), and the result is [k1]P + [k2](BETA X, -Y, Z),
+    which is [k1 + k2 x^2]P only for P in G1."""
     if not 0 <= nbits <= 256:
         raise ValueError(f"nbits must be in [0, 256], got {nbits}")
+    if split and nbits != 128:
+        raise ValueError(f"the split mode reads two 128-bit halves, got nbits {nbits}")
     m = p.shape[-1]
     _check(p, "p", (3, NL, m), p.device)
     lanes = 1 if scalars.dim() == 2 and scalars.shape[-1] == 1 else m
@@ -355,7 +367,7 @@ def _scalar_mul(k: _Kernel, p: torch.Tensor, scalars: torch.Tensor, nbits: int):
     out = torch.empty_like(p)
     if m:
         _run("scalar_mul", p, p.data_ptr(), scalars.data_ptr(), int(lanes != 1), out.data_ptr(), m,
-             nbits)
+             nbits, int(split))
         k.launches += 1
     return out
 
@@ -367,6 +379,20 @@ def _subgroup_mask(k: _Kernel, p: torch.Tensor):
     out = torch.empty(m, dtype=torch.bool, device=p.device)
     if m:
         _run("subgroup_mask", p, p.data_ptr(), out.data_ptr(), m)
+        k.launches += 1
+    return out
+
+
+def _coop_check(k: _Kernel, a: torch.Tensor, b: torch.Tensor):
+    """a, b [12, M] values below p -> [7, 12, M]: the cooperative field's
+    mul(a, b), sqr(a), add(a, b), sub(a, b), then fp::mul(a, b), fp::sqr(a),
+    and [6, 0] / [6, 1] its is_zero(a) / eq(a, b) as 0 or 1."""
+    m = a.shape[-1]
+    _check(a, "a", (NL, m), a.device)
+    _check(b, "b", (NL, m), a.device)
+    out = torch.empty((7, NL, m), dtype=torch.int32, device=a.device)
+    if m:
+        _run("coop_check", a, a.data_ptr(), b.data_ptr(), out.data_ptr(), m)
         k.launches += 1
     return out
 
@@ -392,6 +418,8 @@ ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce, fixedbase_table, decomp
        subgroup_mask)
 # a check of the field's square, off every path (the TPU kernels' _sqr_acc)
 sqr_check = _Kernel("fp_sqr_check", "lambdaworks_kzg_tpu/ops/pallas_g1.py:142", _sqr_check)
+# a check of the cooperative field, off every path (the TPU kernels' _KernelFp)
+coop_check = _Kernel("fp_coop_check", f"{_V2}:166", _coop_check)
 
 
 def reset_counts() -> None:

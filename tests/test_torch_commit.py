@@ -29,7 +29,7 @@ from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGError, convert
 from lambdaworks_kzg_tpu_torch.constants import R
 from lambdaworks_kzg_tpu_torch.host import curve as HC
 from lambdaworks_kzg_tpu_torch.models import srs
-from lambdaworks_kzg_tpu_torch.ops import codec
+from lambdaworks_kzg_tpu_torch.ops import codec, g1_batch
 from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend
 from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
 
@@ -198,6 +198,18 @@ def test_default_device_refuses_missing_cuda():
     setup = convert.setup_from_numpy(np.zeros((2, 24, 4), np.uint32), np.zeros(4, bool))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         EIP4844Context(setup)
+
+
+def test_decompress_batch_defaults_to_cuda():
+    """The batched decompression runs on the card unless given
+    device="cpu", as every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    point = bytes([0xC0]) + bytes(47)  # infinity
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        g1_batch.decompress_batch([point])
+    _, is_inf, err = g1_batch.decompress_batch([point], device="cpu")
+    assert is_inf.tolist() == [True] and err.tolist() == [False]
 
 
 _BLOCKED_IMPORT_CHECK = r"""

@@ -31,16 +31,22 @@ EIP4844Context(device="cuda") equals the host oracle g1_msm of the host
 quotient, and verifies.
 
 Batched G1 (csrc/g1_batch.cu), limb for limb against the plain versions
-on the card: g1_decompress on setup x's, non-squares, 0 and p - 1 with
+on the card: the cooperative field (fp_coop.cuh) against fp::mul, fp::sqr
+and the plain sum and difference on 0, 1, p - 1, R mod p and random
+elements; g1_decompress on setup x's, non-squares, 0 and p - 1 with
 both signs; g1_scalar_mul on per-lane 255-bit scalars, 0, r, a truncated
 nbits and one broadcast scalar, over lanes at infinity, Z != 1 and curve
-points outside G1; g1_subgroup_mask on the same lanes, also against the
-host g1_in_subgroup; g1_fft_device at n = 16 in both directions, stage
-for stage the same through g1_scalar_mul and g1_add as through the plain
-versions; the generic MSM against the host g1_msm; and one conversion of
-testdata/trusted_setup.txt, byte-equal to cache/srs_mainnet.npz, with
-one g1_decompress, one g1_subgroup_mask, 13 g1_scalar_mul and 24 g1_add
-launches."""
+points outside G1, and in its split mode (against
+g1_ops.scalar_mul_endo, and on the lanes in G1 against the host [k]P);
+g1_subgroup_mask on the same lanes, also against the host
+g1_in_subgroup; both kernels, both modes, at 1, 12, 31, 33, 128 and 4096
+lanes (the block and warp edges of 8 or 16 threads per lane);
+g1_fft_device at n = 16 in both directions and in the conversion's
+split mode, stage for stage the same through g1_scalar_mul and g1_add as
+through the plain versions; the generic MSM against the host g1_msm; and
+one conversion of testdata/trusted_setup.txt, byte-equal to
+cache/srs_mainnet.npz, with one g1_decompress, one g1_subgroup_mask, 13
+g1_scalar_mul and 24 g1_add launches."""
 
 import os
 import random
@@ -118,6 +124,29 @@ def test_hopper_kernel_matches_plain_on_card(op_lanes, op):
     torch.cuda.synchronize()
     assert getattr(kernels, op).launches == before + 1
     assert torch.equal(got, getattr(g1_ops, op)(*plain_args))
+
+
+def test_fp_coop_matches_fp_on_card():
+    """The cooperative field of fp_coop.cuh: mul and sqr equal fp::mul and
+    fp::sqr (and the plain product), add and sub the plain ones, is_zero
+    and eq the host's."""
+    rng = random.Random(23)
+    edge = [0, 1, P - 1, (1 << 384) % P, P - 2, 2]
+    pairs = [(x, y) for x in edge for y in edge]
+    pairs += [(rng.randrange(P), rng.randrange(P)) for _ in range(290)]
+    pairs += [(x, rng.randrange(P)) for x in edge] + [(rng.randrange(P), y) for y in edge]
+    a16, b16 = (lb.as_limb_tensor(lb.ints_to_limbs(v, 24), "cuda") for v in zip(*pairs))
+    before = kernels.coop_check.launches
+    out = kernels.coop_check(lb.to_u32_layout(a16), lb.to_u32_layout(b16))
+    torch.cuda.synchronize()
+    assert kernels.coop_check.launches == before + 1
+    assert torch.equal(out[0], out[4]) and torch.equal(out[1], out[5])
+    assert torch.equal(lb.to_u16_layout(out[0]), FP.mul(a16, b16))
+    assert torch.equal(lb.to_u16_layout(out[1]), FP.sqr(a16))
+    assert torch.equal(lb.to_u16_layout(out[2]), FP.add(a16, b16))
+    assert torch.equal(lb.to_u16_layout(out[3]), FP.sub(a16, b16))
+    assert out[6, 0].tolist() == [int(x == 0) for x, _ in pairs]
+    assert out[6, 1].tolist() == [int(x == y) for x, y in pairs]
 
 
 def test_fp_sqr_equals_mul_on_card():
@@ -315,6 +344,57 @@ def test_scalar_mul_kernel_matches_plain_on_card(batch_lanes):
     assert torch.equal(got, g1_batch.scalar_mul_fixed(jac, n_inv, ops=g1_ops))
 
 
+def test_scalar_mul_split_mode_matches_plain_on_card(batch_lanes):
+    """The split mode (k1 + k2 x^2, words 0-3 and 4-7) against
+    g1_ops.scalar_mul_endo limb for limb on every lane, outside G1 too, and
+    against the host [k]P on the lanes in G1; per-lane and broadcast."""
+    jac, host = batch_lanes
+    rng = random.Random(29)
+    ks = [rng.randrange(R) for _ in range(64)]
+    ks[0], ks[1], ks[2], ks[3] = 0, 1, R - 1, g1_batch.X2
+    split16 = lb.as_limb_tensor(g1_batch._split_limbs(ks), "cuda")
+    before = kernels.scalar_mul.launches
+    got = kernels.scalar_mul(lb.to_u32_layout(jac), lb.to_u32_layout(split16), 128, split=True)
+    torch.cuda.synchronize()
+    assert kernels.scalar_mul.launches == before + 1
+    assert torch.equal(lb.to_u16_layout(got), g1_ops.scalar_mul_endo(jac, split16))
+    for i, (pt, aff, k) in enumerate(zip(g1_ops.points_to_host(lb.to_u16_layout(got)), host, ks)):
+        if aff is None or HC.g1_in_subgroup(HC.from_affine(aff)):
+            want = HC.INFINITY if aff is None else HC.point_scalar_mul_raw(HC.from_affine(aff), k)
+            assert HC.points_eq(pt, want), i
+    n_inv = g1_batch._split_limbs([pow(4096, R - 2, R)])
+    got = g1_batch.scalar_mul_in_g1(jac, n_inv)
+    assert torch.equal(got, g1_batch.scalar_mul_in_g1(jac, n_inv, ops=g1_ops))
+    with pytest.raises(ValueError, match="128"):
+        kernels.scalar_mul(lb.to_u32_layout(jac), lb.to_u32_layout(split16), 256, split=True)
+
+
+@pytest.mark.parametrize("lanes", [1, 12, 31, 33, 128, 4096])
+def test_batch_kernels_at_block_and_warp_edges(lanes):
+    """g1_scalar_mul (both modes) and g1_subgroup_mask at lane counts that
+    end inside a warp (4 lanes of 8 threads, 2 in the split mode) or a
+    block of 64 threads, or fill them, on mainnet monomial points with
+    Z != 1 on every third lane and every tenth at infinity; 16-bit scalars
+    in the general mode keep its plain version short."""
+    setup = srs.load_mainnet_setup()
+    pts = [None if i % 10 == 9 else setup.g1_monomial[i % 4096] for i in range(lanes)]
+    aff, valid = g1_ops.make_points_host(pts)
+    jac = g1_ops.lift(lb.as_limb_tensor(aff, "cuda"), torch.from_numpy(valid).cuda())
+    lane = torch.arange(lanes, device="cuda")
+    jac = torch.where((lane % 3 == 1)[None, None], g1_ops.dbl(jac), jac).contiguous()
+    rng = random.Random(lanes)
+    short = lb.as_limb_tensor(lb.ints_to_limbs([rng.randrange(1 << 16) for _ in pts], 16), "cuda")
+    got = kernels.scalar_mul(lb.to_u32_layout(jac), lb.to_u32_layout(short), 16)
+    assert torch.equal(lb.to_u16_layout(got), g1_ops.scalar_mul(jac, short, 16))
+    split16 = lb.as_limb_tensor(g1_batch._split_limbs([rng.randrange(R) for _ in pts]), "cuda")
+    got = kernels.scalar_mul(lb.to_u32_layout(jac), lb.to_u32_layout(split16), 128, split=True)
+    assert torch.equal(lb.to_u16_layout(got), g1_ops.scalar_mul_endo(jac, split16))
+    got = kernels.subgroup_mask(lb.to_u32_layout(jac))
+    torch.cuda.synchronize()
+    assert torch.equal(got, g1_ops.subgroup_mask(jac))
+    assert bool(got.all())
+
+
 def test_subgroup_mask_kernel_matches_plain_on_card(batch_lanes):
     jac, host = batch_lanes
     sums = g1_ops.add(jac, torch.roll(jac, 1, dims=-1))  # G1 + non-G1 sums too
@@ -344,6 +424,24 @@ def test_fft_stages_match_plain_on_card(inverse):
     assert (kernels.scalar_mul.launches - before[0], kernels.add.launches - before[1]) == (
         4 + inverse, 8)
     assert torch.equal(got, g1_batch.g1_fft_device(jac, inverse=inverse, ops=g1_ops))
+    want = fft.g1_fft([HC.from_affine(pt) for pt in pts], inverse=inverse)
+    assert g1_batch.jacobians_to_host_affine(got) == [HC.to_affine(pt) for pt in want]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+def test_fft_split_mode_stages_match_plain_on_card(inverse):
+    """The conversion's FFT (in_g1: g1_scalar_mul's split mode) at n = 16
+    equals the plain versions' split FFT limb for limb, and the host FFT."""
+    setup = srs.load_mainnet_setup()
+    pts = setup.g1_monomial[:16]
+    aff, valid = g1_ops.make_points_host(pts)
+    jac = g1_ops.lift(lb.as_limb_tensor(aff, "cuda"), torch.from_numpy(valid).cuda())
+    before = (kernels.scalar_mul.launches, kernels.add.launches)
+    got = g1_batch.g1_fft_device(jac, inverse=inverse, in_g1=True)
+    torch.cuda.synchronize()
+    assert (kernels.scalar_mul.launches - before[0], kernels.add.launches - before[1]) == (
+        4 + inverse, 8)
+    assert torch.equal(got, g1_batch.g1_fft_device(jac, inverse=inverse, ops=g1_ops, in_g1=True))
     want = fft.g1_fft([HC.from_affine(pt) for pt in pts], inverse=inverse)
     assert g1_batch.jacobians_to_host_affine(got) == [HC.to_affine(pt) for pt in want]
 

@@ -14,7 +14,12 @@ against the JAX package, on the CPU.
   infinity and outside G1) and `scalar_mul_fixed` equal the JAX host
   scalar multiplication;
 - `g1_fft_device` equals the JAX `host/fft.g1_fft` in both directions at
-  n = 8, and the port's host `g1_fft` equals JAX's;
+  n = 8, and the port's host `g1_fft` equals JAX's; so does its
+  conversion mode (`in_g1=True`, the endomorphism split);
+- `split_scalar` gives k = k1 + k2 x^2 with k1 < x^2 and k2 < 2^128, and
+  `scalar_mul_in_g1` (the plain schedule of the kernel's split mode:
+  4-bit windows over each half) equals the JAX host [k]P on points of
+  G1, Z != 1 and infinity, for 0, 1, r - 1 and seeded scalars;
 - the kernel wrappers refuse CPU tensors and shapes they do not take,
   and dispatch sends CPU tensors to the plain versions;
 - `slow`: the same inputs limb for limb against the JAX jitted
@@ -127,7 +132,7 @@ def test_decompress_batch_matches_jax_host(dev_setup):
         _compress(outside[0]), _compress(outside[1], largest=False),
         _compress(dev_setup.g1_lagrange_brp[0], largest=True),  # the other root
     ] + _vector_points()
-    pts, is_inf, err = g1_batch.decompress_batch(compressed)
+    pts, is_inf, err = g1_batch.decompress_batch(compressed, device="cpu")
     assert tuple(pts.shape) == (2, 24, len(compressed))
     host = g1_ops.points_to_host(g1_batch.lift_affine(pts, torch.from_numpy(~is_inf)))
     for i, data in enumerate(compressed):
@@ -145,7 +150,8 @@ def test_decompress_batch_matches_jax_host(dev_setup):
             assert HC.to_affine(host[i]) == JHC.to_affine(JHC.FP_OPS, want), i
     assert err.sum() == len(compressed) - N - 1 - 1  # all bad but the other root
     # without the subgroup check the points outside G1 decompress
-    _, _, err_no_check = g1_batch.decompress_batch(compressed[N + 10 : N + 12], subgroup_check=False)
+    _, _, err_no_check = g1_batch.decompress_batch(compressed[N + 10 : N + 12], subgroup_check=False,
+                                                   device="cpu")
     assert not err_no_check.any()
 
 
@@ -202,6 +208,63 @@ def test_g1_fft_device_matches_jax_host(dev_setup, inverse):
             dev_setup.g1_lagrange_brp)
 
 
+X2 = (-0xD201000000010000) ** 2
+
+
+def test_split_scalar_identity():
+    rng = random.Random(31)
+    for k in [0, 1, X2 - 1, X2, X2 + 1, R - 1] + [rng.randrange(R) for _ in range(64)]:
+        k1, k2 = g1_batch.split_scalar(k)
+        assert k == k1 + k2 * X2 and 0 <= k1 < X2 and 0 <= k2 < 1 << 128, k
+    assert g1_batch.X2 == X2 and X2.bit_length() == 128
+    limbs = g1_batch._split_limbs([X2 + 5, 7])
+    assert limbs.shape == (16, 2)
+    assert lb.limbs_to_ints(limbs[:8]) == [5, 7] and lb.limbs_to_ints(limbs[8:]) == [1, 0]
+    for bad in (-1, R):
+        with pytest.raises(ValueError):
+            g1_batch.split_scalar(bad)
+
+
+def test_scalar_mul_in_g1_matches_jax_host(dev_setup):
+    """The split schedule on points of G1 (Z != 1 on every third lane) and
+    at infinity, per lane and with one scalar on every lane."""
+    pts = list(dev_setup.g1_monomial[:5]) + [None]
+    jac, host = _lanes(pts)
+    rng = random.Random(37)
+    ks = [0, 1, R - 1, rng.randrange(R), rng.randrange(R), rng.randrange(R)]
+    got = g1_batch.scalar_mul_in_g1(jac, g1_batch._split_limbs(ks), ops=dispatch)
+    for i, (pt, k) in enumerate(zip(g1_ops.points_to_host(got), ks)):
+        assert HC.to_affine(pt) == _host_mul(host[i], k), i
+    k = rng.randrange(R)
+    got = g1_batch.scalar_mul_in_g1(jac, g1_batch._split_limbs([k]))
+    for i, pt in enumerate(g1_ops.points_to_host(got)):
+        assert HC.to_affine(pt) == _host_mul(host[i], k), i
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+def test_g1_fft_device_conversion_mode_matches_jax_host(dev_setup, inverse):
+    jacs = [JHC.from_affine(JHC.FP_OPS, a) for a in dev_setup.g1_monomial]
+    want = JFFT.g1_fft(jacs, inverse=inverse)
+    aff, valid = g1_ops.make_points_host(dev_setup.g1_monomial)
+    got = g1_batch.g1_fft_device(g1_batch.lift_affine(lb.as_limb_tensor(aff), torch.from_numpy(valid)),
+                                 inverse=inverse, in_g1=True)
+    assert g1_batch.jacobians_to_host_affine(got) == [JHC.to_affine(JHC.FP_OPS, p) for p in want]
+
+
+def test_split_mode_wrapper_refuses_what_it_does_not_take(dev_setup):
+    jac, _ = _lanes(list(dev_setup.g1_monomial[:4]))
+    jac32 = lb.to_u32_layout(jac)
+    k8 = lb.to_u32_layout(lb.as_limb_tensor(g1_batch._split_limbs([3] * 4)))
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.scalar_mul(jac32, k8, 128, split=True)
+    with pytest.raises(ValueError, match="128"):
+        kernels.scalar_mul(jac32, k8, 256, split=True)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.scalar_mul(jac32[:, :6].contiguous(), k8, 128, split=True)
+    assert kernels.scalar_mul.launches == 0
+
+
 def test_batch_kernel_wrappers_refuse_what_they_do_not_take(dev_setup):
     """CPU tensors go to the plain versions through dispatch and never
     reach a kernel; the wrappers refuse them, wrong shapes and nbits."""
@@ -242,7 +305,7 @@ def test_g1_batch_matches_jax_jitted(dev_setup):
     assert np.array_equal(g1_batch.subgroup_mask(jac).numpy(), np.asarray(JB.subgroup_mask(jac_j)))
     compressed = [JHC.compress_g1(JHC.from_affine(JHC.FP_OPS, a)) for a in dev_setup.g1_monomial]
     compressed += [bytes([0x80]) + bytes(47), bytes([0xC0]) + bytes(47)]
-    mine, want_j = g1_batch.decompress_batch(compressed), JB.decompress_batch(compressed)
+    mine, want_j = g1_batch.decompress_batch(compressed, device="cpu"), JB.decompress_batch(compressed)
     assert np.array_equal(mine[0].numpy(), np.asarray(want_j[0]).astype(np.int64))
     assert np.array_equal(mine[1], np.asarray(want_j[1])) and np.array_equal(mine[2], want_j[2])
     aff, valid = g1_ops.make_points_host(dev_setup.g1_monomial)
