@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the nine kernels and the two field checks from
+  2. nvcc builds the ten kernels and the two field checks from
      lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
      linked into one library);
   3. each kernel against its plain PyTorch version on the card, limb for
@@ -36,17 +36,20 @@ Phases, each printed with its seconds:
      and on 4096 lanes of the broadcast 1/4096, and in the conversion's
      split mode on 2048 lanes of the inverse FFT's last-stage twiddles
      (a sample of the lanes in G1 also against the host [k]P) and on 4096
-     lanes of the broadcast 1/4096, g1_subgroup_mask on 4096 monomial
-     points and 256 sums, all over lanes at infinity, with Z != 1 and
-     outside G1, the last also against the host g1_in_subgroup on a
-     sample; then both modes of g1_scalar_mul and g1_subgroup_mask at 1,
-     12, 31, 33 and 128 lanes (the block and warp edges);
+     lanes of the broadcast 1/4096, g1_fft_stage on 4096 points at the
+     inverse FFT's stage lengths 2, 64 and 4096 (butterflies where t ==
+     even among them), g1_subgroup_mask on 4096 monomial points and 256
+     sums, all over lanes at infinity, with Z != 1 and outside G1, the
+     last also against the host g1_in_subgroup on a sample; then
+     g1_decompress, both modes of g1_scalar_mul and g1_subgroup_mask at
+     1, 12, 31, 33 and 128 lanes (the block and warp edges);
  3b. the setup conversion: testdata/trusted_setup.txt converted on the
      card into a temporary cache_dir, its lagrange, monomial and g2
      byte-equal to cache/srs_mainnet.npz, with exactly one g1_decompress,
-     one g1_subgroup_mask, 13 g1_scalar_mul (split mode) and 24 g1_add
-     launches and nothing else; its stages timed apart twice (host parse, G2 on the
-     host, the device part, the affine step); testdata/trusted_setup_4.txt
+     one g1_subgroup_mask, 12 g1_fft_stage and one g1_scalar_mul (split
+     mode, [1/n]) launches and nothing else; its stages timed apart twice
+     (host parse, G2 on the host, the device part as
+     srs.convert_g1_device runs it, the affine step); testdata/trusted_setup_4.txt
      converted byte-equal to its conversion by the host oracles (per-point
      decompression and the host G1 FFT);
   4. EIP4844Context(converted setup, device="cuda") builds the
@@ -81,13 +84,14 @@ Phases, each printed with its seconds:
      shapes for one blob and for six (seeded random blobs, c = 8), and the
      accumulation on the real quotient, madd at the 2048 lanes of one
      blob's bucket grid, add at 1024, dbl at 4096, on random lanes, the
-     table kernel at the mainnet shape, g1_decompress on 4096 x's,
-     g1_scalar_mul in the split mode on an FFT stage (2048 lanes, the
-     last stage's twiddles; its plain time is phase 3's at that shape)
-     and on [1/n] (4096 lanes), with the bound of the split schedule's
-     work and, beside it, of the double-and-add's on the same scalars,
-     g1_subgroup_mask on 4096, 128 and 12 points, and the two field
-     checks on 4096 elements.
+     table kernel at the mainnet shape, g1_decompress on 4096, 128 and
+     12 x's, g1_scalar_mul in the split mode on [1/n] (4096 lanes) and on
+     an FFT stage's 2048 lanes (the last stage's twiddles), with the bound
+     of the split schedule's work and, beside it, of the
+     double-and-add's on the same scalars, g1_fft_stage at stage lengths
+     2 and 4096 of the mainnet inverse FFT, g1_subgroup_mask on 4096, 128
+     and 12 points, and the two field checks on 4096 elements; plain
+     times are phase 3's at the same shapes where it ran them.
 Launch counts are zeroed just before each path and read just after it:
 the conversion (phase 3b), the commit path (phases 4 to 6), the verify
 path (phase 8, after its seeded blobs are committed and proved) and the
@@ -172,8 +176,8 @@ def inv_imads() -> int:
 
 def decompress_imads(n: int) -> int:
     """IMADs g1_decompress needs for n lanes: x^3 (a squaring and a
-    product), the power (p+1)/4 at its cheapest window (the kernel runs
-    the 1-bit chain), y0^2 for the square test and one product out of
+    product), the power (p+1)/4 at its cheapest window (5 bits, the
+    kernel's), y0^2 for the square test and one product out of
     Montgomery form."""
     from lambdaworks_kzg_tpu_torch.constants import FP_SQRT_EXP
 
@@ -213,6 +217,13 @@ def split_imads(k: int) -> int:
     return window_imads(k1) + window_imads(k2) + IMAD_PER_FP_MUL + op_imads("add")
 
 
+def fft_stage_imads(twiddles) -> int:
+    """IMADs g1_fft_stage needs for one stage on finite points of G1: per
+    butterfly the split schedule's work on its twiddle (`split_imads`) and
+    two adds."""
+    return sum(split_imads(k) for k in twiddles) + 2 * len(twiddles) * op_imads("add")
+
+
 def subgroup_imads(n_finite: int) -> int:
     """IMADs g1_subgroup_mask needs for n_finite lanes (lanes at infinity
     need none): two ladders by |x|, BETA X, and the cross-multiplied
@@ -238,16 +249,19 @@ def table_imads(n_valid: int, c: int) -> int:
 # Lane counts of phase 3 for the per-op kernels (and 200, a block and a
 # partial one), each holding the exceptional lanes its lane pattern reaches
 CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
-# Lane counts of phase 3 for g1_scalar_mul and g1_subgroup_mask (8 or 16
-# threads a lane, blocks of 64): inside one warp, a warp and one lane
-# more or less, four blocks; 4096 is checked at the conversion's shape
+# Lane counts of phase 3 for g1_decompress, g1_scalar_mul and
+# g1_subgroup_mask (4, 8 or 16 threads a lane, blocks of 64): inside one
+# warp, a warp and one lane more or less, blocks; 4096 is checked at the
+# conversion's shape
 EDGE_LANES = (1, 12, 31, 33, 128)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
 PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce")
 # one conversion of the mainnet setup (n = 4096): one decompression, one
-# subgroup check, 12 FFT stages of one scalar_mul and two adds, and [1/n]
-CONVERT_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_scalar_mul": 13, "g1_add": 24}
+# subgroup check, 12 FFT stages of one launch each, and [1/n]
+CONVERT_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fft_stage": 12,
+                    "g1_scalar_mul": 1}
+FFT_STAGE_LENGTHS = (2, 64, 4096)  # checked in phase 3: first, a middle and last stage
 # one verify_blob_kzg_proof_batch of n >= 2 blobs whose inputs pass the
 # checks: one batched decompression and subgroup check, three generic MSMs
 VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fixedbase_table": 3,
@@ -823,13 +837,35 @@ def monomial_lanes(setup, n: int, dev, seed: int):
     return jac, [pts[i] is not None for i in perm.tolist()]
 
 
+def fft_stage_lanes(jac, length: int, split16, seed: int):
+    """jac [3, 24, n] made ready for one FFT stage of length l with its
+    split twiddles [16, n/2]: on every 16th butterfly whose twiddle is 1,
+    odd = even, and on 8 seeded butterflies even = [w_j]odd by the plain
+    split schedule, so t == even there (the add's doubling, and infinity
+    for even - t)."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops
+
+    n, half = jac.shape[-1], length // 2
+    a = jac.clone()
+    for j in range(0, n // 2, 16 * half):
+        e = (j // half) * length
+        a[:, :, e + half] = a[:, :, e]
+    js = random.Random(seed).sample(range(n // 2), 8)
+    even = torch.tensor([(j // half) * length + j % half for j in js], device=a.device)
+    a[:, :, even] = g1_ops.scalar_mul_endo(a[:, :, even + half], split16[:, js])
+    return a.contiguous()
+
+
 def check_batch_kernels(setup, dev, max_err: dict) -> dict:
-    """g1_decompress, g1_scalar_mul (both modes) and g1_subgroup_mask
-    against their plain versions on the card, limb for limb, at the
-    conversion's shapes and at the lane counts EDGE_LANES -> the plain
-    g1_scalar_mul's ms at 2048 lanes (CUDA events), in the general mode
-    (255-bit scalars) and in the split mode (an FFT stage's twiddles), the
-    shape phase 10 times the kernel at."""
+    """g1_decompress, g1_scalar_mul (both modes), g1_fft_stage and
+    g1_subgroup_mask against their plain versions on the card, limb for
+    limb, at the conversion's shapes and at the lane counts EDGE_LANES ->
+    the plain versions' ms (CUDA events) at the shapes phase 10 times the
+    kernels at: g1_scalar_mul at 2048 lanes in the general mode (255-bit
+    scalars) and in the split mode (an FFT stage's twiddles), and on [1/n]
+    at 4096 lanes; g1_fft_stage at each of FFT_STAGE_LENGTHS."""
     import torch
 
     from lambdaworks_kzg_tpu_torch.constants import P, R
@@ -903,12 +939,36 @@ def check_batch_kernels(setup, dev, max_err: dict) -> dict:
         if pt[2] and HC.g1_in_subgroup(pt) and not HC.points_eq(out, HC.point_scalar_mul_raw(pt, k)):
             raise AssertionError("g1_scalar_mul's split mode differs from the host [k]P in G1")
     inv_split = g1_batch._split_limbs([n_inv])
-    check(kernels.scalar_mul, "M=4096 split mode (broadcast 1/4096)",
-          g1_batch.scalar_mul_in_g1(jac4k, inv_split),
-          g1_batch.scalar_mul_in_g1(jac4k, inv_split, ops=g1_ops))
+    got = g1_batch.scalar_mul_in_g1(jac4k, inv_split)
+    start.record()
+    plain = g1_batch.scalar_mul_in_g1(jac4k, inv_split, ops=g1_ops)
+    end.record()
+    torch.cuda.synchronize()
+    split_inv_plain_ms = start.elapsed_time(end)
+    check(kernels.scalar_mul, "M=4096 split mode (broadcast 1/4096)", got, plain)
 
-    # the block and warp edges: both modes and the subgroup check
+    # g1_fft_stage at the inverse FFT's first, a middle and its last stage
+    # on 4096 lanes (at infinity, Z != 1, outside G1, t == even)
+    split_stages, _ = g1_batch._split_twiddles(4096, True)
+    fft_plain_ms = {}
+    for length in FFT_STAGE_LENGTHS:
+        split16 = lb.as_limb_tensor(split_stages[length.bit_length() - 2], dev)
+        a = fft_stage_lanes(jac4k, length, split16, seed=length)
+        got = kernels.fft_stage(lb.to_u32_layout(a), length, lb.to_u32_layout(split16))
+        start.record()
+        plain = g1_ops.fft_stage_endo(a, length, split16)
+        end.record()
+        torch.cuda.synchronize()
+        fft_plain_ms[length] = start.elapsed_time(end)
+        check(kernels.fft_stage, f"M=4096 l={length}", lb.to_u16_layout(got), plain)
+
+    # the block and warp edges: the decompression, both modes and the
+    # subgroup check
     for M in EDGE_LANES:
+        y, qr = kernels.decompress(lb.to_u32_layout(x16[:, :M].contiguous()), want[:M].contiguous())
+        y_plain, qr_plain = g1_ops.decompress_xy(x16[:, :M], want[:M])
+        check(kernels.decompress, f"M={M} (y)", lb.to_u16_layout(y), y_plain)
+        check(kernels.decompress, f"M={M} (square test)", qr.long(), qr_plain.long())
         lanes = jac4k[:, :, :M].contiguous()
         short = lb.as_limb_tensor(lb.ints_to_limbs([rng.randrange(1 << 16) for _ in range(M)], 16), dev)
         got = kernels.scalar_mul(lb.to_u32_layout(lanes), lb.to_u32_layout(short), 16)
@@ -934,14 +994,16 @@ def check_batch_kernels(setup, dev, max_err: dict) -> dict:
         raise AssertionError("g1_subgroup_mask differs from the host g1_in_subgroup")
     log(f"  g1_subgroup_mask: {int((~got).sum())} of {lanes.shape[-1]} lanes outside G1, "
         f"{len(sample)} sampled lanes equal to the host g1_in_subgroup")
-    return {"general": scalar_mul_plain_ms, "split": split_plain_ms}
+    return {"general": scalar_mul_plain_ms, "split": split_plain_ms, "split_inv": split_inv_plain_ms,
+            "fft_stage": fft_plain_ms}
 
 
 def convert_stages(path: str, dev) -> dict:
     """One conversion of a setup file, its stages timed apart: the host
-    parse, the G2 decompressions (host), the device part (decompression,
-    subgroup check and inverse FFT, to a synchronize) and the affine step
-    with the bit reversal (host)."""
+    parse, the G2 decompressions (host), the device part
+    (srs.convert_g1_device, the decompression, subgroup check and inverse
+    FFT that load_trusted_setup_file runs, to a synchronize) and the
+    affine step with the bit reversal (host)."""
     import torch
 
     from lambdaworks_kzg_tpu_torch.host import fft
@@ -954,17 +1016,13 @@ def convert_stages(path: str, dev) -> dict:
     t.append(time.perf_counter())
     srs._decompress_g2_list(g2_bytes)
     t.append(time.perf_counter())
-    pts, is_inf, err = g1_batch.decompress_batch(g1_bytes, device=dev)
-    jac = g1_batch.lift_affine(pts, torch.from_numpy(~is_inf).to(dev))
-    lagrange = g1_batch.g1_fft_device(jac, inverse=True)
+    jac, lagrange = srs.convert_g1_device(g1_bytes, dev)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     brp = torch.tensor(fft.bit_reversal_permutation(list(range(len(g1_bytes)))), device=dev)
     g1_batch.jacobians_to_host_affine(lagrange.index_select(-1, brp))
     g1_batch.jacobians_to_host_affine(jac)
     t.append(time.perf_counter())
-    if err.any():
-        raise AssertionError("a setup point failed to decompress")
     names = ("parse_s", "g2_host_s", "device_s", "affine_host_s")
     return {name: t[i + 1] - t[i] for i, name in enumerate(names)}
 
@@ -1430,12 +1488,13 @@ def run() -> None:
             f"kernel {t_table[0]:.4f} / {t_table[1]:.4f} ms, plain {table_plain_ms:.1f} ms, "
             f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
 
-        # the batched G1 kernels at the path's shapes: g1_decompress on 4096
-        # x's; g1_scalar_mul in the conversion's split mode on an FFT
-        # stage (2048 lanes, the inverse FFT's last-stage twiddles) and on
-        # [1/n] (4096 lanes, one scalar); g1_subgroup_mask on 4096 points
-        # (a conversion), 128 and 12 (batch verifications of 64 and 6
-        # blobs); and the two field checks on 4096 elements
+        # the batched G1 kernels at the path's shapes: g1_decompress and
+        # g1_subgroup_mask on 4096 (a conversion), 128 and 12 lanes (batch
+        # verifications of 64 and 6 blobs); g1_scalar_mul in the
+        # conversion's split mode on [1/n] (4096 lanes, one scalar) and on
+        # an FFT stage's 2048 lanes (the last stage's twiddles: the
+        # parent's stage); g1_fft_stage at the inverse FFT's first and last
+        # stage; and the two field checks on 4096 elements
         x16 = lb.as_limb_tensor(FP.to_mont_host([pt[0] for pt in setup.g1_monomial]), dev)
         want = torch.rand(n, generator=torch.Generator().manual_seed(9)).to(dev) < 0.5
         aff, valid = g1_ops.make_points_host(setup.g1_monomial)
@@ -1468,10 +1527,18 @@ def run() -> None:
                 f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
             return entry
 
-        entry_for(kernels.decompress, "g1_batch.cu",
-                  timed(lambda: kernels.decompress(lb.to_u32_layout(x16), want), 20),
+        x32 = lb.to_u32_layout(x16)
+        shapes = {}
+        for lanes in (n, 128, 12):
+            xs32, ws = x32[:, :lanes].contiguous(), want[:lanes].contiguous()
+            ms = timed(lambda: kernels.decompress(xs32, ws), 20)
+            shapes[f"m{lanes}"] = {"lanes": lanes, "ms": ms,
+                                   **bound(lanes * 2 * (FP_BYTES + 1), decompress_imads(lanes))}
+            log(f"  g1_decompress M={lanes}: kernel {ms:.4f} ms, bound "
+                f"{shapes[f'm{lanes}']['bound_ms']:.5f} ms")
+        entry_for(kernels.decompress, "g1_batch.cu", shapes[f"m{n}"]["ms"],
                   time_ms(lambda: g1_ops.decompress_xy(x16, want), reps=1, warm=0),
-                  n * 2 * (FP_BYTES + 1), decompress_imads(n), n)
+                  n * 2 * (FP_BYTES + 1), decompress_imads(n), n, shapes=shapes)
 
         # g1_scalar_mul: each shape's bound from the split schedule's work,
         # and beside it (ladder_bound_ms) the bound of the general
@@ -1488,12 +1555,32 @@ def run() -> None:
             log(f"  g1_scalar_mul split mode, {shape} M={lanes}: kernel {ms:.4f} ms, bound "
                 f"{shapes[shape]['bound_ms']:.5f} ms, double-and-add bound "
                 f"{shapes[shape]['ladder_bound_ms']:.5f} ms")
-        stage = shapes["fft_stage"]
-        entry_for(kernels.scalar_mul, "g1_batch.cu", stage["ms"], batch_plain_ms["split"],
-                  n // 2 * 2 * 3 * FP_BYTES + k_stage.numel() * 4,
-                  sum(split_imads(k) for k in stages[-1]), n // 2, mode="split",
-                  ladder_bound_ms=stage["ladder_bound_ms"], shapes=shapes,
-                  plain_general_ms=batch_plain_ms["general"])
+        shapes["fft_stage"]["plain_ms"] = batch_plain_ms["split"]
+        shapes["fft_stage"]["plain_general_ms"] = batch_plain_ms["general"]
+        inv = shapes["inv_n"]
+        entry_for(kernels.scalar_mul, "g1_batch.cu", inv["ms"], batch_plain_ms["split_inv"],
+                  n * 2 * 3 * FP_BYTES + k_inv.numel() * 4, split_imads(n_inv) * n_valid, n,
+                  mode="split", ladder_bound_ms=inv["ladder_bound_ms"], shapes=shapes)
+
+        # g1_fft_stage on the 4096 monomial points: the inverse FFT's first
+        # stage (every twiddle 1) and its last; the bound counts the split
+        # schedule's work on each twiddle and two adds per butterfly
+        split_stages, _ = g1_batch._split_twiddles(n, True)
+        shapes = {}
+        for length in (2, n):
+            s_idx = length.bit_length() - 2
+            k32 = lb.to_u32_layout(lb.as_limb_tensor(split_stages[s_idx], dev))
+            ms = timed(lambda: kernels.fft_stage(jac32, length, k32), 20)
+            shapes[f"l{length}"] = {"length": length, "ms": ms,
+                                    "plain_ms": batch_plain_ms["fft_stage"][length],
+                                    **bound(n * 2 * 3 * FP_BYTES + k32.numel() * 4,
+                                            fft_stage_imads(stages[s_idx]))}
+            log(f"  g1_fft_stage l={length}: kernel {ms:.4f} ms, bound "
+                f"{shapes[f'l{length}']['bound_ms']:.5f} ms")
+        last = shapes[f"l{n}"]
+        entry_for(kernels.fft_stage, "g1_batch.cu", last["ms"], last["plain_ms"],
+                  n * 2 * 3 * FP_BYTES + k_stage.numel() * 4, fft_stage_imads(stages[-1]), n // 2,
+                  length=n, shapes=shapes)
 
         # g1_subgroup_mask at a conversion's and two batch verifications' sizes
         shapes = {}

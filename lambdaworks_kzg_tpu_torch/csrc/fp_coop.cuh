@@ -212,6 +212,24 @@ __device__ __forceinline__ bool eq(const Fq& a, const Fq& b) {
   return (__ballot_sync(kWarp, d != 0u) & group_bits()) == 0u;
 }
 
+// a > b for values below 2^384: each rank compares its words from the
+// top down, a ballot masked to the group finds the highest rank whose
+// words differ, and a shuffle hands on that rank's verdict; a == b gives
+// false
+__device__ __forceinline__ bool gt(const Fq& a, const Fq& b) {
+  bool g = false, differs = false;
+#pragma unroll
+  for (int k = kS - 1; k >= 0; --k) {
+    const bool d = !differs && a.v[k] != b.v[k];
+    g = d ? a.v[k] > b.v[k] : g;
+    differs = differs || d;
+  }
+  const uint32_t ranks = (__ballot_sync(kWarp, differs) & group_bits()) >> (lane() & ~(kT - 1));
+  const int top = ranks ? 31 - __clz((int)ranks) : 0;
+  const bool verdict = __shfl_sync(kWarp, (int)g, top, kT) != 0;
+  return ranks != 0u && verdict;
+}
+
 // s in [0, 2p) -> s mod p: subtract p with the borrows resolved, keep s
 // where that borrows out of the top rank
 __device__ __forceinline__ Fq reduce_once(const Fq& s) {

@@ -1,7 +1,7 @@
-// Batched G1 kernels for Hopper (sm_90a): g1_decompress, g1_scalar_mul and
-// g1_subgroup_mask, the setup conversion's and the batch verification's
-// point steps, and fp_coop_check, which holds the cooperative field
-// (fp_coop.cuh) against fp.cuh.
+// Batched G1 kernels for Hopper (sm_90a): g1_decompress, g1_scalar_mul,
+// g1_fft_stage and g1_subgroup_mask, the setup conversion's and the batch
+// verification's point steps, and fp_coop_check, which holds the
+// cooperative field (fp_coop.cuh) against fp.cuh.
 //
 // They replace the per-step launches of the TPU kernels add and dbl of
 // lambdaworks_kzg_tpu/ops/pallas_g1_v2.py (_add_kernel, _dbl_kernel), which
@@ -15,11 +15,15 @@
 //                       right-to-left double-and-add over the complete add,
 //                       the whole loop in one launch; and, for points known
 //                       to lie in G1, a split mode (below);
+//   g1_fft_stage     <- one stage of g1_fft_device's loop (:270-272): the
+//                       per-lane scalar multiplication of the odd half by
+//                       its twiddles and the two adds of the butterflies,
+//                       in one launch, for points known to lie in G1;
 //   g1_subgroup_mask <- subgroup_mask (:126) with _jacobian_eq_mask: two
 //                       multiplications by |x| (64 bits) and the
 //                       cross-multiplied test sigma(P) == -[x^2]P.
 // Their plain versions are ops/g1_ops.py decompress_xy, scalar_mul,
-// scalar_mul_endo and subgroup_mask.
+// scalar_mul_endo, fft_stage_endo and subgroup_mask.
 //
 // Layout as g1.cu: limbs-first u32 arrays in Montgomery form, [12, M] for
 // an Fp value, [3, 12, M] Jacobian; scalars [8, M] plain u32 words, or
@@ -28,23 +32,26 @@
 // What bounds them: the operations, in chains. g1_scalar_mul on a 255-bit
 // scalar runs ~254 doublings and ~128 adds per lane; g1_subgroup_mask 126
 // doublings and 10 adds (~1,170 Montgomery products); g1_decompress a
-// 379-bit power. A product is 588 dependent multiply-adds in one thread
-// (~2,900 cycles on an H100), a lane's products depend on each other, and
+// 379-bit power (~460 products). A product is 588 dependent multiply-adds
+// in one thread (~2,900 cycles on an H100), a lane's products depend on
+// each other, and
 // the path gives few lanes: an FFT stage 2048, the subgroup check 4096 in
 // a conversion and 12 to 128 in a batch verification. So one thread per
 // lane (the first design) left the card's 528 SM sub-partitions with under
-// one warp each, waiting on one chain's latency: 34x and 12x the bounds.
+// one warp each, waiting on one chain's latency: 34x, 12x and 15x the
+// bounds.
 //
-// Design of g1_scalar_mul and g1_subgroup_mask, against the chain:
+// Design of g1_scalar_mul, g1_fft_stage and g1_subgroup_mask, against the
+// chain:
 //   - a group of fpc::kT = 4 threads shares every field element and every
 //     product (fp_coop.cuh): ~1,570 cycles a product against ~2,900;
 //   - two groups (a pair, 8 threads) share every point op: both hold the
 //     operands and each computes one of two independent products
 //     (fpc::mul2), so a doubling is 4 products deep instead of 8 and an
 //     add 8 instead of 16;
-//   - so a lane has 8 threads (16 in the split mode), and blocks hold 64
-//     threads, two warps: an FFT stage (2048 lanes, split mode) and a
-//     conversion's subgroup check (4096 lanes) make 1024 warps each.
+//   - so a lane has 8 threads (16 in the split mode and the FFT stage),
+//     and blocks hold 64 threads, two warps: an FFT stage (2048 lanes)
+//     and a conversion's subgroup check (4096 lanes) make 1024 warps each.
 // Every thread of a warp runs every field op (the shuffles and ballots
 // name the whole warp): a branch on one lane's data (a scalar bit, a point
 // at infinity, the same-x fixups) is a select, or a branch on a warp-wide
@@ -66,8 +73,21 @@
 // point to the first, which adds. On a point outside G1 the split gives
 // another point than [k]P; the general mode stays for every other caller.
 //
-// g1_decompress keeps the first design (one thread per lane, blocks of one
-// warp); its chain is one power, and it is next in line.
+// g1_fft_stage runs the split mode on the odd half of one FFT stage and
+// the butterflies after it: the first pair's sum t goes back to the second
+// pair, and the first pair computes even + t while the second computes
+// even + (X_t, -Y_t, Z_t), so a stage is one launch and one add deeper than
+// the split mode alone. It reads the stage's input and writes another
+// array (ping-pong), in the natural order, so no layout step sits between
+// stages.
+//
+// g1_decompress: one group of fpc::kT threads per lane, since a lane's one
+// chain (the power) gives a pair no second product. The exponent (p+1)/4
+// is the same on every lane, so a sliding window of 5 bits over the odd
+// powers a, a^3, .., a^31 (in shared memory) branches alike on every lane:
+// 376 squarings and 81 products against the 1-bit chain's 378 and 228.
+// The sign choice takes y0 out of Montgomery form with one product by 1
+// and compares it with (p-1)/2 across the group (fpc::gt).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,8 +98,7 @@ namespace {
 using fp::Fp;
 using fpc::Fq;
 
-constexpr int kThreads = 32;  // g1_decompress: one thread per lane
-constexpr int kBlock = 64;    // the cooperative kernels: 16 groups of fpc::kT
+constexpr int kBlock = 64;  // 16 groups of fpc::kT
 constexpr int kPair = 2 * fpc::kT;  // threads per lane: a pair of groups
 constexpr int kScalarWords = 8;
 constexpr int kHalfWords = 4;  // one half of a split scalar: 128 bits
@@ -88,10 +107,12 @@ constexpr int kTable = 1 << kWindow;
 constexpr int kCoords = 3 * fpc::kS;  // a thread's words of a Jacobian point
 
 // (p + 1) / 4: 379 bits, the top set bit is bit 26 of word 11
+constexpr int kSqrtBits = 32 * (fp::NL - 1) + 27;
 __constant__ Fp kSqrtExp = {{0xffffeaabu, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu,
                              0x3dac3d89u, 0xd9cc34a8u, 0x3ce144afu, 0xd91dd2e1u,
                              0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au}};
-constexpr int kSqrtTopBit = 26;
+constexpr int kPowWindow = 5;  // the square root's sliding window
+constexpr int kPowTable = 1 << (kPowWindow - 1);  // a, a^3, .., a^31
 // (p - 1) / 2, plain
 __constant__ Fp kHalf = {{0xffffd555u, 0xdcff7fffu, 0x58a9ffffu, 0x0f55ffffu,
                           0x7b587b12u, 0xb3986950u, 0x79c2895fu, 0xb23ba5c2u,
@@ -106,41 +127,6 @@ __constant__ Fp kBeta = {{0x798a64e8u, 0x30f1361bu, 0x7ece5a2au, 0xf3b8ddabu,
 // |x| = 0xd201000000010000, the BLS parameter's absolute value
 constexpr uint32_t kXAbsLo = 0x00010000u;
 constexpr uint32_t kXAbsHi = 0xd2010000u;
-
-__device__ __forceinline__ bool fp_eq(const Fp& a, const Fp& b) {
-  uint32_t d = 0u;
-#pragma unroll
-  for (int k = 0; k < fp::NL; ++k) d |= a.v[k] ^ b.v[k];
-  return d == 0u;
-}
-
-// a > b for values below 2^384, from the top word down
-__device__ __forceinline__ bool fp_gt(const Fp& a, const Fp& b) {
-  bool gt = false, decided = false;
-#pragma unroll
-  for (int k = fp::NL - 1; k >= 0; --k) {
-    if (!decided && a.v[k] != b.v[k]) {
-      gt = a.v[k] > b.v[k];
-      decided = true;
-    }
-  }
-  return gt;
-}
-
-// a^((p+1)/4), left to right from the bit below the top one; 0 -> 0
-__device__ __noinline__ Fp pow_sqrt(Fp a) {
-  Fp r = a;
-#pragma unroll 1
-  for (int w = fp::NL - 1; w >= 0; --w) {
-    const uint32_t e = kSqrtExp.v[w];
-#pragma unroll 1
-    for (int bit = w == fp::NL - 1 ? kSqrtTopBit - 1 : 31; bit >= 0; --bit) {
-      r = fp::sqr(r);
-      if ((e >> bit) & 1u) r = fp::mul(r, a);
-    }
-  }
-  return r;
-}
 
 // -- the group law on the cooperative field: g1.cuh's formulas, order and
 // exceptional lanes ----------------------------------------------------
@@ -328,26 +314,6 @@ __device__ __forceinline__ CJac window_mul(const CJac& P, const uint32_t (&s)[kH
   return acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    g1_decompress_kernel(const uint32_t* __restrict__ x_in,
-                         const uint8_t* __restrict__ want_largest,
-                         uint32_t* __restrict__ y_out,
-                         uint8_t* __restrict__ qr_out, int M) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const Fp x = fp::load(x_in, M, m);
-  const Fp b = kB;
-  const Fp rhs = fp::add(fp::mul(fp::sqr(x), x), b);
-  const Fp y0 = pow_sqrt(rhs);
-  qr_out[m] = fp_eq(fp::sqr(y0), rhs) ? 1 : 0;
-  Fp one_plain = fp::zero();  // y0 * 1 / R: y0 out of Montgomery form
-  one_plain.v[0] = 1u;
-  const Fp half = kHalf;
-  const bool largest = fp_gt(fp::mul(y0, one_plain), half);
-  const bool flip = largest != (want_largest[m] != 0);
-  fp::store(y_out, M, m, flip ? fp::sub(fp::zero(), y0) : y0);
-}
-
 // Lane of thread t for `per` threads per lane: threads past the last lane
 // compute lane M - 1 again (every thread of a warp takes part in its
 // shuffles) and store nothing.
@@ -355,6 +321,78 @@ __device__ __forceinline__ int lane_of(int per, int M, bool& live) {
   const int m = (blockIdx.x * blockDim.x + threadIdx.x) / per;
   live = m < M;
   return live ? m : M - 1;
+}
+
+// The power table of g1_decompress: odd power a^(2e+1) of this thread's
+// words at tab[e][0 .. 2][tid], one thread's own column as in Table.
+using PowTable = uint32_t (*)[fpc::kS][kBlock];
+
+__device__ __forceinline__ uint32_t sqrt_exp_bit(int i) {
+  return (kSqrtExp.v[i >> 5] >> (i & 31)) & 1u;
+}
+
+// a^((p+1)/4), left to right in sliding windows of up to kPowWindow bits
+// (each ends in a set bit) over a, a^3, .., a^31: per window its squarings
+// and one product by the table, a zero bit between windows one squaring.
+// Every branch depends on the exponent alone, the same on every lane.
+__device__ __forceinline__ Fq pow_sqrt(const Fq& a, PowTable tab) {
+  const Fq a2 = fpc::sqr(a);
+  Fq r = a;
+#pragma unroll 1
+  for (int e = 0; e < kPowTable; ++e) {
+    if (e) r = fpc::mul(r, a2);
+#pragma unroll
+    for (int k = 0; k < fpc::kS; ++k) tab[e][k][threadIdx.x] = r.v[k];
+  }
+  bool first = true;
+#pragma unroll 1
+  for (int i = kSqrtBits - 1; i >= 0;) {
+    if (!sqrt_exp_bit(i)) {
+      r = fpc::sqr(r);
+      --i;
+      continue;
+    }
+    int j = i - kPowWindow + 1 > 0 ? i - kPowWindow + 1 : 0;
+    while (!sqrt_exp_bit(j)) ++j;  // the window is bits i .. j, bit j set
+    uint32_t w = 0u;
+    for (int b = i; b >= j; --b) w = w << 1 | sqrt_exp_bit(b);
+    Fq t;
+#pragma unroll
+    for (int k = 0; k < fpc::kS; ++k) t.v[k] = tab[w >> 1][k][threadIdx.x];
+    if (first) {
+      r = t;
+    } else {
+#pragma unroll 1
+      for (int b = i; b >= j; --b) r = fpc::sqr(r);
+      r = fpc::mul(r, t);
+    }
+    first = false;
+    i = j - 1;
+  }
+  return r;
+}
+
+// One group of fpc::kT threads per lane.
+__global__ void __launch_bounds__(kBlock)
+    g1_decompress_kernel(const uint32_t* __restrict__ x_in,
+                         const uint8_t* __restrict__ want_largest,
+                         uint32_t* __restrict__ y_out,
+                         uint8_t* __restrict__ qr_out, int M) {
+  __shared__ uint32_t tab[kPowTable][fpc::kS][kBlock];
+  bool live;
+  const int m = lane_of(fpc::kT, M, live);
+  const Fq x = fpc::load(x_in, M, m);
+  const Fq rhs = fpc::add(fpc::mul(fpc::sqr(x), x), fpc::words_of(kB));
+  const Fq y0 = pow_sqrt(rhs, tab);
+  const bool qr = fpc::eq(fpc::sqr(y0), rhs);
+  Fq one = fpc::zero();  // y0 * 1 / R: y0 out of Montgomery form
+  one.v[0] = fpc::rank() == 0 ? 1u : 0u;
+  const bool largest = fpc::gt(fpc::mul(y0, one), fpc::words_of(kHalf));
+  const Fq ny = fpc::neg(y0);
+  const bool flip = largest != (want_largest[m] != 0);
+  if (!live) return;
+  fpc::store(y_out, M, m, fpc::sel(flip, ny, y0));
+  if (fpc::rank() == 0) qr_out[m] = qr ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -378,23 +416,15 @@ __global__ void __launch_bounds__(kBlock)
   if (live && !fpc::second()) store_cjac(out, M, m, r);
 }
 
-// Split mode: words 0-3 of lane m's scalar hold k1, words 4-7 k2; the
-// lane's first pair of groups computes [k1]P, its second [k2]sigma'(P),
-// and the first adds them.
-__global__ void __launch_bounds__(kBlock)
-    g1_scalar_mul_split_kernel(const uint32_t* __restrict__ p,
-                               const uint32_t* __restrict__ k, int k_stride,
-                               uint32_t* __restrict__ out, int M) {
-  __shared__ uint32_t tab[kTable][kCoords][kBlock];
-  bool live;
-  const int m = lane_of(2 * kPair, M, live);
-  const bool half = (threadIdx.x / kPair) & 1;
-  const size_t row = k_stride ? (size_t)M : 1;
-  const size_t col = k_stride ? (size_t)m : 0;
+// Split mode, [k]P for P in G1 on a lane of two pairs of groups: words
+// 0-3 of the scalar (column col of k, rows `row` apart) hold k1, words 4-7
+// k2; the first pair (half 0) computes [k1]P, the second [k2]sigma'(P),
+// and the first adds them. The sum is right in the first pair only.
+__device__ __forceinline__ CJac split_mul(CJac P, const uint32_t* __restrict__ k, size_t row,
+                                          size_t col, bool half, Table tab) {
   uint32_t s[kHalfWords];
 #pragma unroll
   for (int j = 0; j < kHalfWords; ++j) s[j] = k[(kHalfWords * half + j) * row + col];
-  CJac P = load_cjac(p, M, m);
   const Fq bx = fpc::mul(P.X, fpc::words_of(kBeta));  // sigma'(P) = (BETA X, -Y, Z)
   const Fq ny = fpc::neg(P.Y);
 #pragma unroll
@@ -410,8 +440,49 @@ __global__ void __launch_bounds__(kBlock)
     other.Y.v[j] = __shfl_down_sync(fpc::kWarp, r.Y.v[j], kPair, 2 * kPair);
     other.Z.v[j] = __shfl_down_sync(fpc::kWarp, r.Z.v[j], kPair, 2 * kPair);
   }
-  const CJac sum = cjac_add(r, other);
+  return cjac_add(r, other);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    g1_scalar_mul_split_kernel(const uint32_t* __restrict__ p,
+                               const uint32_t* __restrict__ k, int k_stride,
+                               uint32_t* __restrict__ out, int M) {
+  __shared__ uint32_t tab[kTable][kCoords][kBlock];
+  bool live;
+  const int m = lane_of(2 * kPair, M, live);
+  const bool half = (threadIdx.x / kPair) & 1;
+  const CJac sum = split_mul(load_cjac(p, M, m), k, k_stride ? (size_t)M : 1,
+                             k_stride ? (size_t)m : 0, half, tab);
   if (live && !half && !fpc::second()) store_cjac(out, M, m, sum);
+}
+
+// One stage of length 2h of the conversion's FFT over n points of G1 in
+// natural order: butterfly j < n/2 reads even = a[e], e = (j / h) 2h +
+// j % h, and odd = a[e + h], computes t = [w_j]odd in the split mode
+// (twiddle j's k1, k2 in column j of k [8, n/2]), hands t to the second
+// pair, and the first pair writes even + t at e while the second writes
+// even + (X_t, -Y_t, Z_t) at e + h.
+__global__ void __launch_bounds__(kBlock)
+    g1_fft_stage_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ k,
+                        uint32_t* __restrict__ out, int n, int h) {
+  __shared__ uint32_t tab[kTable][kCoords][kBlock];
+  bool live;
+  const int half_n = n / 2;
+  const int j = lane_of(2 * kPair, half_n, live);
+  const bool half = (threadIdx.x / kPair) & 1;
+  const int e = ((j & ~(h - 1)) << 1) | (j & (h - 1));
+  const CJac t = split_mul(load_cjac(a, n, e + h), k, half_n, j, half, tab);
+  CJac q;  // t in both pairs: the second pair's threads take the first's
+#pragma unroll
+  for (int i = 0; i < fpc::kS; ++i) {
+    q.X.v[i] = __shfl_up_sync(fpc::kWarp, t.X.v[i], kPair, 2 * kPair);
+    q.Y.v[i] = __shfl_up_sync(fpc::kWarp, t.Y.v[i], kPair, 2 * kPair);
+    q.Z.v[i] = __shfl_up_sync(fpc::kWarp, t.Z.v[i], kPair, 2 * kPair);
+  }
+  const Fq ny = fpc::neg(q.Y);
+  q.Y = fpc::sel(half, ny, q.Y);
+  const CJac r = cjac_add(load_cjac(a, n, e), q);
+  if (live && !fpc::second()) store_cjac(out, n, half ? e + h : e, r);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -464,8 +535,6 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-inline int blocks_for(int M) { return (M + kThreads - 1) / kThreads; }
-
 // blocks of kBlock threads for M lanes of `per_lane` threads each
 inline int coop_blocks(int M, int per_lane) {
   return (int)(((long long)M * per_lane + kBlock - 1) / kBlock);
@@ -477,7 +546,7 @@ inline int coop_blocks(int M, int per_lane) {
 // Each returns cudaGetLastError() after its launch (0 on success).
 extern "C" int lwkzg_g1_decompress(const void* x, const void* want_largest,
                                    void* y, void* qr, int M, void* stream) {
-  g1_decompress_kernel<<<blocks_for(M), kThreads, 0, (cudaStream_t)stream>>>(
+  g1_decompress_kernel<<<coop_blocks(M, fpc::kT), kBlock, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint8_t*)want_largest, (uint32_t*)y,
       (uint8_t*)qr, M);
   return (int)cudaGetLastError();
@@ -496,6 +565,14 @@ extern "C" int lwkzg_g1_scalar_mul(const void* p, const void* k, int k_stride,
         (const uint32_t*)p, (const uint32_t*)k, k_stride, (uint32_t*)out, M,
         nbits);
   }
+  return (int)cudaGetLastError();
+}
+
+// a [3, 12, n] in, out [3, 12, n], k [8, n/2]; length = 2h, 2 <= length <= n
+extern "C" int lwkzg_g1_fft_stage(const void* a, const void* k, void* out, int n,
+                                  int length, void* stream) {
+  g1_fft_stage_kernel<<<coop_blocks(n / 2, 2 * kPair), kBlock, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (const uint32_t*)k, (uint32_t*)out, n, length / 2);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@ A setup file (`n1\\nn2\\n<hex>...`) stores G1 powers in monomial form;
 commitments need the bit-reversed Lagrange basis. Converting one runs on
 a device (`_convert_g1`, the JAX package's `_convert_g1_device`): one
 batched decompression and subgroup check of the n G1 points and an
-inverse G1 group FFT (`ops/g1_batch.py`, the Hopper kernels on a CUDA
-device), then the bit reversal and the affine step on the host. The G2
+inverse G1 group FFT (`convert_g1_device`, on `ops/g1_batch.py`: the
+Hopper kernels on a CUDA device), then the bit reversal and the affine
+step on the host. The G2
 powers are decompressed on the host. A conversion is cached by the
 setup's digest in the JAX package's format (`lagrange`, `monomial`,
 `g2` as uint8 rows) and under its name, so either package reads the
@@ -164,18 +165,25 @@ def _decompress_g2_list(g2_bytes):
     return out
 
 
-def _convert_g1(g1_bytes, device):
-    """Monomial G1 powers (compressed) -> (monomial, bit-reversed Lagrange)
-    host affine lists: one batched decompression and subgroup check, one
-    inverse G1 FFT on `device`, then the bit reversal and the affine step.
-    SetupLoadError names the first bad point."""
+def convert_g1_device(g1_bytes, device):
+    """The device part of a conversion: monomial G1 powers (compressed) ->
+    (monomial, Lagrange in natural order), Jacobian [3, 24, n] on `device`,
+    by one batched decompression and subgroup check and one inverse G1
+    FFT. SetupLoadError names the first bad point."""
     pts_aff, is_inf, err = g1_batch.decompress_batch(list(g1_bytes), device=device)
     if err.any():
         raise SetupLoadError(f"bad g1 point at index {int(np.argmax(err))}")
     jac = g1_batch.lift_affine(pts_aff, torch.from_numpy(~is_inf).to(device))
     # every point passed the subgroup check above, so the FFT may split its
     # scalars through the G1 endomorphism
-    lagrange_jac = g1_batch.g1_fft_device(jac, inverse=True, in_g1=True)
+    return jac, g1_batch.g1_fft_device(jac, inverse=True, in_g1=True)
+
+
+def _convert_g1(g1_bytes, device):
+    """Monomial G1 powers (compressed) -> (monomial, bit-reversed Lagrange)
+    host affine lists: `convert_g1_device`, then the bit reversal and the
+    affine step on the host."""
+    jac, lagrange_jac = convert_g1_device(g1_bytes, device)
     brp = torch.tensor(FFT.bit_reversal_permutation(list(range(len(g1_bytes)))), device=device)
     lagrange = g1_batch.jacobians_to_host_affine(lagrange_jac.index_select(-1, brp))
     return g1_batch.jacobians_to_host_affine(jac), lagrange

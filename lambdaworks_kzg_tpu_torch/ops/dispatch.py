@@ -15,7 +15,9 @@ against this module runs the plain versions on any device when handed
 The routes of the batched G1 steps (`ops/g1_batch.py`) take and return
 the public layout and convert around each launch: `decompress_xy`,
 `scalar_mul`, `scalar_mul_endo`, `subgroup_mask` and `add` run once per
-batch or per FFT stage, not in a loop of ops.
+batch or per FFT stage, not in a loop of ops. `fft_stage_endo` takes and
+returns the op layout, so the conversion's FFT converts once before its
+stages and once after them.
 
 `resolve_device` turns a device argument into a `torch.device` and
 raises where CUDA is asked for and absent: the entry points run on the
@@ -110,6 +112,14 @@ def scalar_mul_endo(points16, split16):
                                  split=True)
         return lb.to_u16_layout(out)
     return g1_ops.scalar_mul_endo(points16, split16)
+
+
+def fft_stage_endo(a, length: int, split16):
+    """One stage of the conversion's FFT on points of G1 [3, *, n] in the op
+    layout, with split twiddles [16, n/2] (public limbs) -> the op layout."""
+    if a.is_cuda:
+        return kernels.fft_stage(a, length, lb.to_u32_layout(split16))
+    return g1_ops.fft_stage_endo(a, length, split16)
 
 
 def subgroup_mask(points16):

@@ -14,7 +14,7 @@ import torch
 
 from ..constants import R
 from ..host import fft
-from . import limbs as lb
+from . import dispatch, limbs as lb
 from .field_ops import FR
 
 
@@ -52,13 +52,14 @@ def _masked_pick(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
 class FrDomain:
     """The domain of size n on one device: the roots in bit-reversed
     order (`roots_brp`, Montgomery [16, n], and `roots_brp_ints` with
-    `root_index` on the host) and 1/n."""
+    `root_index` on the host) and 1/n. On the card unless "cpu" is asked
+    for; raises where CUDA is absent."""
 
-    def __init__(self, n: int, device="cpu"):
+    def __init__(self, n: int, device="cuda"):
         if n < 1 or n & (n - 1):
             raise ValueError("the domain size must be a power of two")
         self.n = n
-        self.device = torch.device(device)
+        self.device = dispatch.resolve_device(device)
         self.roots_brp_ints = fft.bit_reversal_permutation(fft.fr_roots_of_unity(n))
         self.root_index = {w: i for i, w in enumerate(self.roots_brp_ints)}
         self.roots_brp = self.mont(self.roots_brp_ints)

@@ -14,11 +14,14 @@ runs the Pallas `add` and `dbl` kernels from XLA `fori_loop`s, one
 
 The setup conversion's FFT (`g1_fft_device(..., in_g1=True)`) splits
 each scalar through the G1 endomorphism, k = k1 + k2 x^2 with k1, k2
-below 2^128 (`split_scalar`, cached per FFT length), and runs the
-kernel's split mode (`ops.scalar_mul_endo`): [k1]P + [k2]sigma'(P) with
-sigma'(P) = (BETA X, -Y, Z) = [x^2]P. That holds only for points in G1,
-which the conversion has checked; every other call takes the general
-double-and-add, which gives [k]P for any curve point.
+below 2^128 (`split_scalar`, cached per FFT length), and runs each stage
+as one `g1_fft_stage` launch (`ops.fft_stage_endo`: the split mode's
+[k1]P + [k2]sigma'(P), sigma'(P) = (BETA X, -Y, Z) = [x^2]P, on the odd
+half, then the butterflies) and [1/n] in `g1_scalar_mul`'s split mode
+(`ops.scalar_mul_endo`). That holds only for points in G1, which the
+conversion has checked; every other call takes the general
+double-and-add and the `add` of the butterflies, which give the FFT of
+any curve points.
 
 Every function takes `ops`, as `ops/msm.py` does: `ops/dispatch.py`
 (the default: a CUDA tensor goes to the kernels, a CPU tensor to the
@@ -142,8 +145,7 @@ def decompress_batch(compressed, subgroup_check: bool = True, device="cuda", ops
     return points_aff, is_inf & ~error, error
 
 
-def _neg_y(p_jac: torch.Tensor) -> torch.Tensor:
-    return torch.stack([p_jac[0], FP.neg(p_jac[1]), p_jac[2]], dim=0)
+_neg_y = g1_ops.neg_y
 
 
 @functools.lru_cache(maxsize=8)
@@ -177,34 +179,36 @@ def g1_fft_device(points_jac: torch.Tensor, inverse: bool = False, ops=dispatch,
     out (as host/fft.g1_fft). Per stage of n/2 butterflies: one per-lane
     scalar multiplication of the odd half by its twiddles, a negation of
     its Y, and two batched adds; the inverse ends with [1/n] on every
-    lane. in_g1: every point is in G1 (the caller has checked), so the
-    scalar multiplications split through the endomorphism (the kernel's
-    split mode); on a point outside G1 that gives another result."""
+    lane. in_g1: every point is in G1 (the caller has checked), so each
+    stage is one `ops.fft_stage_endo` in the op layout (the scalars split
+    through the endomorphism) and [1/n] the split mode; on a point outside
+    G1 that gives another result."""
     n = points_jac.shape[-1]
     if n & (n - 1):
         raise ValueError("the FFT length must be a power of two")
     dev = points_jac.device
     brp = torch.tensor(HFFT.bit_reversal_permutation(list(range(n))), device=dev)
-    a = points_jac.index_select(-1, brp)
     stages, n_inv = _twiddles(n, inverse)
-    split = _split_twiddles(n, inverse) if in_g1 else None
+    if in_g1:
+        split = _split_twiddles(n, inverse)
+        a = ops.to_op_layout(points_jac).index_select(-1, brp)
+        for s in range(len(stages)):
+            a = ops.fft_stage_endo(a, 2 << s, lb.as_limb_tensor(split[0][s], dev))
+        a = ops.from_op_layout(a)
+        return scalar_mul_in_g1(a, split[1], ops) if inverse else a
+    a = points_jac.index_select(-1, brp)
     length = 2
-    for s, tw in enumerate(stages):
+    for tw in stages:
         half = length // 2
         a4 = a.reshape(3, L, n // length, length)
         even = a4[..., :half].reshape(3, L, n // 2)
         odd = a4[..., half:].reshape(3, L, n // 2)
-        if in_g1:
-            t = scalar_mul_in_g1(odd, split[0][s], ops)
-        else:
-            t = scalar_mul_per_lane(odd, _scalar_tensor(tw, dev), ops)
+        t = scalar_mul_per_lane(odd, _scalar_tensor(tw, dev), ops)
         out_e = ops.add(even, t).reshape(3, L, n // length, half)
         out_o = ops.add(even, _neg_y(t)).reshape(3, L, n // length, half)
         a = torch.cat([out_e, out_o], dim=-1).reshape(3, L, n)
         length *= 2
-    if inverse:
-        a = scalar_mul_in_g1(a, split[1], ops) if in_g1 else scalar_mul_fixed(a, n_inv, ops)
-    return a
+    return scalar_mul_fixed(a, n_inv, ops) if inverse else a
 
 
 def jacobians_to_host_affine(points_jac: torch.Tensor) -> list:

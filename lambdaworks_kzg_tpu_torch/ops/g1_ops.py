@@ -1,4 +1,4 @@
-"""G1 point operations in plain PyTorch: the plain versions of the nine
+"""G1 point operations in plain PyTorch: the plain versions of the ten
 CUDA kernels (`ops/kernels.py`), and the CPU path. `madd`, `add` and `dbl`
 are the point ops; `bucket_accumulate` and `bucket_reduce` are the
 fixed-base MSM's two stages, written over them as the JAX package writes
@@ -10,7 +10,8 @@ them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
 `scalar_mul_fixed` / `scalar_mul_per_lane`, `subgroup_mask` with
 `_jacobian_eq_mask`), which `ops/g1_batch.py` here drives;
 `scalar_mul_endo` is the schedule of the kernel's split mode, for points
-in G1 (the setup conversion's FFT).
+in G1, and `fft_stage_endo` one stage of the setup conversion's FFT over
+it (the kernel g1_fft_stage).
 
 Points are Jacobian (X, Y, Z) in Montgomery form, one [..., 3, L, B]
 radix-2^16 int64 tensor (coordinate, limb, lane); infinity is Z == 0.
@@ -353,6 +354,29 @@ def scalar_mul_endo(points: torch.Tensor, split: torch.Tensor) -> torch.Tensor:
     k = split.expand(16, n)
     both = window_mul(torch.cat([points, sigma], dim=-1), torch.cat([k[:8], k[8:]], dim=-1))
     return add(both[..., :n], both[..., n:])
+
+
+def neg_y(p: torch.Tensor) -> torch.Tensor:
+    """(X, -Y, Z): -P for Jacobian [3, L, B]; 0 stays 0."""
+    return torch.stack([p[0], FP.neg(p[1]), p[2]], dim=0)
+
+
+def fft_stage_endo(a: torch.Tensor, length: int, split: torch.Tensor) -> torch.Tensor:
+    """One stage of length l of the setup conversion's G1 FFT, Jacobian
+    [3, L, n] in natural order -> [3, L, n]: the n/2 butterflies, j-th with
+    h = l/2 on even = a[e], e = (j / h) l + j % h, and odd = a[e + h], give
+    even + t at e and even - t at e + h, t = `scalar_mul_endo`(odd, split
+    [16, n/2] column j). The plain version of the kernel g1_fft_stage (JAX
+    `g1_fft_device`'s loop body with the split twiddles)."""
+    n = a.shape[-1]
+    half = length // 2
+    a4 = a.reshape(3, L, n // length, length)
+    even = a4[..., :half].reshape(3, L, n // 2)
+    odd = a4[..., half:].reshape(3, L, n // 2)
+    t = scalar_mul_endo(odd, split)
+    out_e = add(even, t).reshape(3, L, n // length, half)
+    out_o = add(even, neg_y(t)).reshape(3, L, n // length, half)
+    return torch.cat([out_e, out_o], dim=-1).reshape(3, L, n)
 
 
 def jacobian_eq_mask(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -12,13 +12,14 @@ in one launch per batch of blobs; their plain versions are
 `g1_fixedbase_table` (table.cu) builds the fixed-base table, doublings and
 affine step, in one launch straight into the accumulation's row layout;
 its plain version is `g1_ops.fixedbase_table`. `g1_decompress`,
-`g1_scalar_mul` and `g1_subgroup_mask` (g1_batch.cu) run the batched G1
-steps of setup conversion and batch verification (`ops/g1_batch.py`),
-each whole loop in one launch; their plain versions are
-`g1_ops.decompress_xy`, `g1_ops.scalar_mul` (`g1_ops.scalar_mul_endo` in
-the split mode) and `g1_ops.subgroup_mask`; `g1_scalar_mul` and
-`g1_subgroup_mask` run on the cooperative field of `fp_coop.cuh` (four
-threads per element, eight to a lane).
+`g1_scalar_mul`, `g1_fft_stage` and `g1_subgroup_mask` (g1_batch.cu) run
+the batched G1 steps of setup conversion and batch verification
+(`ops/g1_batch.py`), each whole loop, or FFT stage, in one launch; their
+plain versions are `g1_ops.decompress_xy`, `g1_ops.scalar_mul`
+(`g1_ops.scalar_mul_endo` in the split mode), `g1_ops.fft_stage_endo`
+and `g1_ops.subgroup_mask`. All four run on the cooperative field of
+`fp_coop.cuh` (four threads per element; four, eight or sixteen to a
+lane).
 `fp_sqr_check` (g1.cu) returns the field's square and product a * a, to
 hold one against the other, and `fp_coop_check` (g1_batch.cu) the
 cooperative field's product, square, sum, difference, zero test and
@@ -38,7 +39,9 @@ mask, and for the MSM the table as rows [W N, 2, 12] with int32 `order`
 and `bstart`, all contiguous on one CUDA device; the table build takes
 the basis as [2, 12, N] affine with valid bool[N] and returns the rows;
 the batched G1 kernels take x as [12, M], scalars as [8, M] u32 words
-(or [8, 1], one scalar for every lane) and return bool[M] masks.
+(or [8, 1], one scalar for every lane) and return bool[M] masks; the FFT
+stage takes its n points [3, 12, n] in natural order and its twiddles
+[8, n/2].
 They allocate the output with `torch.empty`, launch on the current
 stream, raise when the launch fails, and count their launches.
 """
@@ -152,6 +155,7 @@ def _load():
             lib.lwkzg_g1_scalar_mul.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp]
             lib.lwkzg_fp_coop_check.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_subgroup_mask.argtypes = [vp, vp, ci, vp]
+            lib.lwkzg_g1_fft_stage.argtypes = [vp, vp, vp, ci, ci, vp]
             fns = {
                 "madd": lib.lwkzg_g1_madd, "add": lib.lwkzg_g1_add, "dbl": lib.lwkzg_g1_dbl,
                 "bucket_accumulate": lib.lwkzg_g1_bucket_accumulate,
@@ -161,6 +165,7 @@ def _load():
                 "decompress": lib.lwkzg_g1_decompress,
                 "scalar_mul": lib.lwkzg_g1_scalar_mul,
                 "subgroup_mask": lib.lwkzg_g1_subgroup_mask,
+                "fft_stage": lib.lwkzg_g1_fft_stage,
                 "coop_check": lib.lwkzg_fp_coop_check,
             }
             for fn in fns.values():
@@ -372,6 +377,27 @@ def _scalar_mul(k: _Kernel, p: torch.Tensor, scalars: torch.Tensor, nbits: int,
     return out
 
 
+def _fft_stage(k: _Kernel, a: torch.Tensor, length: int, twiddles: torch.Tensor):
+    """One stage of the conversion's FFT: a [3, 12, n] Jacobian points of
+    G1 in natural order (n a power of two), the stage length l (a power of
+    two in [2, n]) and its split twiddles [8, n/2] (k1 in words 0-3, k2 in
+    4-7, butterfly j's in column j) -> [3, 12, n]. Butterfly j, with
+    h = l/2, takes even = a[e], e = (j / h) l + j % h, and odd = a[e + h],
+    and writes even + t at e and even - t at e + h, t = [k1 + k2 x^2] odd
+    (which is [w_j] odd only for odd in G1)."""
+    n = a.shape[-1]
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"the FFT length must be a power of two >= 2, got {n}")
+    if length < 2 or length & (length - 1) or length > n:
+        raise ValueError(f"the stage length must be a power of two in [2, {n}], got {length}")
+    _check(a, "a", (3, NL, n), a.device)
+    _check(twiddles, "twiddles", (8, n // 2), a.device)
+    out = torch.empty_like(a)
+    _run("fft_stage", a, a.data_ptr(), twiddles.data_ptr(), out.data_ptr(), n, length)
+    k.launches += 1
+    return out
+
+
 def _subgroup_mask(k: _Kernel, p: torch.Tensor):
     """p [3, 12, M] Jacobian -> bool[M], P in G1; infinity passes."""
     m = p.shape[-1]
@@ -414,8 +440,11 @@ fixedbase_table = _Kernel("g1_fixedbase_table", f"{_V2}:392", _fixedbase_table)
 decompress = _Kernel("g1_decompress", "lambdaworks_kzg_tpu/ops/g1_batch.py:156", _decompress)
 scalar_mul = _Kernel("g1_scalar_mul", f"{_V2}:376", _scalar_mul)
 subgroup_mask = _Kernel("g1_subgroup_mask", f"{_V2}:392", _subgroup_mask)
+# one stage of the G1 FFT: the per-lane scalar multiplication and the two
+# add launches of the butterflies (lambdaworks_kzg_tpu/ops/g1_batch.py:270-272)
+fft_stage = _Kernel("g1_fft_stage", "lambdaworks_kzg_tpu/ops/g1_batch.py:270", _fft_stage)
 ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce, fixedbase_table, decompress, scalar_mul,
-       subgroup_mask)
+       subgroup_mask, fft_stage)
 # a check of the field's square, off every path (the TPU kernels' _sqr_acc)
 sqr_check = _Kernel("fp_sqr_check", "lambdaworks_kzg_tpu/ops/pallas_g1.py:142", _sqr_check)
 # a check of the cooperative field, off every path (the TPU kernels' _KernelFp)

@@ -29,7 +29,7 @@ from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGError, convert
 from lambdaworks_kzg_tpu_torch.constants import R
 from lambdaworks_kzg_tpu_torch.host import curve as HC
 from lambdaworks_kzg_tpu_torch.models import srs
-from lambdaworks_kzg_tpu_torch.ops import codec, g1_batch
+from lambdaworks_kzg_tpu_torch.ops import codec, fr_poly, g1_batch
 from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend
 from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
 
@@ -210,6 +210,17 @@ def test_decompress_batch_defaults_to_cuda():
         g1_batch.decompress_batch([point])
     _, is_inf, err = g1_batch.decompress_batch([point], device="cpu")
     assert is_inf.tolist() == [True] and err.tolist() == [False]
+
+
+def test_fr_domain_defaults_to_cuda():
+    """The Fr evaluation domain lives on the card unless given
+    device="cpu", as every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fr_poly.FrDomain(4)
+    domain = fr_poly.FrDomain(4, device="cpu")
+    assert domain.device == torch.device("cpu") and domain.roots_brp.device == torch.device("cpu")
 
 
 _BLOCKED_IMPORT_CHECK = r"""

@@ -39,14 +39,16 @@ nbits and one broadcast scalar, over lanes at infinity, Z != 1 and curve
 points outside G1, and in its split mode (against
 g1_ops.scalar_mul_endo, and on the lanes in G1 against the host [k]P);
 g1_subgroup_mask on the same lanes, also against the host
-g1_in_subgroup; both kernels, both modes, at 1, 12, 31, 33, 128 and 4096
-lanes (the block and warp edges of 8 or 16 threads per lane);
-g1_fft_device at n = 16 in both directions and in the conversion's
-split mode, stage for stage the same through g1_scalar_mul and g1_add as
-through the plain versions; the generic MSM against the host g1_msm; and
-one conversion of testdata/trusted_setup.txt, byte-equal to
-cache/srs_mainnet.npz, with one g1_decompress, one g1_subgroup_mask, 13
-g1_scalar_mul and 24 g1_add launches."""
+g1_in_subgroup; g1_decompress, g1_scalar_mul (both modes) and
+g1_subgroup_mask at 1, 12, 31, 33, 128 and 4096 lanes (the block and
+warp edges of 4, 8 or 16 threads per lane); g1_fft_stage against
+g1_ops.fft_stage_endo on 4096 points at stage lengths 2, 64 and 4096;
+g1_fft_device at n = 16 in both directions, through g1_scalar_mul and
+g1_add, and in the conversion's mode through g1_fft_stage, equal to the
+plain versions' FFT; the generic MSM against the host g1_msm; and one
+conversion of testdata/trusted_setup.txt, byte-equal to
+cache/srs_mainnet.npz, with one g1_decompress, one g1_subgroup_mask, 12
+g1_fft_stage, one g1_scalar_mul and no g1_add launches."""
 
 import os
 import random
@@ -371,11 +373,12 @@ def test_scalar_mul_split_mode_matches_plain_on_card(batch_lanes):
 
 @pytest.mark.parametrize("lanes", [1, 12, 31, 33, 128, 4096])
 def test_batch_kernels_at_block_and_warp_edges(lanes):
-    """g1_scalar_mul (both modes) and g1_subgroup_mask at lane counts that
-    end inside a warp (4 lanes of 8 threads, 2 in the split mode) or a
-    block of 64 threads, or fill them, on mainnet monomial points with
-    Z != 1 on every third lane and every tenth at infinity; 16-bit scalars
-    in the general mode keep its plain version short."""
+    """g1_decompress, g1_scalar_mul (both modes) and g1_subgroup_mask at
+    lane counts that end inside a warp (8 lanes of 4 threads, 4 of 8, 2 of
+    16) or a block of 64 threads, or fill them, on mainnet monomial points
+    with Z != 1 on every third lane and every tenth at infinity (x = 0 for
+    the decompression); 16-bit scalars in the general mode keep its plain
+    version short."""
     setup = srs.load_mainnet_setup()
     pts = [None if i % 10 == 9 else setup.g1_monomial[i % 4096] for i in range(lanes)]
     aff, valid = g1_ops.make_points_host(pts)
@@ -383,6 +386,12 @@ def test_batch_kernels_at_block_and_warp_edges(lanes):
     lane = torch.arange(lanes, device="cuda")
     jac = torch.where((lane % 3 == 1)[None, None], g1_ops.dbl(jac), jac).contiguous()
     rng = random.Random(lanes)
+    x16 = lb.as_limb_tensor(FP.to_mont_host([0 if pt is None else pt[0] for pt in pts]), "cuda")
+    want = torch.tensor([rng.random() < 0.5 for _ in pts], device="cuda")
+    y, qr = kernels.decompress(lb.to_u32_layout(x16), want)
+    y_plain, qr_plain = g1_ops.decompress_xy(x16, want)
+    assert torch.equal(lb.to_u16_layout(y), y_plain) and torch.equal(qr, qr_plain)
+    assert bool(qr.all())
     short = lb.as_limb_tensor(lb.ints_to_limbs([rng.randrange(1 << 16) for _ in pts], 16), "cuda")
     got = kernels.scalar_mul(lb.to_u32_layout(jac), lb.to_u32_layout(short), 16)
     assert torch.equal(lb.to_u16_layout(got), g1_ops.scalar_mul(jac, short, 16))
@@ -428,19 +437,48 @@ def test_fft_stages_match_plain_on_card(inverse):
     assert g1_batch.jacobians_to_host_affine(got) == [HC.to_affine(pt) for pt in want]
 
 
+@pytest.mark.parametrize("length", [2, 64, 4096])
+def test_fft_stage_kernel_matches_plain_on_card(length):
+    """g1_fft_stage against g1_ops.fft_stage_endo on 4096 mainnet monomial
+    points with the inverse FFT's twiddles of that stage: Z != 1 on every
+    third lane, every 64th at infinity, and on every 16th butterfly whose
+    twiddle is 1 odd == even, so t == even (the doubling, and infinity for
+    even - t)."""
+    setup = srs.load_mainnet_setup()
+    n = 4096
+    pts = [None if i % 64 == 5 else pt for i, pt in enumerate(setup.g1_monomial[:n])]
+    aff, valid = g1_ops.make_points_host(pts)
+    jac = g1_ops.lift(lb.as_limb_tensor(aff, "cuda"), torch.from_numpy(valid).cuda())
+    lane = torch.arange(n, device="cuda")
+    jac = torch.where((lane % 3 == 1)[None, None], g1_ops.dbl(jac), jac).contiguous()
+    half = length // 2
+    for j in range(0, n // 2, 16 * half):  # j % half == 0: twiddle 1
+        e = (j // half) * length
+        jac[:, :, e + half] = jac[:, :, e]
+    split16 = lb.as_limb_tensor(g1_batch._split_twiddles(n, True)[0][length.bit_length() - 2], "cuda")
+    before = kernels.fft_stage.launches
+    got = kernels.fft_stage(lb.to_u32_layout(jac), length, lb.to_u32_layout(split16))
+    torch.cuda.synchronize()
+    assert kernels.fft_stage.launches == before + 1
+    want = g1_ops.fft_stage_endo(jac, length, split16)
+    assert torch.equal(lb.to_u16_layout(got), want)
+    assert not bool(want[2, :, half].any())  # even - t for t == even: infinity
+
+
 @pytest.mark.parametrize("inverse", [True, False])
 def test_fft_split_mode_stages_match_plain_on_card(inverse):
-    """The conversion's FFT (in_g1: g1_scalar_mul's split mode) at n = 16
-    equals the plain versions' split FFT limb for limb, and the host FFT."""
+    """The conversion's FFT (in_g1: one g1_fft_stage per stage, [1/n] in
+    g1_scalar_mul's split mode) at n = 16 equals the plain versions' split
+    FFT limb for limb, and the host FFT."""
     setup = srs.load_mainnet_setup()
     pts = setup.g1_monomial[:16]
     aff, valid = g1_ops.make_points_host(pts)
     jac = g1_ops.lift(lb.as_limb_tensor(aff, "cuda"), torch.from_numpy(valid).cuda())
-    before = (kernels.scalar_mul.launches, kernels.add.launches)
+    kernels_used = (kernels.scalar_mul, kernels.add, kernels.fft_stage)
+    before = [k.launches for k in kernels_used]
     got = g1_batch.g1_fft_device(jac, inverse=inverse, in_g1=True)
     torch.cuda.synchronize()
-    assert (kernels.scalar_mul.launches - before[0], kernels.add.launches - before[1]) == (
-        4 + inverse, 8)
+    assert [k.launches - b for k, b in zip(kernels_used, before)] == [int(inverse), 0, 4]
     assert torch.equal(got, g1_batch.g1_fft_device(jac, inverse=inverse, ops=g1_ops, in_g1=True))
     want = fft.g1_fft([HC.from_affine(pt) for pt in pts], inverse=inverse)
     assert g1_batch.jacobians_to_host_affine(got) == [HC.to_affine(pt) for pt in want]
@@ -475,7 +513,8 @@ def test_mainnet_conversion_matches_cache(tmp_path):
                                         device="cuda")
     counts = {k.name: k.launches for k in kernels.ALL}
     assert counts["g1_decompress"] == 1 and counts["g1_subgroup_mask"] == 1
-    assert counts["g1_scalar_mul"] == 13 and counts["g1_add"] == 24
+    assert counts["g1_fft_stage"] == 12 and counts["g1_scalar_mul"] == 1
+    assert counts["g1_add"] == 0
     assert counts["g1_dbl"] == 0 and counts["g1_madd"] == 0
     assert os.listdir(tmp_path) == ["srs_mainnet.npz"]
     with np.load(tmp_path / "srs_mainnet.npz") as got, np.load(

@@ -15,13 +15,19 @@ against the JAX package, on the CPU.
   scalar multiplication;
 - `g1_fft_device` equals the JAX `host/fft.g1_fft` in both directions at
   n = 8, and the port's host `g1_fft` equals JAX's; so does its
-  conversion mode (`in_g1=True`, the endomorphism split);
+  conversion mode (`in_g1=True`, the endomorphism split, one
+  `fft_stage_endo` per stage);
+- `g1_ops.fft_stage_endo` (the plain version of the kernel g1_fft_stage)
+  equals the composition it replaced in the conversion mode (the split
+  scalar multiplication of the odd half, two adds, the negation and the
+  concatenation) at stage lengths 2, 4 and 32 on 32 lanes of the dev
+  setup, with a lane at infinity and butterflies whose t equals even;
 - `split_scalar` gives k = k1 + k2 x^2 with k1 < x^2 and k2 < 2^128, and
   `scalar_mul_in_g1` (the plain schedule of the kernel's split mode:
   4-bit windows over each half) equals the JAX host [k]P on points of
   G1, Z != 1 and infinity, for 0, 1, r - 1 and seeded scalars;
-- the kernel wrappers refuse CPU tensors and shapes they do not take,
-  and dispatch sends CPU tensors to the plain versions;
+- the kernel wrappers refuse CPU tensors, shapes and stage lengths they
+  do not take, and dispatch sends CPU tensors to the plain versions;
 - `slow`: the same inputs limb for limb against the JAX jitted
   `g1_batch` functions (XLA compiles of 256-step loops).
 The kernels are held against these plain versions on the card in
@@ -249,6 +255,58 @@ def test_g1_fft_device_conversion_mode_matches_jax_host(dev_setup, inverse):
     got = g1_batch.g1_fft_device(g1_batch.lift_affine(lb.as_limb_tensor(aff), torch.from_numpy(valid)),
                                  inverse=inverse, in_g1=True)
     assert g1_batch.jacobians_to_host_affine(got) == [JHC.to_affine(JHC.FP_OPS, p) for p in want]
+
+
+@pytest.mark.parametrize("length", [2, 4, 32])
+def test_fft_stage_endo_equals_the_composition_it_replaces(dev_setup, length):
+    """One stage of the inverse FFT of 32 lanes: lane 6 at infinity, Z != 1
+    on every third lane, and at length 2 (twiddles all 1) odd == even on
+    butterflies 1 and 9, so t == even (the doubling) and even - t is
+    infinity."""
+    n = 32
+    pts = [dev_setup.g1_monomial[i % N] for i in range(n)]
+    pts[6] = None
+    jac, _ = _lanes(pts)
+    if length == 2:
+        for j in (1, 9):
+            jac[:, :, 2 * j + 1] = jac[:, :, 2 * j]
+    split = g1_batch._split_twiddles(n, True)[0][length.bit_length() - 2]
+    half = length // 2
+    a4 = jac.reshape(3, 24, n // length, length)
+    even = a4[..., :half].reshape(3, 24, n // 2)
+    odd = a4[..., half:].reshape(3, 24, n // 2)
+    t = g1_batch.scalar_mul_in_g1(odd, split, ops=g1_ops)
+    out_e = g1_ops.add(even, t).reshape(3, 24, n // length, half)
+    out_o = g1_ops.add(even, g1_batch._neg_y(t)).reshape(3, 24, n // length, half)
+    want = torch.cat([out_e, out_o], dim=-1).reshape(3, 24, n)
+    got = g1_ops.fft_stage_endo(jac, length, lb.as_limb_tensor(split))
+    assert torch.equal(got, want)
+    if length == 2:
+        host = g1_ops.points_to_host(got)
+        for j in (1, 9):
+            assert HC.is_infinity(host[2 * j + 1])
+            assert HC.points_eq(host[2 * j], HC.point_double(g1_ops.points_to_host(jac)[2 * j]))
+
+
+def test_fft_stage_wrapper_refuses_what_it_does_not_take(dev_setup):
+    """kernels.fft_stage refuses CPU tensors, a length that is not a power
+    of two, a stage length outside [2, n] or not a power of two, and
+    points of the wrong shape, before any launch."""
+    jac, _ = _lanes([dev_setup.g1_monomial[i % N] for i in range(16)])
+    a32 = lb.to_u32_layout(jac)
+    k8 = lb.to_u32_layout(lb.as_limb_tensor(g1_batch._split_twiddles(16, True)[0][1]))
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fft_stage(a32, 4, k8)
+    with pytest.raises(ValueError, match="FFT length"):
+        kernels.fft_stage(a32[..., :12].contiguous(), 4, k8[:, :6].contiguous())
+    for length in (0, 1, 3, 6, 32):
+        with pytest.raises(ValueError, match="stage length"):
+            kernels.fft_stage(a32, length, k8)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.fft_stage(a32[:, :6].contiguous(), 4, k8)
+    assert kernels.fft_stage.launches == 0
+    assert [k.launches for k in kernels.ALL] == [0] * len(kernels.ALL)
 
 
 def test_split_mode_wrapper_refuses_what_it_does_not_take(dev_setup):

@@ -247,7 +247,7 @@ def test_fr_poly_matches_jax_fr_domain_kernels():
     from lambdaworks_kzg_tpu.ops import fr_poly as JFP
 
     rng = random.Random(67)
-    jd, d = JFP.FrDomain(N_DEV), fr_poly.FrDomain(N_DEV)
+    jd, d = JFP.FrDomain(N_DEV), fr_poly.FrDomain(N_DEV, device="cpu")
     plain = np.stack([lb.ints_to_limbs([rng.randrange(R) for _ in range(N_DEV)], 16) for _ in range(2)])
     zs = [rng.randrange(R), d.roots_brp_ints[4]]
     assert d.evaluate_blobs_plain(lb.as_limb_tensor(plain), zs) == jd.evaluate_blobs_plain(plain, zs)
