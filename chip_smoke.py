@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the ten kernels and the two field checks from
+  2. nvcc builds the twelve kernels and the two field checks from
      lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
      linked into one library);
   3. each kernel against its plain PyTorch version on the card, limb for
@@ -43,6 +43,12 @@ Phases, each printed with its seconds:
      last also against the host g1_in_subgroup on a sample; then
      g1_decompress, both modes of g1_scalar_mul and g1_subgroup_mask at
      1, 12, 31, 33 and 128 lanes (the block and warp edges);
+     pairing_miller_loop and pairing_final_exp against
+     pairing_ops.miller_loop_jac and final_exp_check at B = 2 (a true
+     check) and B = 5 (a false one, two pairs with a member at infinity),
+     on points with Z != 1, FE^3 also against the host pairing cubed; the
+     plain versions run once per shape (scripts/pairing_profile.py counts
+     their launches per check);
  3b. the setup conversion: testdata/trusted_setup.txt converted on the
      card into a temporary cache_dir, its lagrange, monomial and g2
      byte-equal to cache/srs_mainnet.npz, with exactly one g1_decompress,
@@ -52,6 +58,10 @@ Phases, each printed with its seconds:
      srs.convert_g1_device runs it, the affine step); testdata/trusted_setup_4.txt
      converted byte-equal to its conversion by the host oracles (per-point
      decompression and the host G1 FFT);
+ 3c. the NTT at n = 4096 on the card (PyTorch ops, ops/ntt.py): forward
+     and inverse equal host/fft.fr_fft, the round trip, and a seeded
+     blob's coefficients (utils/blob.py) equal the inverse NTT; each
+     direction timed and its launches counted under the profiler;
   4. EIP4844Context(converted setup, device="cuda") builds the
      fixed-base table with one g1_fixedbase_table launch and no g1_dbl
      launch, and the table must equal
@@ -74,6 +84,11 @@ Phases, each printed with its seconds:
      false with proofs 0 and 1 swapped, twice each, timed, and one true
      batch of each size split into its stages; a generic MSM of a blob
      over the 4096 Lagrange points equals its commitment;
+ 8b. the 140 verify vectors again through EIP4844Context(...,
+     config=KZGConfig(device_pairing=True)): the same verdicts, timed,
+     with exactly the host tier's launches plus one pairing_miller_loop
+     and one pairing_final_exp per pairing check the host tier made, and
+     no call of the host pairing;
   9. the prove path: three seeded blobs through compute_blob_kzg_proof
      and a batch of six through compute_blob_kzg_proof_batch (twice),
      timed with CUDA events, each call launching each MSM kernel once and
@@ -90,18 +105,21 @@ Phases, each printed with its seconds:
      of the split schedule's work and, beside it, of the
      double-and-add's on the same scalars, g1_fft_stage at stage lengths
      2 and 4096 of the mainnet inverse FFT, g1_subgroup_mask on 4096, 128
-     and 12 points, and the two field checks on 4096 elements; plain
-     times are phase 3's at the same shapes where it ran them.
+     and 12 points, the two field checks on 4096 elements, and both
+     pairing kernels at B = 2; plain times are phase 3's at the same
+     shapes where it ran them.
 Launch counts are zeroed just before each path and read just after it:
 the conversion (phase 3b), the commit path (phases 4 to 6), the verify
-path (phase 8, after its seeded blobs are committed and proved) and the
-prove path (phase 9, from its first proof to its last); phase 3b checks
+path (phase 8, after its seeded blobs are committed and proved), the
+device pairing tier's verify path (phase 8b) and the prove path (phase
+9, from its first proof to its last); phase 3b checks
 the conversion's exact launches, phase 4 that the table build made one
 table launch and no g1_dbl launch, phases 6 and 9 that each call
-launches each MSM kernel once, phase 8 the launches of each batch. The
-line before the last is {"kernels": [...]}, with each kernel's launches
-on the four paths; the last is {"ok": true, "device": {...}}. Any
-failure ends the run with a non-zero exit and without those lines.
+launches each MSM kernel once, phase 8 the launches of each batch, 8b
+one launch of each pairing kernel per check. The line before the last is
+{"kernels": [...]}, with each kernel's launches on the five paths; the
+last is {"ok": true, "device": {...}}. Any failure ends the run with a
+non-zero exit and without those lines.
 """
 
 import json
@@ -246,6 +264,69 @@ def table_imads(n_valid: int, c: int) -> int:
     per_lane = (w - 1) * c * op_imads("dbl") + muls * IMAD_PER_FP_MUL + w * IMAD_PER_FP_SQR + inv_imads()
     return n_valid * per_lane
 
+# The tower's least work, in Fp products (a square costs a product's
+# IMADs here, as an Fp2 square's two products are not squares of Fp): an
+# Fp2 product is 3 Fp products (Karatsuba), a square 2; an Fp6 product 6
+# Fp2 products, a square 1 product and 4 squares (Chung-Hasan SQR3); an
+# Fp12 product 3 Fp6 products, a square 3 Fp6 squares, a cyclotomic square
+# 9 Fp2 squares (Granger-Scott), the product by a sparse line
+# ((c0, c2, 0), (0, c3, 0)) 13 Fp2 products (5 + 3 + 5 by Karatsuba over
+# w), a Frobenius map by p 5 Fp2 products (gamma_0 = 1) and one by p^2
+# 10 Fp products (its constants lie in Fp).
+MUL2 = 3 * IMAD_PER_FP_MUL
+SQR2 = 2 * IMAD_PER_FP_MUL
+MUL6, SQR6 = 6 * MUL2, MUL2 + 4 * SQR2
+MUL12, SQR12, CYC12, LINE12 = 3 * MUL6, 3 * SQR6, 9 * SQR2, 13 * MUL2
+FROB12, FROB12_P2 = 5 * MUL2, 10 * IMAD_PER_FP_MUL
+
+
+def fp2_inv_imads() -> int:
+    """conj(a) / (a0^2 + a1^2): two squares, an inversion, two products."""
+    return 2 * IMAD_PER_FP_SQR + inv_imads() + 2 * IMAD_PER_FP_MUL
+
+
+def fp12_inv_imads() -> int:
+    """(a0 t, -a1 t), t = (a0^2 - v a1^2)^-1: two Fp6 squares, two Fp6
+    products, and the Fp6 inversion's 3 Fp2 squares, 9 Fp2 products and
+    one Fp2 inversion."""
+    return 2 * SQR6 + 2 * MUL6 + 3 * SQR2 + 9 * MUL2 + fp2_inv_imads()
+
+
+def miller_imads(n_valid: int) -> int:
+    """IMADs pairing_miller_loop needs for n_valid pairs (a pair with a
+    member at infinity needs none): both affine conversions, then per bit
+    of |x| below its top an Fp12 square, a doubling step in homogeneous
+    projective coordinates with its line (2 Fp2 products, 7 Fp2 squares,
+    2 Fp2-by-Fp products; Aranha et al., Eurocrypt 2011) and the sparse
+    line's product, at each set bit a mixed addition step with its line
+    (11 Fp2 products, 2 squares, 2 by Fp) and the line's product. f starts
+    at one, so the first bit's square and line product are free."""
+    x_abs = 0xD201000000010000
+    dbl_step = 2 * MUL2 + 7 * SQR2 + 4 * IMAD_PER_FP_MUL
+    add_step = 11 * MUL2 + 2 * SQR2 + 4 * IMAD_PER_FP_MUL + LINE12
+    bits = bin(x_abs)[3:]
+    loop = len(bits) * dbl_step + (len(bits) - 1) * (SQR12 + LINE12) + bits.count("1") * add_step
+    affine = (inv_imads() + IMAD_PER_FP_SQR + 3 * IMAD_PER_FP_MUL
+              + fp2_inv_imads() + SQR2 + 3 * MUL2)
+    return n_valid * (affine + loop)
+
+
+def final_exp_imads(lanes: int) -> int:
+    """IMADs pairing_final_exp needs for B lanes: B - 1 Fp12 products, the
+    easy part (an inversion, 2 products, a Frobenius map by p^2), five
+    powers by |x| or |x - 1| (per bit below the top a cyclotomic square,
+    per set bit below it a product), then Frobenius maps by p and p^2, 5
+    products and a cyclotomic square."""
+    x_abs, xm1_abs = 0xD201000000010000, 0xD201000000010001
+
+    def pow_abs(e: int) -> int:
+        return (e.bit_length() - 1) * CYC12 + (bin(e).count("1") - 1) * MUL12
+
+    easy = fp12_inv_imads() + 2 * MUL12 + FROB12_P2
+    hard = 2 * pow_abs(xm1_abs) + 3 * pow_abs(x_abs) + FROB12 + FROB12_P2 + 5 * MUL12 + CYC12
+    return (lanes - 1) * MUL12 + easy + hard
+
+
 # Lane counts of phase 3 for the per-op kernels (and 200, a block and a
 # partial one), each holding the exceptional lanes its lane pattern reaches
 CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
@@ -266,6 +347,9 @@ FFT_STAGE_LENGTHS = (2, 64, 4096)  # checked in phase 3: first, a middle and las
 # checks: one batched decompression and subgroup check, three generic MSMs
 VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fixedbase_table": 3,
                          "g1_bucket_accumulate": 3, "g1_bucket_reduce": 3}
+# one pairing check of the device tier: one launch of each pairing kernel
+PAIRING_LAUNCHES = {"pairing_miller_loop": 1, "pairing_final_exp": 1}
+NTT_N = 4096  # the blob domain
 SETUP_4 = os.path.join(HERE, "testdata", "trusted_setup_4.txt")
 SRS_4_NAME = "srs_0f1c825ca54c4fef.npz"  # its cache name (not committed)
 SRS_MAINNET = os.path.join(HERE, "cache", "srs_mainnet.npz")
@@ -279,6 +363,7 @@ VECTOR_ARGS = {
     "verify_blob_kzg_proof": ("blob", "commitment", "proof"),
     "verify_blob_kzg_proof_batch": ("blobs", "commitments", "proofs"),
 }
+VERIFY_FNS = ("verify_kzg_proof", "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch")
 VECTOR_COUNTS = {"compute_kzg_proof": 46, "compute_blob_kzg_proof": 12, "verify_kzg_proof": 93,
                  "verify_blob_kzg_proof": 24, "verify_blob_kzg_proof_batch": 23}
 
@@ -437,20 +522,21 @@ def launch_counts() -> dict:
     return {k.name: k.launches for k in kernels.ALL}
 
 
-def check_verify_batch_launches(what: str, before: dict) -> None:
+def check_verify_batch_launches(what: str, before: dict, extra=None) -> None:
     """One verify_blob_kzg_proof_batch of n >= 2 blobs that passed its input
-    checks made VERIFY_BATCH_LAUNCHES and nothing else."""
+    checks made VERIFY_BATCH_LAUNCHES (and `extra`) and nothing else."""
     delta = {name: n - before[name] for name, n in launch_counts().items()}
-    want = {name: VERIFY_BATCH_LAUNCHES.get(name, 0) for name in delta}
+    want = {name: VERIFY_BATCH_LAUNCHES.get(name, 0) + (extra or {}).get(name, 0)
+            for name in delta}
     if delta != want:
         raise AssertionError(f"{what}: launches {delta}, not {want}")
 
 
-def run_vectors(ctx, fn: str) -> int:
+def run_vectors(ctx, fn: str, extra=None) -> int:
     """Every consensus vector of one entry point through ctx; a KZGError
     stands for the vector's null output. Raises unless all agree. A
     verify_blob_kzg_proof_batch vector of n >= 2 blobs with a verdict
-    must launch VERIFY_BATCH_LAUNCHES."""
+    must launch VERIFY_BATCH_LAUNCHES, and `extra` beside them."""
     from lambdaworks_kzg_tpu_torch import KZGError
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
 
@@ -465,7 +551,7 @@ def run_vectors(ctx, fn: str) -> int:
             got = None
         if (fn == "verify_blob_kzg_proof_batch" and case["output"] is not None
                 and len(case["input"]["blobs"]) >= 2):
-            check_verify_batch_launches(name, before)
+            check_verify_batch_launches(name, before, extra)
             counted_batches += 1
         if isinstance(got, tuple):
             got = list(got)
@@ -998,6 +1084,133 @@ def check_batch_kernels(setup, dev, max_err: dict) -> dict:
             "fft_stage": fft_plain_ms}
 
 
+def pairing_lanes(pairs, dev, seed: int):
+    """[(G1 host Jacobian, G2 host Jacobian)] -> (G1 [3, 24, B], G2
+    [3, 2, 24, B]) public limbs on dev, each finite point rescaled to a
+    random Z != 1."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.constants import P
+    from lambdaworks_kzg_tpu_torch.host import curve as HC, field as HF
+    from lambdaworks_kzg_tpu_torch.ops import fp2_ops, limbs as lb
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    rng = random.Random(seed)
+    g1s, g2s = [], []
+    for p1, q2 in pairs:
+        lam = rng.randrange(2, P)
+        l2 = (lam, rng.randrange(P))
+        g1s.append(p1 if HC.is_infinity(p1) else
+                   (p1[0] * lam * lam % P, p1[1] * pow(lam, 3, P) % P, p1[2] * lam % P))
+        g2s.append(q2 if HC.g2_is_infinity(q2) else
+                   (HF.fp2_mul(q2[0], HF.fp2_sqr(l2)),
+                    HF.fp2_mul(q2[1], HF.fp2_mul(HF.fp2_sqr(l2), l2)), HF.fp2_mul(q2[2], l2)))
+    ps = torch.stack([lb.as_limb_tensor(FP.to_mont_host([pt[k] for pt in g1s]), dev)
+                      for k in range(3)])
+    qs = torch.stack([fp2_ops.from_host([pt[k] for pt in g2s], dev) for k in range(3)])
+    return ps, qs
+
+
+def check_pairing_kernels(dev, max_err: dict) -> dict:
+    """pairing_miller_loop and pairing_final_exp against their plain
+    versions (pairing_ops.miller_loop_jac, final_exp_check) on the card,
+    limb for limb, and FE^3 against the host pairing cubed: at B = 2, a
+    true check (e(-[ab]G, G2) e([a]G, [b]G2)), and at B = 5, a false one
+    with a member at infinity in two pairs. The plain versions run once
+    per shape (seconds of small launches), timed with CUDA events (their
+    ~0.7 M launches per check take minutes to profile: that is
+    scripts/pairing_profile.py's) -> {"inputs": the B = 2 (G1, G2,
+    Miller values) in the kernel layout, and the plain ms per shape}."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.host import curve as HC, field as HF, pairing as HP
+    from lambdaworks_kzg_tpu_torch.ops import kernels, limbs as lb, pairing_ops, tower_ops
+
+    G, G2 = HC.G1_GENERATOR, HC.G2_GENERATOR
+    pa, qb = HC.point_scalar_mul(G, 13), HC.g2_scalar_mul(G2, 29)
+    neg_pab = HC.point_neg(HC.point_scalar_mul(G, 13 * 29))
+    cases = (([(neg_pab, G2), (pa, qb)], True),
+             ([(neg_pab, G2), (pa, HC.G2_INFINITY), (HC.point_scalar_mul(G, 5), qb),
+               (HC.INFINITY, G2), (pa, qb)], False))
+    out = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for pairs, verdict in cases:
+        b = len(pairs)
+        ps, qs = pairing_lanes(pairs, dev, seed=b)
+        ps32, qs32 = lb.to_u32_layout(ps), lb.to_u32_layout(qs)
+        f32 = kernels.miller_loop(ps32, qs32)
+        fe32, ok = kernels.final_exp(f32)
+        start.record()
+        f_plain = pairing_ops.miller_loop_jac(ps, qs)
+        end.record()
+        torch.cuda.synchronize()
+        miller_ms = start.elapsed_time(end)
+        max_err["pairing_miller_loop"] = max(max_err["pairing_miller_loop"], same(
+            f"pairing_miller_loop B={b}", lb.to_u16_layout(f32), f_plain))
+        start.record()
+        fe_plain, ok_plain = pairing_ops.final_exp_check(f_plain)
+        end.record()
+        torch.cuda.synchronize()
+        final_ms = start.elapsed_time(end)
+        max_err["pairing_final_exp"] = max(max_err["pairing_final_exp"], same(
+            f"pairing_final_exp B={b}", lb.to_u16_layout(fe32), fe_plain))
+        if ok.tolist() != ok_plain.tolist() or ok.tolist() != [verdict]:
+            raise AssertionError(f"pairing B={b}: verdict {ok.tolist()} / plain "
+                                 f"{ok_plain.tolist()}, not [{verdict}]")
+        host = HP.pairing_batch(pairs)
+        if tower_ops.fp12_to_host(tower_ops.unflatten12(lb.to_u16_layout(fe32))) != [
+                HF.fp12_mul(HF.fp12_sqr(host), host)]:
+            raise AssertionError(f"pairing_final_exp B={b}: FE^3 differs from the host's")
+        log(f"  pairing_miller_loop and pairing_final_exp B={b}: equal to plain, limb for limb; "
+            f"FE^3 equals the host pairing cubed; verdict {verdict}; plain {miller_ms:.0f} + "
+            f"{final_ms:.0f} ms")
+        out[f"b{b}"] = {"miller_plain_ms": miller_ms, "final_exp_plain_ms": final_ms}
+        if b == 2:
+            out["inputs"] = (ps32, qs32, f32)
+    return out
+
+
+def check_ntt(dev) -> dict:
+    """The NTT at the blob domain on the card: forward and inverse equal
+    host/fft.fr_fft, the round trip, the coefficient bridge of a seeded
+    blob (utils/blob.py) equal to the device inverse NTT; each direction's
+    ms (CUDA events) and launches (profiler)."""
+    import numpy as np
+
+    from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host import fft
+    from lambdaworks_kzg_tpu_torch.ops import limbs as lb, ntt
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FR
+    from lambdaworks_kzg_tpu_torch.utils import blob as blob_utils
+
+    rng = random.Random(NTT_N)
+    values = [rng.randrange(R) for _ in range(NTT_N)]
+    out = {}
+    for inverse in (False, True):
+        t0 = time.perf_counter()
+        got = ntt.ntt_ints(values, inverse, device=dev)
+        host_s = time.perf_counter() - t0
+        if got != fft.fr_fft(values, inverse):
+            raise AssertionError(f"the NTT (inverse={inverse}) differs from fr_fft")
+        x = lb.as_limb_tensor(FR.to_mont_host(values), dev)
+        name = "inverse" if inverse else "forward"
+        out[name] = {"ms": time_ms(lambda: ntt.ntt_device(x, inverse=inverse), reps=5),
+                     "device": device_work(lambda: ntt.ntt_device(x, inverse=inverse)),
+                     "ntt_ints_s": host_s}
+        log(f"  NTT n={NTT_N} {name}: equal to fr_fft; {out[name]}")
+    if ntt.ntt_ints(ntt.ntt_ints(values, device=dev), inverse=True, device=dev) != values:
+        raise AssertionError("the NTT round trip differs")
+    blob = random_blobs(np.random.default_rng(NTT_N), 1)[0]
+    coeffs = blob_utils.blob_to_coefficients(blob, NTT_N)
+    evals_nat = fft.bit_reversal_permutation(blob_utils.blob_to_evaluations(blob, NTT_N))
+    if (ntt.ntt_ints(evals_nat, inverse=True, device=dev) != coeffs
+            or blob_utils.coefficients_to_blob(coeffs, NTT_N) != blob):
+        raise AssertionError("the coefficient bridge differs from the NTT on the card")
+    log("  round trip exact; a seeded blob's coefficients equal the inverse NTT on the card, "
+        "and coefficients_to_blob gives the blob back")
+    return out
+
+
 def convert_stages(path: str, dev) -> dict:
     """One conversion of a setup file, its stages timed apart: the host
     parse, the G2 decompressions (host), the device part
@@ -1114,9 +1327,9 @@ def run() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs an NVIDIA card")
 
-    from lambdaworks_kzg_tpu_torch import (EIP4844Context, KZGError, convert, load_mainnet_setup,
-                                           load_trusted_setup_file)
-    from lambdaworks_kzg_tpu_torch.models import srs
+    from lambdaworks_kzg_tpu_torch import (EIP4844Context, KZGConfig, KZGError, convert,
+                                           load_mainnet_setup, load_trusted_setup_file)
+    from lambdaworks_kzg_tpu_torch.models import kzg as kzg_module, srs
     from lambdaworks_kzg_tpu_torch.constants import P, R, num_windows
     from lambdaworks_kzg_tpu_torch.host import curve as HC
     from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, g1_batch, g1_ops, kernels, limbs as lb, msm
@@ -1174,6 +1387,7 @@ def run() -> None:
                               extra_buckets=synthetic_buckets(points, c, n_blobs, seed=c))
         q_order, q_bstart = check_real_quotient(setup, table16, table_valid, max_err)
         batch_plain_ms = check_batch_kernels(setup, dev, max_err)
+        pairing_checked = check_pairing_kernels(dev, max_err)
 
     kernels.reset_counts()  # the conversion path starts here
     with Phase("3b setup conversion"):
@@ -1203,6 +1417,9 @@ def run() -> None:
                 "conversion by the host oracles")
         finally:
             shutil.rmtree(tmp)
+
+    with Phase("3c NTT"):
+        results["ntt"] = check_ntt(dev)
 
     kernels.reset_counts()
     with Phase("4 setup and fixed-base table"):
@@ -1282,11 +1499,22 @@ def run() -> None:
             blobs = random_blobs(rng, count)
             cs = ctx.blob_to_kzg_commitment_batch(blobs)
             batches[count] = (blobs, cs, ctx.compute_blob_kzg_proof_batch(blobs, cs))
+        # count the host tier's pairing checks
+        host_pairings = [0]
+        host_pairings_verify = kzg_module.pairings_verify
+
+        def counted_host_pairing(*args):
+            host_pairings[0] += 1
+            return host_pairings_verify(*args)
+
+        kzg_module.pairings_verify = counted_host_pairing
         kernels.reset_counts()  # the verify path starts here
         t0 = time.perf_counter()
-        for fn in ("verify_kzg_proof", "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch"):
+        for fn in VERIFY_FNS:
             run_vectors(ctx, fn)
         results["verify_vectors_s"] = time.perf_counter() - t0
+        vector_checks = host_pairings[0]
+        vector_launches = launch_counts()
         results["verify_batch_ms"] = {}
         for count, (blobs, cs, ps) in batches.items():
             swapped = [ps[1], ps[0]] + ps[2:]  # proofs 0 and 1 swapped
@@ -1317,6 +1545,28 @@ def run() -> None:
             raise AssertionError("the generic MSM over the Lagrange basis differs from the commitment")
         log(f"  generic MSM of a blob over the 4096 Lagrange points equals its commitment "
             f"({results['generic_msm_4096_ms']:.1f} ms)")
+
+    with Phase("8b verify path, device pairing tier"):
+        ctx_dp = EIP4844Context(converted, backend=ctx.backend,
+                                config=KZGConfig(device_pairing=True))
+        host_pairings[0] = 0
+        kernels.reset_counts()  # the device tier's verify path starts here
+        t0 = time.perf_counter()
+        for fn in VERIFY_FNS:
+            run_vectors(ctx_dp, fn, extra=PAIRING_LAUNCHES)
+        torch.cuda.synchronize()
+        results["verify_vectors_device_pairing_s"] = time.perf_counter() - t0
+        dp_launches = launch_counts()  # the path ends here
+        kzg_module.pairings_verify = host_pairings_verify
+        want = {name: n + vector_checks * PAIRING_LAUNCHES.get(name, 0)
+                for name, n in vector_launches.items()}
+        if dp_launches != want or host_pairings[0] != 0:
+            raise AssertionError(f"the device tier's launches are {dp_launches} with "
+                                 f"{host_pairings[0]} host pairings, not {want} and none")
+        log(f"  the 140 verify vectors through KZGConfig(device_pairing=True): all as the "
+            f"vectors have them in {results['verify_vectors_device_pairing_s']:.2f} s (host tier "
+            f"{results['verify_vectors_s']:.2f} s); {vector_checks} pairing checks, one launch of "
+            f"each pairing kernel per check, no host pairing; launches {dp_launches}")
 
     with Phase("9 prove path"):
         rng = np.random.default_rng(4845)
@@ -1360,7 +1610,8 @@ def run() -> None:
     def counted(name: str) -> dict:
         """A kernel's launches on the conversion, commit, verify and prove paths."""
         by_path = {"convert": convert_launches.get(name, 0), "commit": launches.get(name, 0),
-                   "verify": verify_launches.get(name, 0), "prove": prove_launches.get(name, 0)}
+                   "verify": verify_launches.get(name, 0), "prove": prove_launches.get(name, 0),
+                   "verify_device_pairing": dp_launches.get(name, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     entries = []
@@ -1608,6 +1859,20 @@ def run() -> None:
                   time_ms(lambda: (FP.mul(a16, b16), FP.sqr(a16), FP.add(a16, b16), FP.sub(a16, b16),
                                    FP.is_zero(a16), FP.eq(a16, b16)), reps=1, warm=0),
                   n * 9 * FP_BYTES, n * (3 * IMAD_PER_FP_MUL + IMAD_PER_FP_SQR), n)
+
+        # the pairing kernels at B = 2, every verification's shape (phase 3's
+        # true check); their plain times are phase 3's at the same inputs
+        ps32, qs32, f32 = pairing_checked["inputs"]
+        plain = pairing_checked["b2"]
+        # bytes: the Miller loop reads 2 G1 and 2 G2 points and writes 2
+        # values of 12 Fp; the final exponentiation reads those and the 6
+        # Fp2 constants and writes one value and the verdict
+        entry_for(kernels.miller_loop, "pairing.cu",
+                  timed(lambda: kernels.miller_loop(ps32, qs32), 3), plain["miller_plain_ms"],
+                  2 * (3 + 6 + 12) * FP_BYTES, miller_imads(2), 2)
+        entry_for(kernels.final_exp, "pairing.cu", timed(lambda: kernels.final_exp(f32), 3),
+                  plain["final_exp_plain_ms"], (2 * 12 + 6 * 2 + 12) * FP_BYTES + 1,
+                  final_exp_imads(2), 2)
 
     log(json.dumps({"end_to_end": results, "card": card}))
     log(json.dumps({"kernels": entries}))

@@ -3,7 +3,9 @@
 The JAX package holds the commitment basis as uint32[2, 24, N]
 Montgomery affine limbs plus bool[N] valid (`g1_ops.make_points_host`),
 and its fixed-base table as uint32[2, 24, W N] plus valid (returned by
-`msm.build_fixedbase_tables`, stored in `cache/fixedbase_*.npz`). These
+`msm.build_fixedbase_tables`, stored in `cache/fixedbase_*.npz`). Its
+pairing tier holds an Fp2 value as uint32[2, 24, B] (`fp2_ops.from_host`)
+and an Fp12 value as a 2-tuple of 3-tuples of those (`tower_ops`). These
 functions take those arrays as numpy (and a setup's G1 and G2 powers as
 the lists of affine points it holds) and return what the port takes.
 """
@@ -42,3 +44,20 @@ def fixedbase_from_numpy(table, valid, device="cuda"):
 def fixedbase_from_npz(path: str, device="cuda"):
     with np.load(path) as data:
         return fixedbase_from_numpy(data["table"], data["valid"], device)
+
+
+def fp2_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """uint32[2, 24, B] (or any leading axes before [2, 24, B]) -> the
+    port's int64 Fp2 tensor on `device`."""
+    arr = np.asarray(arr)
+    if arr.ndim < 3 or arr.shape[-3:-1] != (2, 24):
+        raise ValueError(f"an Fp2 array must be [..., 2, 24, B], got {arr.shape}")
+    return lb.as_limb_tensor(arr, device)
+
+
+def fp12_from_numpy(value, device="cuda"):
+    """((a0, a1, a2), (b0, b1, b2)) of uint32[2, 24, B] -> the same tuples
+    of the port's Fp2 tensors."""
+    if len(value) != 2 or any(len(half) != 3 for half in value):
+        raise ValueError("an Fp12 value is a 2-tuple of 3-tuples of Fp2 arrays")
+    return tuple(tuple(fp2_from_numpy(c, device) for c in half) for half in value)

@@ -1,8 +1,8 @@
 """The evaluation domain over Python ints: bit-reversed roots of unity,
-the barycentric evaluation and quotient that `ops/fr_poly.py` is held
-against, and the G1 group FFT that `ops/g1_batch.g1_fft_device` is held
-against (the port's copy of the JAX package's `host/fft.py`, without the
-Fr NTT, and of its host quotient)."""
+the Fr NTT that `ops/ntt.py` is held against, the barycentric evaluation
+and quotient that `ops/fr_poly.py` is held against, and the G1 group FFT
+that `ops/g1_batch.g1_fft_device` is held against (the port's copy of
+the JAX package's `host/fft.py`, and of its host quotient)."""
 
 from ..constants import R, fr_root_of_unity
 from . import curve as C
@@ -18,13 +18,40 @@ def bit_reversal_permutation(values):
     return [values[int(format(i, f"0{bits}b")[::-1], 2)] for i in range(n)]
 
 
-def fr_roots_of_unity(order: int):
-    """[w^0, w^1, ..., w^(order-1)] for the primitive order-th root w."""
+def fr_roots_of_unity(order: int, inverse: bool = False):
+    """[w^0, w^1, ..., w^(order-1)] for the primitive order-th root w
+    (for w^-1 when inverse)."""
     w = fr_root_of_unity(order)
+    if inverse:
+        w = pow(w, R - 2, R)
     out = [1] * order
     for i in range(1, order):
         out[i] = out[i - 1] * w % R
     return out
+
+
+def fr_fft(values, inverse: bool = False):
+    """Radix-2 Cooley-Tukey NTT over Fr, natural order in and out; the
+    inverse transform scales by 1/n."""
+    n = len(values)
+    if n & (n - 1):
+        raise ValueError("length must be a power of two")
+    a = bit_reversal_permutation([v % R for v in values])
+    length = 2
+    while length <= n:
+        half = length // 2
+        tw = fr_roots_of_unity(length, inverse)[:half]
+        for start in range(0, n, length):
+            for j in range(half):
+                u = a[start + j]
+                t = a[start + j + half] * tw[j] % R
+                a[start + j] = (u + t) % R
+                a[start + j + half] = (u - t) % R
+        length *= 2
+    if inverse:
+        n_inv = pow(n, R - 2, R)
+        a = [x * n_inv % R for x in a]
+    return a
 
 
 def g1_fft(points, inverse: bool = False):

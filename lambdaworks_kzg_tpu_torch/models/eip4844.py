@@ -7,12 +7,13 @@ the setup loaders are in `models/srs.py`) and the batched
 Commitments and proofs run on the context's device: the Fr evaluation
 and quotient as PyTorch ops, the fixed-base MSM on the Hopper kernels
 (`ops/backend.py`). Verification runs the pairing on the host
-(`models/kzg.py`), as the JAX package does by default; its blob
-evaluations run on the device. `verify_blob_kzg_proof_batch` decompresses
-and subgroup-checks its 2n points in one batched pass and forms its
-three linear combinations with the generic MSM, both on the device, as
-the JAX device branch does; the single checks decompress their points on
-the host.
+(`models/kzg.py`), as the JAX package does by default, or on the
+context's device when `KZGConfig.device_pairing` (LWKZG_DEVICE_PAIRING=1)
+is set; its blob evaluations run on the device.
+`verify_blob_kzg_proof_batch` decompresses and subgroup-checks its 2n
+points in one batched pass and forms its three linear combinations with
+the generic MSM, both on the device, as the JAX device branch does; the
+single checks decompress their points on the host.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -21,6 +22,7 @@ from ..constants import BYTES_PER_FIELD_ELEMENT
 from ..host import curve as C
 from ..ops.backend import TorchBackend
 from ..utils import hashing as H
+from ..utils.config import KZGConfig
 from .kzg import KZG
 from .srs import TrustedSetup, load_mainnet_setup
 
@@ -52,13 +54,15 @@ def _check_fr(data: bytes, what: str) -> int:
 class EIP4844Context:
     """A setup bound to a device. device defaults to "cuda" and raises
     when CUDA is absent; pass device="cpu" for the plain versions.
-    backend: a ready TorchBackend (for instance one given a table)."""
+    backend: a ready TorchBackend (for instance one given a table).
+    config: a KZGConfig; None reads the environment (`KZGConfig.from_env`)."""
 
     def __init__(self, setup: Optional[TrustedSetup] = None, device="cuda",
-                 backend=None):
+                 backend=None, config: Optional[KZGConfig] = None):
         self.setup = setup if setup is not None else load_mainnet_setup()
         self.backend = backend if backend is not None else TorchBackend(self.setup, device)
-        self.kzg = KZG(self.setup, self.backend)
+        self.config = (config if config is not None else KZGConfig.from_env()).validate()
+        self.kzg = KZG(self.setup, self.backend, self.config)
         self.n = self.setup.n
 
     def _scalars(self, blobs):

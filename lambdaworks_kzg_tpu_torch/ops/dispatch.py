@@ -19,6 +19,9 @@ batch or per FFT stage, not in a loop of ops. `fft_stage_endo` takes and
 returns the op layout, so the conversion's FFT converts once before its
 stages and once after them.
 
+`pairing_miller_loop` and `pairing_final_exp` are the pairing tier's two
+steps (`ops/pairing_ops.py`), public layout in and out.
+
 `resolve_device` turns a device argument into a `torch.device` and
 raises where CUDA is asked for and absent: the entry points run on the
 card unless the caller asks for the CPU.
@@ -27,7 +30,7 @@ card unless the caller asks for the CPU.
 import torch
 
 from ..constants import num_windows
-from . import g1_ops, kernels, limbs as lb
+from . import g1_ops, kernels, limbs as lb, pairing_ops
 
 
 def resolve_device(device) -> torch.device:
@@ -134,3 +137,24 @@ def add(p16, q16):
     if p16.is_cuda:
         return lb.to_u16_layout(kernels.add(lb.to_u32_layout(p16), lb.to_u32_layout(q16)))
     return g1_ops.add(p16, q16)
+
+
+# -- the pairing tier's two steps -------------------------------------------
+
+
+def pairing_miller_loop(ps16, qs16):
+    """G1 [3, 24, B] and G2 [3, 2, 24, B] Jacobian -> the Miller values
+    [12, 24, B] (`tower_ops.flatten12`), one at lanes with a member at
+    infinity."""
+    if ps16.is_cuda:
+        f = kernels.miller_loop(lb.to_u32_layout(ps16), lb.to_u32_layout(qs16))
+        return lb.to_u16_layout(f)
+    return pairing_ops.miller_loop_jac(ps16, qs16)
+
+
+def pairing_final_exp(f16):
+    """Miller values [12, 24, B] -> (FE(prod f)^3 [12, 24, 1], == 1 as bool[1])."""
+    if f16.is_cuda:
+        fe, ok = kernels.final_exp(lb.to_u32_layout(f16))
+        return lb.to_u16_layout(fe), ok
+    return pairing_ops.final_exp_check(f16)

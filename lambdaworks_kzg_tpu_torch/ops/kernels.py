@@ -1,5 +1,5 @@
 """The Hopper kernels (`csrc/g1.cu`, `csrc/msm.cu`, `csrc/table.cu`,
-`csrc/g1_batch.cu`), their build and their wrappers.
+`csrc/g1_batch.cu`, `csrc/pairing.cu`), their build and their wrappers.
 
 `g1_madd`, `g1_add` and `g1_dbl` (g1.cu) replace the TPU kernels `madd`,
 `add` and `dbl` of `lambdaworks_kzg_tpu/ops/pallas_g1_v2.py` (and the
@@ -20,6 +20,12 @@ plain versions are `g1_ops.decompress_xy`, `g1_ops.scalar_mul`
 and `g1_ops.subgroup_mask`. All four run on the cooperative field of
 `fp_coop.cuh` (four threads per element; four, eight or sixteen to a
 lane).
+`pairing_miller_loop` and `pairing_final_exp` (pairing.cu, on the tower
+of `tower.cuh`) run the pairing check of the opt-in device pairing tier:
+the Miller loop of every pair in one launch, then the pairs' product,
+the final exponentiation (cubed) and its `== 1` in another; their plain
+versions are `pairing_ops.miller_loop_jac` and
+`pairing_ops.final_exp_check`.
 `fp_sqr_check` (g1.cu) returns the field's square and product a * a, to
 hold one against the other, and `fp_coop_check` (g1_batch.cu) the
 cooperative field's product, square, sum, difference, zero test and
@@ -41,7 +47,8 @@ the basis as [2, 12, N] affine with valid bool[N] and returns the rows;
 the batched G1 kernels take x as [12, M], scalars as [8, M] u32 words
 (or [8, 1], one scalar for every lane) and return bool[M] masks; the FFT
 stage takes its n points [3, 12, n] in natural order and its twiddles
-[8, n/2].
+[8, n/2]; the pairing kernels take G1 Jacobian [3, 12, B], G2 Jacobian
+[3, 2, 12, B] and Miller values [12, 12, B] (`tower_ops.flatten12`).
 They allocate the output with `torch.empty`, launch on the current
 stream, raise when the launch fails, and count their launches.
 """
@@ -57,13 +64,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..constants import num_windows
+from ..constants import BLS_X, num_windows
+from . import limbs as lb, tower_ops
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("g1.cu", "msm.cu", "table.cu", "g1_batch.cu")
-HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh")
+SOURCES = ("g1.cu", "msm.cu", "table.cu", "g1_batch.cu", "pairing.cu")
+HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh", "tower.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NL = 12  # 32-bit limbs per Fp element in the kernel layout
@@ -143,7 +151,7 @@ def _load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build()["library"])
-            vp, ci = ctypes.c_void_p, ctypes.c_int
+            vp, ci, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
             lib.lwkzg_g1_madd.argtypes = [vp, vp, vp, vp, ci, vp]
             lib.lwkzg_g1_add.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_dbl.argtypes = [vp, vp, ci, vp]
@@ -156,6 +164,8 @@ def _load():
             lib.lwkzg_fp_coop_check.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_subgroup_mask.argtypes = [vp, vp, ci, vp]
             lib.lwkzg_g1_fft_stage.argtypes = [vp, vp, vp, ci, ci, vp]
+            lib.lwkzg_pairing_miller_loop.argtypes = [vp, vp, vp, ci, u64, vp]
+            lib.lwkzg_pairing_final_exp.argtypes = [vp, vp, vp, vp, ci, u64, u64, vp]
             fns = {
                 "madd": lib.lwkzg_g1_madd, "add": lib.lwkzg_g1_add, "dbl": lib.lwkzg_g1_dbl,
                 "bucket_accumulate": lib.lwkzg_g1_bucket_accumulate,
@@ -167,6 +177,8 @@ def _load():
                 "subgroup_mask": lib.lwkzg_g1_subgroup_mask,
                 "fft_stage": lib.lwkzg_g1_fft_stage,
                 "coop_check": lib.lwkzg_fp_coop_check,
+                "miller_loop": lib.lwkzg_pairing_miller_loop,
+                "final_exp": lib.lwkzg_pairing_final_exp,
             }
             for fn in fns.values():
                 fn.restype = ci
@@ -423,6 +435,51 @@ def _coop_check(k: _Kernel, a: torch.Tensor, b: torch.Tensor):
     return out
 
 
+_X_ABS = -BLS_X
+_XM1_ABS = -(BLS_X - 1)
+_GAMMA = {}
+
+
+def _gamma(device) -> torch.Tensor:
+    """gamma_k = xi^(k (p - 1) / 6), k < 6, as [6, 2, 12] Montgomery u32
+    words: the plain tower's constants (`tower_ops._gamma`, slot (i, j)
+    holds k = 2 j + i) in the kernel's layout."""
+    key = str(device)
+    if key not in _GAMMA:
+        g = tower_ops._gamma(device).transpose(0, 1).reshape(6, 2, tower_ops.L, 1)
+        _GAMMA[key] = lb.to_u32_layout(g).reshape(6, 2, NL)
+    return _GAMMA[key]
+
+
+def _miller_loop(k: _Kernel, p: torch.Tensor, q: torch.Tensor):
+    """p [3, 12, B] G1 and q [3, 2, 12, B] G2 Jacobian -> the Miller
+    values [12, 12, B], conjugated, one where a member is at infinity."""
+    b = p.shape[-1]
+    _check(p, "p", (3, NL, b), p.device)
+    _check(q, "q", (3, 2, NL, b), p.device)
+    out = torch.empty((12, NL, b), dtype=torch.int32, device=p.device)
+    if b:
+        _run("miller_loop", p, p.data_ptr(), q.data_ptr(), out.data_ptr(), b, _X_ABS)
+        k.launches += 1
+    return out
+
+
+def _final_exp(k: _Kernel, f: torch.Tensor):
+    """f [12, 12, B] Miller values, B >= 1 -> (FE(prod f)^3 [12, 12, 1],
+    its == 1 as bool[1])."""
+    b = f.shape[-1]
+    if b < 1:
+        raise ValueError("the final exponentiation needs at least one lane")
+    _check(f, "f", (12, NL, b), f.device)
+    gamma = _gamma(f.device)
+    out = torch.empty((12, NL, 1), dtype=torch.int32, device=f.device)
+    ok = torch.empty(1, dtype=torch.bool, device=f.device)
+    _run("final_exp", f, f.data_ptr(), gamma.data_ptr(), out.data_ptr(), ok.data_ptr(), b, _X_ABS,
+         _XM1_ABS)
+    k.launches += 1
+    return out, ok
+
+
 _V2 = "lambdaworks_kzg_tpu/ops/pallas_g1_v2.py"
 madd = _Kernel("g1_madd", f"{_V2}:353", _madd)
 add = _Kernel("g1_add", f"{_V2}:376", _add)
@@ -443,8 +500,14 @@ subgroup_mask = _Kernel("g1_subgroup_mask", f"{_V2}:392", _subgroup_mask)
 # one stage of the G1 FFT: the per-lane scalar multiplication and the two
 # add launches of the butterflies (lambdaworks_kzg_tpu/ops/g1_batch.py:270-272)
 fft_stage = _Kernel("g1_fft_stage", "lambdaworks_kzg_tpu/ops/g1_batch.py:270", _fft_stage)
+# the pairing tier's XLA steps (lambdaworks_kzg_tpu/ops/pairing_ops.py): the
+# affine conversions and the Miller loop; the lane product, the final
+# exponentiation and its == 1
+_PAIRING = "lambdaworks_kzg_tpu/ops/pairing_ops.py"
+miller_loop = _Kernel("pairing_miller_loop", f"{_PAIRING}:176", _miller_loop)
+final_exp = _Kernel("pairing_final_exp", f"{_PAIRING}:243", _final_exp)
 ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce, fixedbase_table, decompress, scalar_mul,
-       subgroup_mask, fft_stage)
+       subgroup_mask, fft_stage, miller_loop, final_exp)
 # a check of the field's square, off every path (the TPU kernels' _sqr_acc)
 sqr_check = _Kernel("fp_sqr_check", "lambdaworks_kzg_tpu/ops/pallas_g1.py:142", _sqr_check)
 # a check of the cooperative field, off every path (the TPU kernels' _KernelFp)

@@ -244,6 +244,9 @@ spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(repo, "
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
+for name in ("ops.ntt", "ops.fp2_ops", "ops.tower_ops", "ops.g2_ops", "ops.pairing_ops",
+             "utils.blob", "utils.config"):
+    assert pkg.__name__ + "." + name in sys.modules, name
 print("ok")
 """
 

@@ -48,8 +48,17 @@ g1_add, and in the conversion's mode through g1_fft_stage, equal to the
 plain versions' FFT; the generic MSM against the host g1_msm; and one
 conversion of testdata/trusted_setup.txt, byte-equal to
 cache/srs_mainnet.npz, with one g1_decompress, one g1_subgroup_mask, 12
-g1_fft_stage, one g1_scalar_mul and no g1_add launches."""
+g1_fft_stage, one g1_scalar_mul and no g1_add launches.
 
+The pairing tier (csrc/pairing.cu): pairing_miller_loop equals
+pairing_ops.miller_loop_jac and pairing_final_exp equals
+pairing_ops.final_exp_check limb for limb, at B = 2 (a true check) and
+at an odd B with members at infinity (a false check), on Jacobian points
+with Z != 1, and FE^3 equals the host pairing's value cubed; a true and
+a false pairings_verify_host_points on the card launch each pairing
+kernel once."""
+
+import importlib.util
 import os
 import random
 
@@ -59,10 +68,12 @@ import torch
 from lambdaworks_kzg_tpu_torch import EIP4844Context, convert
 from lambdaworks_kzg_tpu_torch.constants import P, R
 from lambdaworks_kzg_tpu_torch.host import curve as HC, fft
+from lambdaworks_kzg_tpu_torch.host import field as HF
+from lambdaworks_kzg_tpu_torch.host import pairing as HP
 from lambdaworks_kzg_tpu_torch.host.field import fp_sqrt
 from lambdaworks_kzg_tpu_torch.models import srs
-from lambdaworks_kzg_tpu_torch.ops import (codec, dispatch, fr_poly, g1_batch, g1_ops, kernels,
-                                           limbs as lb, msm)
+from lambdaworks_kzg_tpu_torch.ops import (codec, dispatch, fp2_ops, fr_poly, g1_batch, g1_ops,
+                                           kernels, limbs as lb, msm, pairing_ops, tower_ops)
 from lambdaworks_kzg_tpu_torch.ops.field_ops import FP, FR
 from lambdaworks_kzg_tpu_torch.utils import hashing as H
 
@@ -524,3 +535,57 @@ def test_mainnet_conversion_matches_cache(tmp_path):
     ref = srs.load_mainnet_setup()
     assert np.array_equal(setup.lagrange_points, ref.lagrange_points)
     assert setup.g1_monomial == ref.g1_monomial and setup.g2_monomial == ref.g2_monomial
+
+
+def _pairs_on_card(pairs, seed):
+    """The smoke's lane builder (chip_smoke.pairing_lanes) on the card:
+    each finite point rescaled to a random Z != 1."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.pairing_lanes(pairs, "cuda", seed)
+
+
+def _pairing_cases():
+    G, G2 = HC.G1_GENERATOR, HC.G2_GENERATOR
+    a, b = 13, 29
+    pa, qb = HC.point_scalar_mul(G, a), HC.g2_scalar_mul(G2, b)
+    pab = HC.point_scalar_mul(G, a * b)
+    true_pairs = [(HC.point_neg(pab), G2), (pa, qb)]
+    odd_pairs = [(HC.point_neg(pab), G2), (pa, HC.G2_INFINITY), (HC.point_scalar_mul(G, 5), qb),
+                 ((1, 1, 0), G2), (pa, qb)]
+    return {"true B=2": (true_pairs, True), "false B=5, members at infinity": (odd_pairs, False)}
+
+
+@pytest.mark.parametrize("case", ["true B=2", "false B=5, members at infinity"])
+def test_pairing_kernels_match_plain_on_card(case):
+    pairs, verdict = _pairing_cases()[case]
+    ps, qs = _pairs_on_card(pairs, seed=len(pairs))
+    before = (kernels.miller_loop.launches, kernels.final_exp.launches)
+    f = kernels.miller_loop(lb.to_u32_layout(ps), lb.to_u32_layout(qs))
+    fe, ok = kernels.final_exp(f)
+    torch.cuda.synchronize()
+    assert (kernels.miller_loop.launches, kernels.final_exp.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    f_plain = pairing_ops.miller_loop_jac(ps, qs)
+    assert torch.equal(lb.to_u16_layout(f), f_plain)
+    fe_plain, ok_plain = pairing_ops.final_exp_check(f_plain)
+    assert torch.equal(lb.to_u16_layout(fe), fe_plain)
+    assert ok.tolist() == ok_plain.tolist() == [verdict]
+    host = HP.pairing_batch(pairs)
+    want = HF.fp12_mul(HF.fp12_sqr(host), host)
+    assert tower_ops.fp12_to_host(tower_ops.unflatten12(lb.to_u16_layout(fe))) == [want]
+
+
+def test_pairings_verify_on_card_launches_each_kernel_once():
+    G, G2 = HC.G1_GENERATOR, HC.G2_GENERATOR
+    pa, qb = HC.point_scalar_mul(G, 13), HC.g2_scalar_mul(G2, 29)
+    for scalar, verdict in ((13 * 29, True), (13 * 29 + 1, False)):
+        before = (kernels.miller_loop.launches, kernels.final_exp.launches)
+        got = pairing_ops.pairings_verify_host_points(HC.point_scalar_mul(G, scalar), G2, pa, qb,
+                                                      "cuda")
+        assert got is verdict
+        assert (kernels.miller_loop.launches, kernels.final_exp.launches) == (before[0] + 1,
+                                                                              before[1] + 1)
