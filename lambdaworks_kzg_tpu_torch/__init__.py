@@ -3,9 +3,10 @@ lambdaworks_kzg_tpu. EIP4844Context serves the seven EIP-4844 entry
 points and the batched commit and proof APIs: commitments and proofs
 run on the card, through the Fr evaluation and quotient as PyTorch ops
 and the fixed-base MSM on hand-written CUDA kernels (ops/kernels.py);
-verification runs the pairing on the host, or on the card through two
-more kernels with KZGConfig(device_pairing=True), with batch
-verification's point decompression and linear combinations on the card.
+verification runs its pairing check on the card through two more
+kernels (on a CPU context, or with KZGConfig(device_pairing=False), on
+the host), with batch verification's point decompression and linear
+combinations on the card.
 A trusted setup without a cached conversion is converted on the card
 (load_trusted_setup_file)."""
 

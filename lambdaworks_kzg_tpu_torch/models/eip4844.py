@@ -6,10 +6,11 @@ the setup loaders are in `models/srs.py`) and the batched
 
 Commitments and proofs run on the context's device: the Fr evaluation
 and quotient as PyTorch ops, the fixed-base MSM on the Hopper kernels
-(`ops/backend.py`). Verification runs the pairing on the host
-(`models/kzg.py`), as the JAX package does by default, or on the
-context's device when `KZGConfig.device_pairing` (LWKZG_DEVICE_PAIRING=1)
-is set; its blob evaluations run on the device.
+(`ops/backend.py`). Verification runs its pairing check on the
+context's device when that is a card, and on the host tier when it is
+the CPU (`models/kzg.py`); `KZGConfig.device_pairing` (or
+LWKZG_DEVICE_PAIRING=1 / 0) forces one tier. Its blob evaluations run on
+the device.
 `verify_blob_kzg_proof_batch` decompresses and subgroup-checks its 2n
 points in one batched pass and forms its three linear combinations with
 the generic MSM, both on the device, as the JAX device branch does; the

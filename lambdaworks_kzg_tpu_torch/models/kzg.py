@@ -1,15 +1,19 @@
-"""KZG verification: the pairing on the host tier (Python ints) or, when
-`KZGConfig.device_pairing` is set, on the device pairing tier; the batch
-check's linear combinations through the backend's MSM.
+"""KZG verification: the pairing check on the backend's device (on a card)
+or on the host tier (Python ints), as `KZGConfig.device_pairing` says;
+the batch check's linear combinations through the backend's MSM.
 
 The port of `KZG.verify` and `KZG.verify_batch` of the JAX package's
 `models/kzg.py`: the scalar multiplications of a single check run on the
-host; the pairing check runs on the host (`host/pairing.py`) by default,
-or through `ops/pairing_ops.pairings_verify_host_points` on the
-backend's device (one launch of each pairing kernel on a card, the plain
-versions on the CPU); the batch check's three linear combinations go
-through `backend.msm` (the generic MSM on the device, `ops/backend.py`).
+host. The pairing check follows the backend's device by default: on a
+CUDA device it goes through `ops/pairing_ops.pairings_verify_host_points`
+(one launch of each pairing kernel), on the CPU through the host tier
+(`host/pairing.py`), whose Python ints beat the plain PyTorch tower
+there; `device_pairing=True` or `False` forces one tier. The batch
+check's three linear combinations go through `backend.msm` (the generic
+MSM on the device, `ops/backend.py`).
 """
+
+import torch
 
 from ..constants import R
 from ..host import curve as C
@@ -20,8 +24,8 @@ from ..utils.config import DEFAULT_CONFIG
 
 class KZG:
     """The checks of one setup, from its [1]_2 and [s]_2; `backend`
-    supplies `msm(scalars, points_affine)` for the batch check and, for the
-    device pairing tier, its `device`."""
+    supplies `msm(scalars, points_affine)` for the batch check and its
+    `device`, where the device pairing tier runs."""
 
     def __init__(self, setup, backend, config=None):
         self.backend = backend
@@ -35,9 +39,16 @@ class KZG:
             raise ValueError("this setup holds no G2 powers: verification needs [1]_2 and [s]_2")
         return self.g2_one, self.g2_s
 
+    def device_pairing(self) -> bool:
+        """Whether the pairing check runs on the backend's device: as the
+        config says, else where the backend's device is a card."""
+        if self.config.device_pairing is not None:
+            return self.config.device_pairing
+        return torch.device(self.backend.device).type == "cuda"
+
     def _pairings_verify(self, a1, a2, b1, b2) -> bool:
-        """e(a1, a2) == e(b1, b2) on the tier the config names."""
-        if self.config.device_pairing:
+        """e(a1, a2) == e(b1, b2) on the tier `device_pairing` picks."""
+        if self.device_pairing():
             return pairing_ops.pairings_verify_host_points(a1, a2, b1, b2, self.backend.device)
         return pairings_verify(a1, a2, b1, b2)
 

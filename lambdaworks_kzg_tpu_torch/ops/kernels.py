@@ -20,11 +20,13 @@ plain versions are `g1_ops.decompress_xy`, `g1_ops.scalar_mul`
 and `g1_ops.subgroup_mask`. All four run on the cooperative field of
 `fp_coop.cuh` (four threads per element; four, eight or sixteen to a
 lane).
-`pairing_miller_loop` and `pairing_final_exp` (pairing.cu, on the tower
-of `tower.cuh`) run the pairing check of the opt-in device pairing tier:
-the Miller loop of every pair in one launch, then the pairs' product,
-the final exponentiation (cubed) and its `== 1` in another; their plain
-versions are `pairing_ops.miller_loop_jac` and
+`pairing_miller_loop` and `pairing_final_exp` (pairing.cu, on the
+machine of levels of `levels.cuh`) run the pairing check of the device
+pairing tier: the Miller loop of every pair in one launch (a block per
+pair), then the pairs' product, the final exponentiation (cubed) and its
+`== 1` in another (one block); each takes its level program
+(`pairing_levels.programs`, built once and copied to the device once);
+their plain versions are `pairing_ops.miller_loop_jac` and
 `pairing_ops.final_exp_check`.
 `fp_sqr_check` (g1.cu) returns the field's square and product a * a, to
 hold one against the other, and `fp_coop_check` (g1_batch.cu) the
@@ -64,14 +66,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..constants import BLS_X, num_windows
-from . import limbs as lb, tower_ops
+from ..constants import num_windows
+from . import limbs as lb, pairing_levels, tower_ops
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("g1.cu", "msm.cu", "table.cu", "g1_batch.cu", "pairing.cu")
-HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh", "tower.cuh")
+HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh", "levels.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NL = 12  # 32-bit limbs per Fp element in the kernel layout
@@ -164,8 +166,9 @@ def _load():
             lib.lwkzg_fp_coop_check.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_subgroup_mask.argtypes = [vp, vp, ci, vp]
             lib.lwkzg_g1_fft_stage.argtypes = [vp, vp, vp, ci, ci, vp]
-            lib.lwkzg_pairing_miller_loop.argtypes = [vp, vp, vp, ci, u64, vp]
-            lib.lwkzg_pairing_final_exp.argtypes = [vp, vp, vp, vp, ci, u64, u64, vp]
+            lib.lwkzg_pairing_miller_loop.argtypes = [vp, vp, vp, ci, u64, vp, ci, ci, vp]
+            lib.lwkzg_pairing_final_exp.argtypes = [vp, vp, vp, vp, ci, u64, u64, vp, ci, ci, vp]
+            lib.lwkzg_pairing_smem.argtypes = [ci, ci, vp]
             fns = {
                 "madd": lib.lwkzg_g1_madd, "add": lib.lwkzg_g1_add, "dbl": lib.lwkzg_g1_dbl,
                 "bucket_accumulate": lib.lwkzg_g1_bucket_accumulate,
@@ -179,6 +182,7 @@ def _load():
                 "coop_check": lib.lwkzg_fp_coop_check,
                 "miller_loop": lib.lwkzg_pairing_miller_loop,
                 "final_exp": lib.lwkzg_pairing_final_exp,
+                "pairing_smem": lib.lwkzg_pairing_smem,
             }
             for fn in fns.values():
                 fn.restype = ci
@@ -435,8 +439,6 @@ def _coop_check(k: _Kernel, a: torch.Tensor, b: torch.Tensor):
     return out
 
 
-_X_ABS = -BLS_X
-_XM1_ABS = -(BLS_X - 1)
 _GAMMA = {}
 
 
@@ -451,6 +453,24 @@ def _gamma(device) -> torch.Tensor:
     return _GAMMA[key]
 
 
+_PROGRAM = {}
+
+
+def _program(which: int, device):
+    """(the level program as int32 on device, the shared-memory bytes of
+    its slots and its copy); which: 0 the Miller loop, 1 the final
+    exponentiation. The first call on a device copies the program there
+    and lets the kernel take that much shared memory."""
+    key = (which, str(device))
+    if key not in _PROGRAM:
+        prog = pairing_levels.programs()[which]
+        words = torch.tensor(prog.words, dtype=torch.int32, device=device)
+        smem = (prog.slots * pairing_levels.WORDS + len(prog.words)) * 4
+        _run("pairing_smem", words, which, smem)
+        _PROGRAM[key] = (words, smem)
+    return _PROGRAM[key]
+
+
 def _miller_loop(k: _Kernel, p: torch.Tensor, q: torch.Tensor):
     """p [3, 12, B] G1 and q [3, 2, 12, B] G2 Jacobian -> the Miller
     values [12, 12, B], conjugated, one where a member is at infinity."""
@@ -459,7 +479,9 @@ def _miller_loop(k: _Kernel, p: torch.Tensor, q: torch.Tensor):
     _check(q, "q", (3, 2, NL, b), p.device)
     out = torch.empty((12, NL, b), dtype=torch.int32, device=p.device)
     if b:
-        _run("miller_loop", p, p.data_ptr(), q.data_ptr(), out.data_ptr(), b, _X_ABS)
+        prog, smem = _program(0, p.device)
+        _run("miller_loop", p, p.data_ptr(), q.data_ptr(), out.data_ptr(), b,
+             pairing_levels.X_ABS, prog.data_ptr(), prog.numel(), smem)
         k.launches += 1
     return out
 
@@ -472,10 +494,11 @@ def _final_exp(k: _Kernel, f: torch.Tensor):
         raise ValueError("the final exponentiation needs at least one lane")
     _check(f, "f", (12, NL, b), f.device)
     gamma = _gamma(f.device)
+    prog, smem = _program(1, f.device)
     out = torch.empty((12, NL, 1), dtype=torch.int32, device=f.device)
     ok = torch.empty(1, dtype=torch.bool, device=f.device)
-    _run("final_exp", f, f.data_ptr(), gamma.data_ptr(), out.data_ptr(), ok.data_ptr(), b, _X_ABS,
-         _XM1_ABS)
+    _run("final_exp", f, f.data_ptr(), gamma.data_ptr(), out.data_ptr(), ok.data_ptr(), b,
+         pairing_levels.X_ABS, pairing_levels.XM1_ABS, prog.data_ptr(), prog.numel(), smem)
     k.launches += 1
     return out, ok
 

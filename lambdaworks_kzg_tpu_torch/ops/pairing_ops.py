@@ -1,5 +1,5 @@
 """The batched BLS12-381 ate pairing check (the JAX package's
-`ops/pairing_ops.py`), the opt-in device pairing tier.
+`ops/pairing_ops.py`), the device pairing tier.
 
 As in the JAX package:
 - G2 points travel the Miller loop in homogeneous projective twist
@@ -25,10 +25,12 @@ the host oracle's (`host/pairing.py`) by those Fp2 factors; FE(f)^3
 equals the oracle's final exponentiation cubed.
 """
 
+import random
+
 import torch
 
-from ..constants import BLS_X
-from ..host import curve as HC
+from ..constants import BLS_X, P
+from ..host import curve as HC, field as HF
 from . import dispatch
 from . import fp2_ops as F2
 from . import g1_ops, g2_ops
@@ -257,8 +259,8 @@ def pairings_verify(a1_jac, a2_jac, b1_jac, b2_jac):
 
 def pairings_verify_host_points(a1, a2, b1, b2, device="cuda") -> bool:
     """Host Jacobian points (Python ints) -> the pairing check on
-    `device`: the bridge `models/kzg.KZG` takes when
-    `KZGConfig.device_pairing` is set."""
+    `device`: the bridge `models/kzg.KZG` takes on a CUDA backend (or
+    with `KZGConfig.device_pairing=True`)."""
     device = dispatch.resolve_device(device)
 
     def d1(pt):
@@ -270,3 +272,25 @@ def pairings_verify_host_points(a1, a2, b1, b2, device="cuda") -> bool:
         return g2_ops.lift_affine(*g2_ops.make_points_host([aff], device))
 
     return bool(pairings_verify(d1(a1), d2(a2), d1(b1), d2(b2))[0])
+
+
+def jacobian_lanes(pairs, device, seed: int):
+    """[(G1 host Jacobian, G2 host Jacobian)] -> (G1 [3, L, B], G2
+    [3, 2, L, B]) Montgomery limbs on `device`, each finite point rescaled
+    to a seeded random Z != 1 (the kernels' and the plain versions'
+    inputs in the card's checks)."""
+    device = dispatch.resolve_device(device)
+    rng = random.Random(seed)
+    g1s, g2s = [], []
+    for p1, q2 in pairs:
+        lam = rng.randrange(2, P)
+        l2 = (lam, rng.randrange(P))
+        g1s.append(p1 if HC.is_infinity(p1) else
+                   (p1[0] * lam * lam % P, p1[1] * pow(lam, 3, P) % P, p1[2] * lam % P))
+        g2s.append(q2 if HC.g2_is_infinity(q2) else
+                   (HF.fp2_mul(q2[0], HF.fp2_sqr(l2)),
+                    HF.fp2_mul(q2[1], HF.fp2_mul(HF.fp2_sqr(l2), l2)), HF.fp2_mul(q2[2], l2)))
+    ps = torch.stack([lb.as_limb_tensor(FP.to_mont_host([pt[k] for pt in g1s]), device)
+                      for k in range(3)])
+    qs = torch.stack([F2.from_host([pt[k] for pt in g2s], device) for k in range(3)])
+    return ps, qs

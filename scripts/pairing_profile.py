@@ -4,7 +4,8 @@ tier, on a CUDA card: the two kernels (pairing_miller_loop,
 pairing_final_exp) against their plain PyTorch versions
 (pairing_ops.miller_loop_jac + final_exp_check) on the same inputs, and
 one single verification (`verify_kzg_proof` on a vector whose points
-are finite) on each tier.
+are finite) through the default context (the device tier on a card)
+and through the host tier forced with `KZGConfig(device_pairing=False)`.
 
 The check is a verification's: B = 2 pairs, e(-[ab]G, G2) e([a]G, [b]G2)
 with Z != 1. Each side runs once to warm up, then once between CUDA
@@ -72,7 +73,6 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    from chip_smoke import pairing_lanes
     from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGConfig, load_mainnet_setup
     from lambdaworks_kzg_tpu_torch.host import curve as HC
     from lambdaworks_kzg_tpu_torch.ops import kernels, limbs as lb, pairing_ops
@@ -82,7 +82,7 @@ def main() -> int:
     G, G2 = HC.G1_GENERATOR, HC.G2_GENERATOR
     pairs = [(HC.point_neg(HC.point_scalar_mul(G, 13 * 29)), G2),
              (HC.point_scalar_mul(G, 13), HC.g2_scalar_mul(G2, 29))]
-    ps, qs = pairing_lanes(pairs, dev, seed=2)
+    ps, qs = pairing_ops.jacobian_lanes(pairs, dev, seed=2)
     ps32, qs32 = lb.to_u32_layout(ps), lb.to_u32_layout(qs)
 
     def kernel_check():
@@ -105,7 +105,9 @@ def main() -> int:
     args = [case["input"][k] for k in ("commitment", "z", "y", "proof")]
     setup = load_mainnet_setup()
     ctx = EIP4844Context(setup, device="cuda", config=KZGConfig())
-    for tier, config in (("host", KZGConfig()), ("device", KZGConfig(device_pairing=True))):
+    # the default context on a card takes the device tier; the host tier
+    # is forced
+    for tier, config in (("device", KZGConfig()), ("host", KZGConfig(device_pairing=False))):
         tctx = EIP4844Context(setup, backend=ctx.backend, config=config)
         tctx.verify_kzg_proof(*args)
         times = []

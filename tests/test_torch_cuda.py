@@ -52,13 +52,13 @@ g1_fft_stage, one g1_scalar_mul and no g1_add launches.
 
 The pairing tier (csrc/pairing.cu): pairing_miller_loop equals
 pairing_ops.miller_loop_jac and pairing_final_exp equals
-pairing_ops.final_exp_check limb for limb, at B = 2 (a true check) and
-at an odd B with members at infinity (a false check), on Jacobian points
+pairing_ops.final_exp_check limb for limb, at B = 1 (a false check, and
+a true one whose pair has a member at infinity), B = 2 (a true check)
+and B = 5 (a false check with members at infinity), on Jacobian points
 with Z != 1, and FE^3 equals the host pairing's value cubed; a true and
 a false pairings_verify_host_points on the card launch each pairing
 kernel once."""
 
-import importlib.util
 import os
 import random
 
@@ -537,17 +537,6 @@ def test_mainnet_conversion_matches_cache(tmp_path):
     assert setup.g1_monomial == ref.g1_monomial and setup.g2_monomial == ref.g2_monomial
 
 
-def _pairs_on_card(pairs, seed):
-    """The smoke's lane builder (chip_smoke.pairing_lanes) on the card:
-    each finite point rescaled to a random Z != 1."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                                   "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke.pairing_lanes(pairs, "cuda", seed)
-
-
 def _pairing_cases():
     G, G2 = HC.G1_GENERATOR, HC.G2_GENERATOR
     a, b = 13, 29
@@ -556,13 +545,15 @@ def _pairing_cases():
     true_pairs = [(HC.point_neg(pab), G2), (pa, qb)]
     odd_pairs = [(HC.point_neg(pab), G2), (pa, HC.G2_INFINITY), (HC.point_scalar_mul(G, 5), qb),
                  ((1, 1, 0), G2), (pa, qb)]
-    return {"true B=2": (true_pairs, True), "false B=5, members at infinity": (odd_pairs, False)}
+    return {"true B=2": (true_pairs, True), "false B=5, members at infinity": (odd_pairs, False),
+            "false B=1": ([(pa, qb)], False), "true B=1, member at infinity": ([(pa, HC.G2_INFINITY)], True)}
 
 
-@pytest.mark.parametrize("case", ["true B=2", "false B=5, members at infinity"])
+@pytest.mark.parametrize("case", ["true B=2", "false B=5, members at infinity", "false B=1",
+                                  "true B=1, member at infinity"])
 def test_pairing_kernels_match_plain_on_card(case):
     pairs, verdict = _pairing_cases()[case]
-    ps, qs = _pairs_on_card(pairs, seed=len(pairs))
+    ps, qs = pairing_ops.jacobian_lanes(pairs, "cuda", seed=len(pairs))
     before = (kernels.miller_loop.launches, kernels.final_exp.launches)
     f = kernels.miller_loop(lb.to_u32_layout(ps), lb.to_u32_layout(qs))
     fe, ok = kernels.final_exp(f)

@@ -14,7 +14,11 @@
 - `KZGConfig` and the switch: one true and one false `verify_kzg_proof`
   consensus vector through `EIP4844Context(setup, device="cpu",
   config=KZGConfig(device_pairing=True))` give the vector's verdict and
-  JAX `KZG.verify`'s, and both verify entry points take the tier.
+  JAX `KZG.verify`'s, and both verify entry points take the tier; with
+  the default config both checks follow the backend's device (a CUDA
+  backend the device tier, a CPU backend the host tier), `False` forces
+  the host tier on a CUDA backend, and `LWKZG_DEVICE_PAIRING` unset or
+  empty, 1, and 0 or any other value give None, True and False.
 Tolerance: none; every value is an exact field element."""
 
 import os
@@ -422,3 +426,68 @@ def test_verify_vector_through_the_device_tier(mainnet_setup, jax_mainnet_setup,
     verdict = jkzg.verify(JC.decompress_g1(commitment), int.from_bytes(z, "little"),
                           int.from_bytes(y, "little"), JC.decompress_g1(proof))
     assert verdict is want
+
+
+def _route(monkeypatch, config, device):
+    """Both checks of a KZG with `config` on a backend on `device`: the
+    tier each took, as a list of "device" / "host" (spies answer True; no
+    pairing runs)."""
+    took = []
+
+    def device_tier(a1, a2, b1, b2, dev):
+        took.append(("device", torch.device(dev).type))
+        return True
+
+    def host_tier(*args):
+        took.append(("host", None))
+        return True
+
+    monkeypatch.setattr(PO, "pairings_verify_host_points", device_tier)
+    monkeypatch.setattr(port_kzg, "pairings_verify", host_tier)
+
+    class Setup:
+        g2_monomial = [HC.g2_to_affine(HC.G2_GENERATOR),
+                       HC.g2_to_affine(HC.g2_scalar_mul(HC.G2_GENERATOR, 5))]
+
+    class Backend:
+        pass
+
+    Backend.device = torch.device(device)
+    Backend.msm = staticmethod(lambda scalars, points: HC.INFINITY)
+    kzg = port_kzg.KZG(Setup(), Backend(), config)
+    g = HC.G1_GENERATOR
+    assert kzg.verify(g, 0, 1, (1, 1, 0)) is True
+    assert kzg.verify_batch([g], [0], [1], [(1, 1, 0)], [1]) is True
+    return took
+
+
+def test_default_config_routes_a_cuda_backend_to_the_device_tier(monkeypatch):
+    assert _route(monkeypatch, None, "cuda") == [("device", "cuda")] * 2
+    assert _route(monkeypatch, KZGConfig(), "cuda") == [("device", "cuda")] * 2
+
+
+def test_default_config_routes_a_cpu_backend_to_the_host_tier(monkeypatch):
+    assert _route(monkeypatch, None, "cpu") == [("host", None)] * 2
+
+
+def test_device_pairing_false_forces_the_host_tier_on_a_cuda_backend(monkeypatch):
+    assert _route(monkeypatch, KZGConfig(device_pairing=False), "cuda") == [("host", None)] * 2
+    assert _route(monkeypatch, KZGConfig(device_pairing=True), "cpu") == [("device", "cpu")] * 2
+
+
+@pytest.mark.parametrize("value, want", [(None, None), ("1", True), ("0", False), ("", None),
+                                         ("true", False)])
+def test_config_from_env_maps_the_switch(monkeypatch, value, want):
+    if value is None:
+        monkeypatch.delenv("LWKZG_DEVICE_PAIRING", raising=False)
+    else:
+        monkeypatch.setenv("LWKZG_DEVICE_PAIRING", value)
+    assert KZGConfig.from_env().device_pairing is want
+
+
+def test_config_validate_accepts_none_and_bools():
+    for value in (None, True, False):
+        assert KZGConfig(device_pairing=value).validate().device_pairing is value
+    assert KZGConfig().device_pairing is None and port.DEFAULT_CONFIG.device_pairing is None
+    with pytest.raises(ValueError):
+        KZGConfig(device_pairing=1).validate()
