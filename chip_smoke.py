@@ -18,7 +18,7 @@ Phases, each printed with its seconds:
      fp_coop.cuh (fp_coop_check: mul, sqr, add, sub, is_zero, eq) against
      fp::mul, fp::sqr and the plain field on all pairs of 0, 1, p - 1,
      p - 2, 2, R mod p and random pairs; g1_fixedbase_table against
-     g1_ops.fixedbase_table at c = 4, 8 and 12 on 256 lanes of the mainnet
+     g1_ops.fixedbase_table at c = 4 and 8 on 256 lanes of the mainnet
      basis with every 7th lane invalid, and at the mainnet shape (4096
      lanes, c = 8); g1_madd, g1_add and g1_dbl at lane counts 1 to 4096 (and 200,
      a partly filled second block) with random and exceptional lanes (P at
@@ -100,7 +100,8 @@ Phases, each printed with its seconds:
      timed with CUDA events, each call launching each MSM kernel once and
      the batch equal to the singles; then for one blob and for six the Fr
      evaluation and quotient and the MSM timed apart, and counted under
-     torch.profiler (launches, device busy), and one proof profiled whole;
+     torch.profiler (launches, device busy), and the host syncs of a proof
+     and of a batch counted;
  10. each kernel timed with CUDA events: the MSM kernels at the path's
      shapes for one blob and for six (seeded random blobs, c = 8), and the
      accumulation on the real quotient, madd at the 2048 lanes of one
@@ -114,19 +115,38 @@ Phases, each printed with its seconds:
      and 12 points, the two field checks on 4096 elements, and both
      pairing kernels at B = 2 (with phase 2's level counts and ptxas
      figures); plain times are phase 3's at the same shapes where it ran
-     them.
+     them;
+ 11. the multi-device tier (lambdaworks_kzg_tpu_torch/parallel) on the
+     converted setup, on logical meshes over the card named four times,
+     (1, 1), (2, 2) and (1, 4), and on a mesh of every card when there is
+     more than one (the device count is printed): each backend's init
+     builds one table per device, and each shard's table equals its rows
+     of cache/fixedbase_62bcf72bba2b37b8_c8.npz bit for bit; the 10
+     blob_to_kzg_commitment vectors; batches of 6 and 5 seeded blobs equal
+     phase 6's commitments, and compute_blob_kzg_proof_batch of 6 phase
+     9's proofs, each call in exactly D P g1_bucket_accumulate and
+     g1_bucket_reduce launches and D ceil(log2 P) g1_add launches (the
+     fold) and nothing else; a generic sharded MSM of a blob over the
+     4096 Lagrange points equals its commitment by points, windows and
+     auto; the 23 verify_blob_kzg_proof_batch vectors, and phase 8's
+     seeded batches of 6 and 64 verified true and false, each in its
+     exact launches (the 64's linear combinations sharded); batches of 6
+     timed with CUDA events (a logical mesh is one card doing every
+     shard's work: no multi-card time); the sharded NTT and inverse at
+     n = 4096 on 2 and 4 devices equal host/fft.fr_fft; g1_add timed at
+     the fold's 12 lanes.
 Launch counts are zeroed just before each path and read just after it:
 the conversion (phase 3b), the commit path (phases 4 to 6), the verify
 path (phase 8, after its seeded blobs are committed and proved), the
-host pairing tier's verify path (phase 8b) and the prove path (phase
-9, from its first proof to its last); phase 3b checks
-the conversion's exact launches, phase 4 that the table build made one
-table launch and no g1_dbl launch, phases 6 and 9 that each call
-launches each MSM kernel once, phase 8 the launches of each vector and
-batch, 8b none of the pairing kernels. The line before the last is
-{"kernels": [...]}, with each kernel's launches on the five paths; the
-last is {"ok": true, "device": {...}}. Any failure ends the run with a
-non-zero exit and without those lines.
+host pairing tier's verify path (phase 8b), the prove path (phase 9,
+from its first proof to its last) and the mesh path (phase 11); phase
+3b checks the conversion's exact launches, phase 4 that the table build
+made one table launch and no g1_dbl launch, phases 6 and 9 that each
+call launches each MSM kernel once, phase 8 the launches of each vector
+and batch, 8b none of the pairing kernels, phase 11 each call's. The
+line before the last is {"kernels": [...]}, with each kernel's launches
+on the six paths; the last is {"ok": true, "device": {...}}. Any
+failure ends the run with a non-zero exit and without those lines.
 """
 
 import json
@@ -345,6 +365,7 @@ EDGE_LANES = (1, 12, 31, 33, 128)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
 PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce")
+MESH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table", "g1_add")
 # one conversion of the mainnet setup (n = 4096): one decompression, one
 # subgroup check, 12 FFT stages of one launch each, and [1/n]
 CONVERT_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fft_stage": 12,
@@ -360,6 +381,7 @@ VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fixedbas
 # the same batch on the host pairing tier: no pairing kernel
 HOST_TIER = {name: -n for name, n in PAIRING_LAUNCHES.items()}
 NTT_N = 4096  # the blob domain
+MESH_SHAPES = ((1, 1), (2, 2), (1, 4))  # phase 11's logical meshes, over one card four times
 SETUP_4 = os.path.join(HERE, "testdata", "trusted_setup_4.txt")
 SRS_4_NAME = "srs_0f1c825ca54c4fef.npz"  # its cache name (not committed)
 SRS_MAINNET = os.path.join(HERE, "cache", "srs_mainnet.npz")
@@ -1327,6 +1349,186 @@ def same_npz(got_path: str, want) -> None:
                 raise AssertionError(f"{got_path}: {key} differs")
 
 
+def expect_launches(what: str, before: dict, want: dict) -> None:
+    """The launches since `before` are `want` by kernel name, none other."""
+    delta = {name: n - before[name] for name, n in launch_counts().items()}
+    full = {name: want.get(name, 0) for name in delta}
+    if delta != full:
+        raise AssertionError(f"{what}: launches {delta}, not {full}")
+
+
+def mesh_batch_launches(mesh) -> dict:
+    """One commitment or proof batch on a mesh (ops/backend.py, the batch
+    step of parallel/msm.py): an accumulation and a reduce per shard on
+    every row, and on each row ceil(log2 P) g1_add launches of its fold."""
+    d, p = mesh.shape["data"], mesh.shape["points"]
+    return {"g1_bucket_accumulate": d * p, "g1_bucket_reduce": d * p,
+            "g1_add": d * (p - 1).bit_length()}
+
+
+def mesh_generic_launches(mesh, n_points: int, sharded: bool) -> dict:
+    """One generic MSM on a mesh: unsharded on the lead device (one table,
+    one accumulation, one reduce), or over row 0 (a table per device of
+    the row, a shard per point of the axis, the fold)."""
+    if not sharded:
+        return {"g1_fixedbase_table": 1, "g1_bucket_accumulate": 1, "g1_bucket_reduce": 1}
+    p = mesh.shape["points"]
+    return {"g1_fixedbase_table": len(set(mesh.devices[0])), "g1_bucket_accumulate": p,
+            "g1_bucket_reduce": p, "g1_add": (p - 1).bit_length()}
+
+
+def mesh_verify_launches(mesh, n_blobs: int) -> dict:
+    """One verify_blob_kzg_proof_batch of n >= 2 blobs that pass their
+    checks, on a mesh: its decompression, subgroup check and pairing check
+    on the lead device, and three generic MSMs (n, n and n + 1 points),
+    sharded above max(16, 2 P) points (TorchBackend.msm)."""
+    want = {"g1_decompress": 1, "g1_subgroup_mask": 1, **PAIRING_LAUNCHES}
+    for k in (n_blobs, n_blobs, n_blobs + 1):
+        sharded = k > max(16, 2 * mesh.shape["points"])
+        for name, n in mesh_generic_launches(mesh, k, sharded).items():
+            want[name] = want.get(name, 0) + n
+    return want
+
+
+def events_ms(fn):
+    """fn() between two CUDA events on the lead card -> (result, ms); the
+    results' transfer to the host ends every call, so the end event
+    follows every shard's work."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_mesh(setup, dev, commit_set, prove_set, verify_batches) -> dict:
+    """Phase 11: the port's multi-device tier (parallel/) on logical meshes
+    over `dev` four times, (1, 1), (2, 2) and (1, 4), and on a mesh of every
+    card when there are more than one. On each: the backend's init builds
+    one table per device; each shard's table equals its rows of the
+    committed table; the 10 commitment vectors; batches of 6 and of 5
+    blobs (5 does not divide over 2 rows) equal phase 6's commitments and
+    a batch of 6 proofs phase 9's, each call in exactly
+    `mesh_batch_launches`; a generic sharded MSM of a blob over the 4096
+    Lagrange points equals its commitment by points, windows and auto;
+    the 23 verify_blob_kzg_proof_batch vectors; seeded batches of 6 and 64
+    verified true and false, each in `mesh_verify_launches`. Then the
+    sharded NTT and inverse at n = 4096 on 2 and 4 devices equal
+    host/fft.fr_fft. Batches of 6 are timed with CUDA events: on a logical
+    mesh that is one card doing every shard's work, no multi-card time."""
+    import numpy as np
+    import torch
+
+    from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGError
+    from lambdaworks_kzg_tpu_torch.constants import R, num_windows
+    from lambdaworks_kzg_tpu_torch.host import curve as HC, fft
+    from lambdaworks_kzg_tpu_torch.ops import codec, limbs as lb
+    from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend
+    from lambdaworks_kzg_tpu_torch.parallel import make_mesh, sharded_msm
+    from lambdaworks_kzg_tpu_torch.parallel.ntt import sharded_ntt_ints
+    from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
+
+    count = torch.cuda.device_count()
+    log(f"  {count} CUDA device(s): {[torch.cuda.get_device_name(i) for i in range(count)]}")
+    meshes = [(f"logical {d}x{p} over {dev}", make_mesh([dev] * 4, data=d, points=p))
+              for d, p in MESH_SHAPES]
+    if count > 1:
+        real = make_mesh()
+        meshes.append((f"{real.shape['data']}x{real.shape['points']} over {count} cards", real))
+    commit_blobs, commit_batch = commit_set
+    prove_blobs, prove_cs, prove_want = prove_set
+    n, w = setup.n, num_windows(C_MAIN)
+    with np.load(FIXEDBASE) as ref:
+        ref_table = ref["table"].reshape(2, 24, w, n)
+        ref_valid = ref["valid"].reshape(w, n)
+    points = lb.as_limb_tensor(setup.lagrange_points)
+    valid = torch.from_numpy(setup.lagrange_valid.copy())
+    scalars = lb.as_limb_tensor(codec.blob_to_limbs(commit_blobs[0], n), dev)
+    names = sorted(os.listdir(VECTORS))
+    if len(names) != 10:
+        raise AssertionError(f"{len(names)} commitment vectors, not 10")
+    out = {}
+    for label, mesh in meshes:
+        res = {"shape": mesh.shape}
+        before = launch_counts()
+        backend = TorchBackend(setup, mesh=mesh)
+        torch.cuda.synchronize()
+        devices = {d for row in mesh.devices for d in row}
+        expect_launches(f"{label}: init", before, {"g1_fixedbase_table": len(devices)})
+        width = n // mesh.shape["points"]
+        for (d, p) in backend.shards.tables:
+            table16, table_valid = backend.shards.public(d, p)
+            cols = slice(p * width, (p + 1) * width)
+            if not (np.array_equal(table16.cpu().numpy().astype(np.uint32),
+                                   ref_table[..., cols].reshape(2, 24, -1))
+                    and np.array_equal(table_valid.cpu().numpy(), ref_valid[:, cols].reshape(-1))):
+                raise AssertionError(f"{label}: shard {p}'s table on {d} differs from its rows of "
+                                     f"{os.path.relpath(FIXEDBASE, HERE)}")
+        ctx = EIP4844Context(setup, backend=backend)
+        for name in names:
+            blob, want = load_commitment_vector(os.path.join(VECTORS, name, "data.yaml"))
+            try:
+                got = ctx.blob_to_kzg_commitment(blob)
+            except KZGError:
+                got = None
+            if got != want:
+                raise AssertionError(f"{label}: commitment vector {name} wrong")
+        per_batch = mesh_batch_launches(mesh)
+        for k in (6, 5):
+            before = launch_counts()
+            got = ctx.blob_to_kzg_commitment_batch(commit_blobs[:k])
+            expect_launches(f"{label}: a batch of {k} commitments", before, per_batch)
+            if got != commit_batch[:k]:
+                raise AssertionError(f"{label}: a batch of {k} commits unlike phase 6")
+        res["commit_batch6_ms"] = [events_ms(lambda: ctx.blob_to_kzg_commitment_batch(commit_blobs))[1]
+                                   for _ in range(2)]
+        for shard in ("points", "windows", "auto"):
+            before = launch_counts()
+            pt = sharded_msm(mesh, points, valid, scalars, C_MAIN, shard)
+            expect_launches(f"{label}: sharded_msm by {shard}", before,
+                            mesh_generic_launches(mesh, n, sharded=True))
+            if HC.compress_g1(pt) != commit_batch[0]:
+                raise AssertionError(f"{label}: sharded_msm by {shard} differs from the commitment")
+        before = launch_counts()
+        proofs, ms = events_ms(lambda: ctx.compute_blob_kzg_proof_batch(prove_blobs, prove_cs))
+        expect_launches(f"{label}: a batch of 6 proofs", before, per_batch)
+        if proofs != prove_want:
+            raise AssertionError(f"{label}: a batch of 6 proofs unlike phase 9")
+        res["prove_batch6_ms"] = ms
+        run_vectors(ctx, "verify_blob_kzg_proof_batch")
+        res["verify_batch_ms"] = {}
+        for k, (blobs, cs, ps) in verify_batches.items():
+            swapped = [ps[1], ps[0]] + ps[2:]
+            for verdict, proofs in ((True, ps), (False, swapped)):
+                before = launch_counts()
+                got, ms = events_ms(lambda: ctx.verify_blob_kzg_proof_batch(blobs, cs, proofs))
+                expect_launches(f"{label}: a batch verify of {k}", before, mesh_verify_launches(mesh, k))
+                if got is not verdict:
+                    raise AssertionError(f"{label}: {k} seeded blobs verified {got}, not {verdict}")
+                res["verify_batch_ms"][f"{k} {verdict}".lower()] = ms
+        log(f"  {label}: init one table per device; shard tables equal the committed rows; 10/10 "
+            f"commitment vectors; batches of 6 and 5 equal phase 6, 6 proofs phase 9, each in "
+            f"{per_batch}; sharded_msm by points, windows and auto equals the commitment; 23/23 "
+            f"batch vectors; seeded batches verified as they should; ms {res}")
+        out[label] = res
+    rng = random.Random(NTT_N + 1)
+    values = [rng.randrange(R) for _ in range(NTT_N)]
+    want = {inverse: fft.fr_fft(values, inverse) for inverse in (False, True)}
+    for d, p, axis in ((1, 2, "points"), (2, 2, "data"), (1, 4, "points")):
+        mesh = make_mesh([dev] * 4, data=d, points=p)
+        for inverse in (False, True):
+            if sharded_ntt_ints(mesh, axis, values, inverse) != want[inverse]:
+                raise AssertionError(f"the sharded NTT on {d}x{p} ({axis}, inverse={inverse}) "
+                                     "differs from fr_fft")
+    log(f"  sharded NTT and inverse, n={NTT_N}, on 2 and 4 devices of a logical mesh: equal to "
+        "fr_fft")
+    return out
+
+
 def time_ms(fn, reps: int, warm: int = 2) -> float:
     """Device ms per call. The launches queue up behind a ~20 ms spin on
     the card, so a kernel shorter than its wrapper's host cost is timed
@@ -1394,7 +1596,7 @@ def run() -> None:
         check_sqr(dev, 4096, seed=5)
         max_err["fp_coop_check"] = check_coop(dev, 4096, seed=6)
         lane = torch.arange(256, device=dev)
-        for c in (4, 8, 12):
+        for c in (4, 8):
             err, _, _ = check_table(f"c={c} N=256, every 7th lane invalid", points[:, :, :256],
                                     points_valid[:256] & (lane % 7 != 3), c)
             max_err["g1_fixedbase_table"] = max(max_err["g1_fixedbase_table"], err)
@@ -1519,6 +1721,7 @@ def run() -> None:
         if launches["g1_fixedbase_table"] != 1 or launches["g1_dbl"] != 0:
             raise AssertionError(f"the main path must launch g1_fixedbase_table once and g1_dbl "
                                  f"never ({launches})")
+        commit_set = (blobs, batch)
 
     with Phase("7 proof vectors"):
         for fn in ("compute_kzg_proof", "compute_blob_kzg_proof"):
@@ -1646,16 +1849,15 @@ def run() -> None:
                 f"launches, device busy {fr_dev.get('busy_ms', float('nan')):.3f} ms), "
                 f"MSM + result {sp['msm_ms']:.3f} ms ({msm_dev.get('kernels', 'not measured')} "
                 f"launches, device busy {msm_dev.get('busy_ms', float('nan')):.3f} ms)")
-        single = device_work(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0]))
-        results["prove_single_device"] = single
-        log(f"  one compute_blob_kzg_proof under the profiler: {single}")
         syncs = {"single": host_syncs(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0])),
                  "batch6": host_syncs(lambda: ctx.compute_blob_kzg_proof_batch(blobs, commitments))}
         results["prove_host_syncs"] = syncs
         log(f"  synchronizing calls: {syncs['single']} per proof, {syncs['batch6']} per batch of six")
+        prove_set = (blobs, commitments, batch)
 
     def counted(name: str) -> dict:
-        """A kernel's launches on the conversion, commit, verify and prove paths."""
+        """A kernel's launches on the conversion, commit, verify, prove and
+        host-tier verify paths (the mesh path's join after phase 11)."""
         by_path = {"convert": convert_launches.get(name, 0), "commit": launches.get(name, 0),
                    "verify": verify_launches.get(name, 0), "prove": prove_launches.get(name, 0),
                    "verify_host_tier": host_launches.get(name, 0)}
@@ -1920,6 +2122,34 @@ def run() -> None:
         entry_for(kernels.final_exp, "pairing.cu", timed(lambda: kernels.final_exp(f32), 20),
                   plain["final_exp_plain_ms"], (2 * 12 + 6 * 2 + 12) * FP_BYTES + 1,
                   final_exp_imads(2), 2)
+
+    kernels.reset_counts()  # the mesh path starts here
+    with Phase("11 the mesh"):
+        results["mesh"] = check_mesh(converted, dev, commit_set, prove_set, batches)
+        mesh_launches = launch_counts()  # the path ends here
+        log(f"  mesh path launches {mesh_launches}")
+        missing = [name for name in MESH_KERNELS if mesh_launches[name] == 0]
+        if missing:
+            raise AssertionError(f"not launched on the mesh path: {missing}")
+        # g1_add at the fold's widest level here: two partials of six blobs
+        # (the 1x4 mesh), random finite lanes
+        p, _, _, q3 = make_lanes(points, 12, seed=84, exceptional=False)
+        p32, q32 = lb.to_u32_layout(p), lb.to_u32_layout(q3)
+        t_bytes = 12 * FP_BYTES * 9 / HBM_BYTES_PER_S * 1e3
+        t_ops = 12 * op_imads("add") / IMAD_PER_S * 1e3
+        fold = {"lanes": 12, "ms": sum(time_ms(lambda: kernels.add(p32, q32), reps=200, warm=5)
+                                       for _ in range(2)) / 2,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"  g1_add M=12 (the mesh fold): kernel {fold['ms']:.4f} ms, bound {fold['bound_ms']:.6f} ms "
+            f"({fold['bound_by']})")
+        for entry in entries:
+            n = mesh_launches.get(entry["name"], 0)
+            entry["launches_by_path"]["mesh"] = n
+            entry["launches"] += n
+            if entry["name"] == kernels.add.name:
+                entry["mesh_fold"] = fold
+        log(f"  {card}; the meshes are logical: one card runs every shard, so no time here is a "
+            "multi-card time")
 
     log(json.dumps({"end_to_end": results, "card": card}))
     log(json.dumps({"kernels": entries}))

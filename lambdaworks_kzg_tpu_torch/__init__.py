@@ -8,8 +8,12 @@ kernels (on a CPU context, or with KZGConfig(device_pairing=False), on
 the host), with batch verification's point decompression and linear
 combinations on the card.
 A trusted setup without a cached conversion is converted on the card
-(load_trusted_setup_file)."""
+(load_trusted_setup_file). The multi-device tier is
+lambdaworks_kzg_tpu_torch.parallel: EIP4844Context(setup, mesh=make_mesh())
+(or LWKZG_MESH_SHAPE=DxP) shards every MSM over a (data, points) mesh of
+the host's cards, and the NTT runs sharded too (parallel.ntt.sharded_ntt)."""
 
+from . import parallel
 from .constants import BYTES_PER_BLOB, FIELD_ELEMENTS_PER_BLOB
 from .models.eip4844 import EIP4844Context, KZGError
 from .models.kzg import KZG

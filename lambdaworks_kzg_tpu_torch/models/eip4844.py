@@ -6,11 +6,12 @@ the setup loaders are in `models/srs.py`) and the batched
 
 Commitments and proofs run on the context's device: the Fr evaluation
 and quotient as PyTorch ops, the fixed-base MSM on the Hopper kernels
-(`ops/backend.py`). Verification runs its pairing check on the
-context's device when that is a card, and on the host tier when it is
-the CPU (`models/kzg.py`); `KZGConfig.device_pairing` (or
-LWKZG_DEVICE_PAIRING=1 / 0) forces one tier. Its blob evaluations run on
-the device.
+(`ops/backend.py`); on a mesh (`mesh=`, or LWKZG_MESH_SHAPE=DxP) every
+MSM is sharded over its devices and the rest runs on its lead device.
+Verification runs its pairing check on the context's device when that
+is a card, and on the host tier when it is the CPU (`models/kzg.py`);
+`KZGConfig.device_pairing` (or LWKZG_DEVICE_PAIRING=1 / 0) forces one
+tier. Its blob evaluations run on the device.
 `verify_blob_kzg_proof_batch` decompresses and subgroup-checks its 2n
 points in one batched pass and forms its three linear combinations with
 the generic MSM, both on the device, as the JAX device branch does; the
@@ -53,16 +54,27 @@ def _check_fr(data: bytes, what: str) -> int:
 
 
 class EIP4844Context:
-    """A setup bound to a device. device defaults to "cuda" and raises
-    when CUDA is absent; pass device="cpu" for the plain versions.
-    backend: a ready TorchBackend (for instance one given a table).
-    config: a KZGConfig; None reads the environment (`KZGConfig.from_env`)."""
+    """A setup bound to a device, or to a mesh of devices. device defaults
+    to "cuda" and raises when CUDA is absent; pass device="cpu" for the
+    plain versions. backend: a ready TorchBackend (for instance one given
+    a table). config: a KZGConfig; None reads the environment
+    (`KZGConfig.from_env`). mesh: a (data, points) `parallel.mesh.Mesh`
+    that every MSM is sharded over (`parallel/`); without a backend and a
+    mesh, `config.mesh_shape` (LWKZG_MESH_SHAPE=DxP) names one over the
+    devices of `device`'s type. A backend and a mesh together raise: give
+    the backend its mesh."""
 
     def __init__(self, setup: Optional[TrustedSetup] = None, device="cuda",
-                 backend=None, config: Optional[KZGConfig] = None):
+                 backend=None, config: Optional[KZGConfig] = None, mesh=None):
         self.setup = setup if setup is not None else load_mainnet_setup()
-        self.backend = backend if backend is not None else TorchBackend(self.setup, device)
         self.config = (config if config is not None else KZGConfig.from_env()).validate()
+        if backend is None:
+            if mesh is None:
+                mesh = self.config.make_mesh(device)
+            backend = TorchBackend(self.setup, device, mesh=mesh)
+        elif mesh is not None:
+            raise ValueError("pass the mesh to the backend (TorchBackend(setup, mesh=...)), not both")
+        self.backend = backend
         self.kzg = KZG(self.setup, self.backend, self.config)
         self.n = self.setup.n
 

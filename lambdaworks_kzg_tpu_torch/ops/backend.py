@@ -12,6 +12,15 @@ quotients, which stay on the device until the MSM's result comes back.
 Batch verification decompresses its points in one batched pass
 (`decompress_g1_batch`) and forms its linear combinations with the
 generic MSM (`msm`), both on the device.
+
+On a (data, points) mesh (`parallel/`) the backend keeps one table per
+(device, shard) of the points axis instead (`parallel.msm.ShardedBasis`),
+built at init or cut from a table handed in. Every commitment and
+proof batch runs the batch step: its blobs over the data axis, each
+blob's MSM over the points axis, folded on the g1_add kernel, gathered on
+the lead device (the mesh's first), where the Fr layer, the
+decompression and the pairing check stay. The generic MSM is sharded
+from max(16, 2 P) points on, padded with invalid points to P 2^k.
 """
 
 import numpy as np
@@ -19,13 +28,12 @@ import torch
 
 from ..constants import R, num_windows
 from ..host import curve as HC
+from ..parallel import msm as pmsm
 from . import codec, dispatch, fr_poly, g1_batch, g1_ops, msm
 from .dispatch import resolve_device
 from . import limbs as lb
 from .field_ops import FR
-
-
-GROUPS = 8  # lane groups of the bucket grid, as the JAX DeviceBackend fixes them
+from .msm import GROUPS
 
 
 def auto_window(n: int) -> int:
@@ -37,33 +45,52 @@ def auto_window(n: int) -> int:
     return 8
 
 
+def _ceil_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
 class TorchBackend:
-    """Commit backend bound to one setup and one device.
+    """Commit backend bound to one setup and one device, or one mesh.
 
     fixedbase: optional (table, valid) tensors in the public layout (for
     instance from `convert.fixedbase_from_npz`); built on the device
-    otherwise."""
+    otherwise. mesh: a `parallel.mesh.Mesh`; the backend's device is then
+    its lead device, and the setup's size must divide over its points
+    axis (ValueError)."""
 
-    def __init__(self, setup, device="cuda", fixedbase=None):
-        self.device = resolve_device(device)
+    def __init__(self, setup, device="cuda", fixedbase=None, mesh=None):
         self.setup = setup
         self.n = setup.n
         self.c = auto_window(self.n)
-        if fixedbase is None:
-            points = lb.as_limb_tensor(setup.lagrange_points, self.device)
-            valid = torch.from_numpy(np.array(setup.lagrange_valid, dtype=bool)).to(self.device)
-            self._table, self._table_valid = dispatch.fixedbase_table(points, valid, self.c)
-        else:
-            table, valid = fixedbase
+        self.mesh = mesh
+        self.shards = None
+        if fixedbase is not None:
             expected = (2, 24, num_windows(self.c) * self.n)
-            if tuple(table.shape) != expected:
-                raise ValueError(f"fixed-base table must be {expected}, got {tuple(table.shape)}")
-            self._table = dispatch.to_table_layout(table.to(self.device))
-            self._table_valid = valid.to(self.device)
+            if tuple(fixedbase[0].shape) != expected:
+                raise ValueError(f"fixed-base table must be {expected}, got {tuple(fixedbase[0].shape)}")
+        if mesh is not None:
+            self.device = mesh.lead
+            points = lb.as_limb_tensor(setup.lagrange_points)
+            valid = torch.from_numpy(np.array(setup.lagrange_valid, dtype=bool))
+            self.shards = pmsm.ShardedBasis(mesh, points, valid, self.c, "points",
+                                            fixedbase=fixedbase)
+        else:
+            self.device = resolve_device(device)
+            if fixedbase is None:
+                points = lb.as_limb_tensor(setup.lagrange_points, self.device)
+                valid = torch.from_numpy(np.array(setup.lagrange_valid, dtype=bool)).to(self.device)
+                self._table, self._table_valid = dispatch.fixedbase_table(points, valid, self.c)
+            else:
+                table, valid = fixedbase
+                self._table = dispatch.to_table_layout(table.to(self.device))
+                self._table_valid = valid.to(self.device)
         self.domain = fr_poly.FrDomain(self.n, self.device)
 
     def fixedbase(self):
-        """(table [2, 24, W N] int64, valid) in the public layout."""
+        """(table [2, 24, W N] int64, valid) in the public layout; a backend
+        on a mesh holds one table per shard instead (`shards.public`)."""
+        if self.shards is not None:
+            raise ValueError("a backend on a mesh holds one table per shard: backend.shards.public")
         return dispatch.from_table_layout(self._table), self._table_valid
 
     def commit_scalars(self, scalars: torch.Tensor, ops=dispatch):
@@ -71,7 +98,15 @@ class TorchBackend:
         [B, 16, n] -> a list of B points.
 
         ops=ops.g1_ops runs the plain versions on this device instead of
-        the kernels (the reference the kernels are held against)."""
+        the kernels (the reference the kernels are held against); a
+        backend on a mesh runs the kernels only. On a mesh, [16, n] runs
+        on row 0 of the data axis, [B, 16, n] on every row."""
+        if self.shards is not None:
+            if ops is not dispatch:
+                raise ValueError("a backend on a mesh runs the kernels only")
+            if scalars.dim() == 2:
+                return g1_ops.points_to_host(self.shards.msm(scalars[None], rows=1))[0]
+            return g1_ops.points_to_host(self.shards.msm(scalars))
         table = self._table if ops is dispatch else self.fixedbase()[0]
         return msm.msm_fixedbase(
             table, self._table_valid, scalars, self.c, GROUPS, ops
@@ -168,18 +203,29 @@ class TorchBackend:
         """sum_i k_i P_i over host affine points ((x, y) or None) -> host
         Jacobian point, on this device: the generic MSM at the window
         `auto_window` picks for len(points). Scalars are taken mod r;
-        ValueError for one at or above 2^scalar_bits after that."""
+        ValueError for one at or above 2^scalar_bits after that. On a mesh,
+        above max(16, 2 P) points, the MSM is sharded by points over row 0
+        of the data axis (`parallel.msm.sharded_msm`); below, it runs here,
+        on the lead device, where the JAX package takes its host tier."""
         points = list(points_affine)
         scalars = list(scalars)
         if len(points) != len(scalars):
             raise ValueError("scalar and point counts differ")
         if not points:
             return HC.INFINITY
+        c = auto_window(len(points))
+        if self.mesh is not None and len(points) > max(16, 2 * self.mesh.shape["points"]):
+            # invalid lanes to a power-of-two multiple of the points axis
+            p_axis = self.mesh.shape["points"]
+            pad = p_axis * _ceil_pow2(-(-len(points) // p_axis)) - len(points)
+            pts, valid = g1_ops.make_points_host(points + [None] * pad)
+            return pmsm.sharded_msm(self.mesh, lb.as_limb_tensor(pts), torch.from_numpy(valid),
+                                    msm.scalars_to_tensor(scalars + [0] * pad, self.device),
+                                    c, "points", scalar_bits)
         pts, valid = g1_ops.make_points_host(points)
         return msm.msm(lb.as_limb_tensor(pts, self.device),
                        torch.from_numpy(valid).to(self.device),
-                       msm.scalars_to_tensor(scalars, self.device),
-                       auto_window(len(points)), scalar_bits, GROUPS)
+                       msm.scalars_to_tensor(scalars, self.device), c, scalar_bits, GROUPS)
 
     def decompress_g1_batch(self, compressed) -> list:
         """48-byte compressed points -> host Jacobians, decompressed and

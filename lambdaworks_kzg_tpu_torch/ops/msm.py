@@ -32,6 +32,8 @@ import torch
 from ..constants import R, num_windows
 from . import dispatch, g1_ops, limbs as lb
 
+GROUPS = 8  # lane groups of the bucket grid, as the JAX DeviceBackend fixes them
+
 
 def window_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
     """[..., 16, N] plain Fr limbs (int64) -> digits [..., W, N] (int64),
@@ -93,7 +95,14 @@ def msm_fixedbase_device(table: torch.Tensor, table_valid: torch.Tensor,
     weights are in the table. Nothing is read back to the host."""
     if scalars.dim() == 2:
         scalars = scalars[None]
-    digits = fixedbase_digits(scalars, c)
+    return msm_fixedbase_digits(table, table_valid, fixedbase_digits(scalars, c), c, groups, ops)
+
+
+def msm_fixedbase_digits(table: torch.Tensor, table_valid: torch.Tensor, digits: torch.Tensor,
+                         c: int = 8, groups: int = 8, ops=dispatch) -> torch.Tensor:
+    """`msm_fixedbase_device` from each member's digit: digits [B, M] for
+    a table of M members (one digit per table row, in the table's row
+    order) -> Jacobian points [3, *, B] in `ops`' layout."""
     digits = torch.where(table_valid, digits, torch.zeros_like(digits))
     order, bstart = sort_members(digits, c)
     buckets = ops.bucket_accumulate(table, order, bstart, c, groups)

@@ -245,7 +245,8 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 for name in ("ops.ntt", "ops.fp2_ops", "ops.tower_ops", "ops.g2_ops", "ops.pairing_ops",
-             "utils.blob", "utils.config"):
+             "utils.blob", "utils.config", "parallel", "parallel.mesh", "parallel.msm",
+             "parallel.ntt"):
     assert pkg.__name__ + "." + name in sys.modules, name
 print("ok")
 """

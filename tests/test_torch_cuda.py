@@ -50,6 +50,10 @@ conversion of testdata/trusted_setup.txt, byte-equal to
 cache/srs_mainnet.npz, with one g1_decompress, one g1_subgroup_mask, 12
 g1_fft_stage, one g1_scalar_mul and no g1_add launches.
 
+The multi-device tier on a logical (2, 2) mesh of the one card: a batch
+of three blobs commits as the unsharded context does, in four launches
+of each MSM kernel and two of g1_add (the fold).
+
 The pairing tier (csrc/pairing.cu): pairing_miller_loop equals
 pairing_ops.miller_loop_jac and pairing_final_exp equals
 pairing_ops.final_exp_check limb for limb, at B = 1 (a false check, and
@@ -74,7 +78,9 @@ from lambdaworks_kzg_tpu_torch.host.field import fp_sqrt
 from lambdaworks_kzg_tpu_torch.models import srs
 from lambdaworks_kzg_tpu_torch.ops import (codec, dispatch, fp2_ops, fr_poly, g1_batch, g1_ops,
                                            kernels, limbs as lb, msm, pairing_ops, tower_ops)
+from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend
 from lambdaworks_kzg_tpu_torch.ops.field_ops import FP, FR
+from lambdaworks_kzg_tpu_torch.parallel import make_mesh
 from lambdaworks_kzg_tpu_torch.utils import hashing as H
 
 pytestmark = [
@@ -512,6 +518,26 @@ def test_generic_msm_matches_host_msm_on_card():
     assert HC.to_affine(got) == HC.to_affine(HC.g1_msm(ks, pts))
     with pytest.raises(ValueError, match="2\\^248"):
         ctx_backend.msm([1 << 250], pts[2:3], scalar_bits=248)
+
+
+def test_logical_mesh_commits_as_the_unsharded_context():
+    """A (2, 2) mesh over cuda:0 four times, the mainnet table cut from
+    the committed one: three blobs (padded to four over the data axis) give
+    the unsharded context's commitments, in 2 x 2 launches of each MSM
+    kernel and one g1_add fold launch per row."""
+    setup = srs.load_mainnet_setup()
+    fixedbase = convert.fixedbase_from_npz(FIXEDBASE, "cpu")
+    mesh = make_mesh(["cuda:0"] * 4, data=2, points=2)
+    ctx = EIP4844Context(setup, backend=TorchBackend(setup, fixedbase=fixedbase, mesh=mesh))
+    plain = EIP4844Context(setup, backend=TorchBackend(setup, "cuda", fixedbase=fixedbase))
+    rng = random.Random(23)
+    blobs = [b"".join(rng.randrange(R).to_bytes(32, "little") for _ in range(4096))
+             for _ in range(3)]
+    used = (kernels.bucket_accumulate, kernels.bucket_reduce, kernels.add)
+    before = [k.launches for k in used]
+    got = ctx.blob_to_kzg_commitment_batch(blobs)
+    assert [k.launches - b for k, b in zip(used, before)] == [4, 4, 2]
+    assert got == plain.blob_to_kzg_commitment_batch(blobs)
 
 
 def test_mainnet_conversion_matches_cache(tmp_path):
