@@ -74,8 +74,9 @@ Phases, each printed with its seconds:
      batch of six through blob_to_kzg_commitment_batch (twice), timed
      with CUDA events; one blob also through the plain PyTorch path on
      the card;
-  7. the 46 compute_kzg_proof and 12 compute_blob_kzg_proof vectors, bit
-     for bit, on the card;
+  7. of the 46 compute_kzg_proof and 12 compute_blob_kzg_proof vectors,
+     every one whose output is null and the first two others of each, bit
+     for bit, on the card (phase 12 runs all of them through the C ABI);
   8. the verify path on the default context: the 93 verify_kzg_proof, 24
      verify_blob_kzg_proof and 23 verify_blob_kzg_proof_batch vectors (the
      pairing check and the blob evaluations on the card), each verdict or
@@ -134,25 +135,52 @@ Phases, each printed with its seconds:
      timed with CUDA events (a logical mesh is one card doing every
      shard's work: no multi-card time); the sharded NTT and inverse at
      n = 4096 on 2 and 4 devices equal host/fft.fr_fft; g1_add timed at
-     the fold's 12 lanes.
+     the fold's 12 lanes;
+ 12. the C ABI (lambdaworks_kzg_tpu_torch/capi): cc builds the shim into
+     _build/liblambdaworks_kzg_tpu_torch.so, loaded with ctypes into this
+     process; load_trusted_setup_file on a FILE * of
+     testdata/trusted_setup.txt makes a context on the card (one
+     g1_fixedbase_table launch); all 208 consensus vectors through the
+     seven C functions, each output byte-equal to the vector's and
+     C_KZG_BADARGS on a null one (a vector the fixed-size ABI cannot
+     express, a wrong length, must expect null), each call launching
+     g1_bucket_accumulate and g1_bucket_reduce once for a commitment or a
+     proof, the pairing kernels once for a verdict, a batch of n >= 2
+     VERIFY_BATCH_LAUNCHES, and nothing for a BADARGS call (a failed
+     batch: at most its decompression and subgroup check); the blst G1 and
+     G2 tables' first and last entries against the setup file's points;
+     load_trusted_setup on the file's points (the same tables, one table
+     launch) and on 4095 G1 points (BADARGS); blob_to_kzg_commitment,
+     compute_blob_kzg_proof and verify_blob_kzg_proof timed through the
+     ABI and on phase 4's context in turns, medians of 5, equal results;
+     then capi/kzg_client.c built against the port's header and library
+     and run as a C program (its interpreter embedded, PYTHONPATH the
+     repository root and this interpreter's site directories): it loads
+     the setup from a FILE *, commits to a seeded blob, proves and
+     verifies it, and prints what the same calls gave in this process.
 Launch counts are zeroed just before each path and read just after it:
 the conversion (phase 3b), the commit path (phases 4 to 6), the verify
 path (phase 8, after its seeded blobs are committed and proved), the
 host pairing tier's verify path (phase 8b), the prove path (phase 9,
-from its first proof to its last) and the mesh path (phase 11); phase
+from its first proof to its last), the mesh path (phase 11) and the C
+ABI's path (phase 12, less the launches of its Python context's timed
+calls); phase
 3b checks the conversion's exact launches, phase 4 that the table build
 made one table launch and no g1_dbl launch, phases 6 and 9 that each
 call launches each MSM kernel once, phase 8 the launches of each vector
-and batch, 8b none of the pairing kernels, phase 11 each call's. The
-line before the last is {"kernels": [...]}, with each kernel's launches
-on the six paths; the last is {"ok": true, "device": {...}}. Any
+and batch, 8b none of the pairing kernels, phases 11 and 12 each call's.
+The line before the last is {"kernels": [...]}, with each kernel's
+launches on the seven paths; the last is {"ok": true, "device": {...}}. Any
 failure ends the run with a non-zero exit and without those lines.
 """
 
+import ctypes
 import json
 import os
 import random
 import shutil
+import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -389,6 +417,7 @@ CONSENSUS = os.path.join(HERE, "testdata", "consensus")
 # the arguments of each entry point as a vector's input names them, and
 # how many vectors each has
 VECTOR_ARGS = {
+    "blob_to_kzg_commitment": ("blob",),
     "compute_kzg_proof": ("blob", "z"),
     "compute_blob_kzg_proof": ("blob", "commitment"),
     "verify_kzg_proof": ("commitment", "z", "y", "proof"),
@@ -396,8 +425,23 @@ VECTOR_ARGS = {
     "verify_blob_kzg_proof_batch": ("blobs", "commitments", "proofs"),
 }
 VERIFY_FNS = ("verify_kzg_proof", "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch")
-VECTOR_COUNTS = {"compute_kzg_proof": 46, "compute_blob_kzg_proof": 12, "verify_kzg_proof": 93,
-                 "verify_blob_kzg_proof": 24, "verify_blob_kzg_proof_batch": 23}
+VECTOR_COUNTS = {"blob_to_kzg_commitment": 10, "compute_kzg_proof": 46, "compute_blob_kzg_proof": 12,
+                 "verify_kzg_proof": 93, "verify_blob_kzg_proof": 24,
+                 "verify_blob_kzg_proof_batch": 23}
+PROOF_VECTOR_CAP = 2  # phase 7's valid proof vectors per function (phase 12 runs all)
+# phase 12, the C ABI: every vector of the seven C functions, in this order
+CAPI_FNS = ("blob_to_kzg_commitment", "compute_kzg_proof", "compute_blob_kzg_proof",
+            "verify_kzg_proof", "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch")
+CAPI_VECTOR_COUNT = 208
+# the C functions' fixed argument sizes, by the vectors' input names
+CAPI_SIZES = {"blob": 131072, "blobs": 131072, "z": 32, "y": 32, "commitment": 48,
+              "commitments": 48, "proof": 48, "proofs": 48}
+CAPI_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce",
+                "pairing_miller_loop", "pairing_final_exp", "g1_decompress", "g1_subgroup_mask")
+MSM_LAUNCHES = {"g1_bucket_accumulate": 1, "g1_bucket_reduce": 1}
+C_KZG_OK, C_KZG_BADARGS = 0, 1
+CAPI_REPS = 5  # timed calls per entry point, through the ABI and on a Python context
+CLIENT_SEED = 4849  # kzg_client's blob
 
 
 def log(msg: str) -> None:
@@ -564,9 +608,11 @@ def check_verify_batch_launches(what: str, before: dict, extra=None) -> None:
         raise AssertionError(f"{what}: launches {delta}, not {want}")
 
 
-def run_vectors(ctx, fn: str, extra=None, device_checks=None) -> int:
-    """Every consensus vector of one entry point through ctx; a KZGError
-    stands for the vector's null output. Raises unless all agree. A
+def run_vectors(ctx, fn: str, extra=None, device_checks=None, valid_cap=None) -> int:
+    """Every consensus vector of one entry point through ctx, or with
+    `valid_cap` every one whose output is null and the first `valid_cap`
+    others; a KZGError stands for the vector's null output. Raises unless
+    all agree. A
     verify_blob_kzg_proof_batch vector of n >= 2 blobs with a verdict
     must launch VERIFY_BATCH_LAUNCHES, and `extra` beside them; with
     `device_checks` (the count of device-tier pairing checks so far), every
@@ -575,9 +621,14 @@ def run_vectors(ctx, fn: str, extra=None, device_checks=None) -> int:
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
 
     names = sorted(os.listdir(os.path.join(CONSENSUS, fn, "small")))
-    t0, wrong, counted_batches = time.perf_counter(), [], 0
+    t0, wrong, counted_batches, ran, valid = time.perf_counter(), [], 0, 0, 0
     for name in names:
         case = load_case(os.path.join(CONSENSUS, fn, "small", name, "data.yaml"))
+        if case["output"] is not None:
+            valid += 1
+            if valid_cap is not None and valid > valid_cap:
+                continue
+        ran += 1
         before = launch_counts()
         checks_before = device_checks() if device_checks else 0
         try:
@@ -599,13 +650,15 @@ def run_vectors(ctx, fn: str, extra=None, device_checks=None) -> int:
         if got != case["output"] or type(got) is not type(case["output"]):
             wrong.append(name)
     dt = time.perf_counter() - t0
-    log(f"  {fn}: {len(names) - len(wrong)}/{len(names)} correct in {dt:.2f} s "
-        f"({dt / len(names) * 1e3:.1f} ms per vector)"
+    log(f"  {fn}: {ran - len(wrong)}/{ran} correct in {dt:.2f} s "
+        f"({dt / ran * 1e3:.1f} ms per vector)"
+        + (f" (every null-output vector and the first {valid_cap} of {valid} others, of "
+           f"{len(names)})" if ran < len(names) else "")
         + (f"; {counted_batches} batches of n >= 2 launched {VERIFY_BATCH_LAUNCHES} each"
            if counted_batches else ""))
     if wrong or len(names) != VECTOR_COUNTS[fn]:
         raise AssertionError(f"{fn}: wrong on {wrong} ({len(names)} vectors)")
-    return len(names)
+    return ran
 
 
 def timed_call(fn, *args):
@@ -1529,6 +1582,301 @@ def check_mesh(setup, dev, commit_set, prove_set, verify_batches) -> dict:
     return out
 
 
+# -- phase 12: the C ABI (lambdaworks_kzg_tpu_torch/capi) ---------------------
+
+
+class KZGSettings(ctypes.Structure):
+    """c_kzg_4844.h's KZGSettings."""
+    _fields_ = [("fs", ctypes.c_void_p), ("g1_values", ctypes.c_void_p),
+                ("g2_values", ctypes.c_void_p)]
+
+
+def capi_library():
+    """(the port's C library, built if stale and loaded, build info)."""
+    from lambdaworks_kzg_tpu_torch import capi
+
+    info = capi.build()
+    lib = ctypes.CDLL(info["library"])
+    for fn in ("load_trusted_setup", "load_trusted_setup_file") + CAPI_FNS:
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.free_trusted_setup.restype = None
+    return lib, info
+
+
+def capi_load_file(lib, path: str):
+    """load_trusted_setup_file on a FILE * of `path` -> (code, settings)."""
+    libc = ctypes.CDLL(None)
+    libc.fopen.restype = ctypes.c_void_p
+    fp = libc.fopen(path.encode(), b"r")
+    if not fp:
+        raise AssertionError(f"cannot open {path}")
+    settings = KZGSettings()
+    try:
+        ret = lib.load_trusted_setup_file(ctypes.byref(settings), ctypes.c_void_p(fp))
+    finally:
+        libc.fclose(ctypes.c_void_p(fp))
+    return ret, settings
+
+
+def capi_call(lib, settings, fn: str, args):
+    """One C call -> (code, output shaped as the vector's, None unless OK).
+    A batch's args are the three lists."""
+    s = ctypes.byref(settings)
+    if fn == "verify_blob_kzg_proof_batch":
+        blobs, cs, ps = args
+        args = (b"".join(blobs), b"".join(cs), b"".join(ps), ctypes.c_size_t(len(blobs)))
+    if fn.startswith("verify"):
+        ok = ctypes.c_bool(False)
+        ret = getattr(lib, fn)(ctypes.byref(ok), *args, s)
+        return ret, (ok.value if ret == C_KZG_OK else None)
+    if fn == "compute_kzg_proof":
+        proof, y = ctypes.create_string_buffer(48), ctypes.create_string_buffer(32)
+        ret = lib.compute_kzg_proof(proof, y, *args, s)
+        return ret, ([proof.raw, y.raw] if ret == C_KZG_OK else None)
+    out = ctypes.create_string_buffer(48)
+    ret = getattr(lib, fn)(out, *args, s)
+    return ret, (out.raw if ret == C_KZG_OK else None)
+
+
+def capi_args(fn: str, inp: dict):
+    """A vector's inputs as the C call's, or None where the fixed-size ABI
+    cannot express them (a wrong length, or batch lists of unequal
+    lengths)."""
+    names = VECTOR_ARGS[fn]
+    if fn == "verify_blob_kzg_proof_batch":
+        lists = [inp[a] for a in names]
+        if len({len(x) for x in lists}) != 1 or any(len(v) != CAPI_SIZES[a]
+                                                    for a, x in zip(names, lists) for v in x):
+            return None
+        return tuple(lists)
+    if any(len(inp[a]) != CAPI_SIZES[a] for a in names):
+        return None
+    return tuple(inp[a] for a in names)
+
+
+def capi_launches(fn: str, ret: int, n_blobs: int):
+    """The launches one C call must make: the MSM kernels once for a
+    commitment or a proof, the pairing kernels once for a verdict, a batch
+    of n >= 2 VERIFY_BATCH_LAUNCHES, nothing for a call that fails its
+    input checks; None for a failed batch (at most one g1_decompress and
+    one g1_subgroup_mask, which run before its blob checks)."""
+    if ret != C_KZG_OK:
+        return None if fn == "verify_blob_kzg_proof_batch" else {}
+    if not fn.startswith("verify"):
+        return MSM_LAUNCHES
+    if fn == "verify_blob_kzg_proof_batch" and n_blobs != 1:
+        return VERIFY_BATCH_LAUNCHES if n_blobs else {}
+    return PAIRING_LAUNCHES
+
+
+def run_capi_vectors(lib, settings) -> dict:
+    """All 208 consensus vectors through the seven C functions: each
+    output byte-equal to the vector's and C_KZG_BADARGS for a null one,
+    each call in its `capi_launches`; a vector the fixed-size ABI cannot
+    express must expect null. -> {fn: {vectors, inexpressible, s}}."""
+    from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
+
+    out, total = {}, 0
+    for fn in CAPI_FNS:
+        names = sorted(os.listdir(os.path.join(CONSENSUS, fn, "small")))
+        t0, wrong, skipped = time.perf_counter(), [], 0
+        for name in names:
+            case = load_case(os.path.join(CONSENSUS, fn, "small", name, "data.yaml"))
+            args = capi_args(fn, case["input"])
+            if args is None:
+                skipped += 1
+                if case["output"] is not None:
+                    wrong.append(name)
+                continue
+            before = launch_counts()
+            ret, got = capi_call(lib, settings, fn, args)
+            n_blobs = len(args[0]) if fn == "verify_blob_kzg_proof_batch" else 1
+            want = capi_launches(fn, ret, n_blobs)
+            if want is None:
+                delta = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+                if any(n > 1 or k not in ("g1_decompress", "g1_subgroup_mask") for k, n in delta.items()):
+                    raise AssertionError(f"{name}: a failed batch launched {delta}")
+            else:
+                expect_launches(name, before, want)
+            if case["output"] is None:
+                ok = ret == C_KZG_BADARGS
+            else:
+                ok = ret == C_KZG_OK and got == case["output"] and type(got) is type(case["output"])
+            if not ok:
+                wrong.append(name)
+        dt = time.perf_counter() - t0
+        total += len(names)
+        log(f"  {fn}: {len(names) - len(wrong)}/{len(names)} as the vectors have them through the "
+            f"C ABI in {dt:.2f} s ({skipped} not expressible at the ABI's fixed sizes, all expecting "
+            f"null)")
+        if wrong or len(names) != VECTOR_COUNTS[fn]:
+            raise AssertionError(f"C ABI {fn}: wrong on {wrong} ({len(names)} vectors)")
+        out[fn] = {"vectors": len(names), "inexpressible": skipped, "s": dt}
+    if total != CAPI_VECTOR_COUNT:
+        raise AssertionError(f"{total} vectors, not {CAPI_VECTOR_COUNT}")
+    return out
+
+
+def fp_from_blst(mem: bytes) -> int:
+    """blst_fp {u64 l[6]} memory, l[0] the most significant word -> int."""
+    return sum(w << (64 * (5 - i)) for i, w in enumerate(struct.unpack("<6Q", mem)))
+
+
+def check_blst_tables(settings, g1_bytes, g2_bytes) -> None:
+    """KZGSettings' first and last blst_p1 and blst_p2 entries hold the
+    setup file's points: canonical coordinates, z = 1."""
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+
+    n1, n2 = len(g1_bytes), len(g2_bytes)
+    g1_mem = ctypes.string_at(settings.g1_values, 144 * n1)
+    g2_mem = ctypes.string_at(settings.g2_values, 288 * n2)
+    for i in (0, n1 - 1):
+        x, y, z = (fp_from_blst(g1_mem[144 * i + 48 * k : 144 * i + 48 * k + 48]) for k in range(3))
+        if ((x, y), z) != (HC.to_affine(HC.decompress_g1(g1_bytes[i])), 1):
+            raise AssertionError(f"blst G1 table entry {i} is not the setup's point")
+    for i in (0, n2 - 1):
+        v = [fp_from_blst(g2_mem[288 * i + 48 * k : 288 * i + 48 * k + 48]) for k in range(6)]
+        if (((v[0], v[1]), (v[2], v[3])), v[4], v[5]) != (
+                HC.g2_to_affine(HC.decompress_g2(g2_bytes[i])), 1, 0):
+            raise AssertionError(f"blst G2 table entry {i} is not the setup's point")
+
+
+def check_capi(lib, settings, ctx, card: str) -> tuple:
+    """Phase 12 after its vectors: the tables; load_trusted_setup on the
+    file's points (one more table launch, the same tables) and on a wrong
+    count (BADARGS, no launch); blob_to_kzg_commitment,
+    compute_blob_kzg_proof and verify_blob_kzg_proof timed through the ABI
+    and on the Python context `ctx`, in turns, equal results; kzg_client's
+    blob committed, proved and verified in process. -> (results, launches
+    of the Python calls, to leave out of the path's)."""
+    import numpy as np
+
+    from lambdaworks_kzg_tpu_torch import capi
+    from lambdaworks_kzg_tpu_torch.models import srs
+
+    with open(srs.MAINNET_SETUP_PATH) as f:
+        g1_bytes, g2_bytes = srs._parse_setup_text(f.read())
+    check_blst_tables(settings, g1_bytes, g2_bytes)
+    n1, n2 = len(g1_bytes), len(g2_bytes)
+    g1, g2 = b"".join(g1_bytes), b"".join(g2_bytes)
+    parts = KZGSettings()
+    before = launch_counts()
+    if lib.load_trusted_setup(ctypes.byref(parts), g1, ctypes.c_size_t(n1), g2, ctypes.c_size_t(n2)):
+        raise AssertionError("load_trusted_setup on the mainnet points failed")
+    expect_launches("load_trusted_setup", before, {"g1_fixedbase_table": 1})
+    same = (ctypes.string_at(parts.g1_values, 144 * n1) == ctypes.string_at(settings.g1_values, 144 * n1)
+            and ctypes.string_at(parts.g2_values, 288 * n2) == ctypes.string_at(settings.g2_values, 288 * n2))
+    lib.free_trusted_setup(ctypes.byref(parts))
+    if not same or parts.fs or parts.g1_values or parts.g2_values:
+        raise AssertionError("load_trusted_setup's tables differ, or free_trusted_setup left them")
+    before = launch_counts()
+    if lib.load_trusted_setup(ctypes.byref(parts), g1, ctypes.c_size_t(n1 - 1), g2,
+                              ctypes.c_size_t(n2)) != C_KZG_BADARGS:
+        raise AssertionError("load_trusted_setup on 4095 G1 points is not BADARGS")
+    expect_launches("load_trusted_setup, wrong count", before, {})
+    log(f"  blst tables: first and last G1 and G2 entries are the setup file's points; "
+        f"load_trusted_setup on its {n1} + {n2} points: the same tables, one table launch; on "
+        f"{n1 - 1}: BADARGS")
+
+    blob = random_blobs(np.random.default_rng(4850), 1)[0]
+    _, c = capi_call(lib, settings, "blob_to_kzg_commitment", (blob,))
+    _, p = capi_call(lib, settings, "compute_blob_kzg_proof", (blob, c))
+    calls = {
+        "blob_to_kzg_commitment": ((blob,), lambda: ctx.blob_to_kzg_commitment(blob)),
+        "compute_blob_kzg_proof": ((blob, c), lambda: ctx.compute_blob_kzg_proof(blob, c)),
+        "verify_blob_kzg_proof": ((blob, c, p), lambda: ctx.verify_blob_kzg_proof(blob, c, p)),
+    }
+    excluded = dict.fromkeys(launch_counts(), 0)
+    timing = {}
+    for fn, (args, py) in calls.items():
+        abi_ms, py_ms = [], []
+        for _ in range(CAPI_REPS):
+            t0 = time.perf_counter()
+            ret, got = capi_call(lib, settings, fn, args)
+            abi_ms.append((time.perf_counter() - t0) * 1e3)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            want = py()
+            py_ms.append((time.perf_counter() - t0) * 1e3)
+            for k, n in launch_counts().items():
+                excluded[k] += n - before[k]
+            if ret != C_KZG_OK or got != want:
+                raise AssertionError(f"{fn}: the ABI gave ({ret}, {got!r}), the context {want!r}")
+        timing[fn] = {"abi_ms": abi_ms, "python_ms": py_ms, "abi_median_ms": statistics.median(abi_ms),
+                      "python_median_ms": statistics.median(py_ms)}
+        log(f"  {fn}: median of {CAPI_REPS} through the ABI {timing[fn]['abi_median_ms']:.3f} ms, on "
+            f"the Python context {timing[fn]['python_median_ms']:.3f} ms ({card}; host clock)")
+
+    client_blob = capi.client_blob(CLIENT_SEED)
+    _, cc = capi_call(lib, settings, "blob_to_kzg_commitment", (client_blob,))
+    _, cp = capi_call(lib, settings, "compute_blob_kzg_proof", (client_blob, cc))
+    ret, ok = capi_call(lib, settings, "verify_blob_kzg_proof", (client_blob, cc, cp))
+    if ret != C_KZG_OK or ok is not True:
+        raise AssertionError("the client's blob did not verify in process")
+    client_want = f"commitment {cc.hex()}\nproof {cp.hex()}\nverified 1\n"
+    return {"timing": timing, "client_expected": client_want}, excluded
+
+
+def run_capi_client(expected: str) -> dict:
+    """kzg_client.c built against the port's header and library, run as a
+    C program on the mainnet setup (its embedded interpreter on PYTHONPATH
+    = the repository root and this interpreter's site directories, the
+    card by default); its output must equal the in-process result."""
+    from lambdaworks_kzg_tpu_torch import capi
+    from lambdaworks_kzg_tpu_torch.models import srs
+
+    built = capi.build_client(4096)
+    env = capi.client_env()
+    env.pop("LWKZG_BACKEND", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([built["path"], srs.MAINNET_SETUP_PATH, str(CLIENT_SEED)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or proc.stdout != expected:
+        raise AssertionError(f"kzg_client exited {proc.returncode}: {proc.stdout!r} (expected "
+                             f"{expected!r}); stderr {proc.stderr[-2000:]}")
+    log(f"  kzg_client (cc {built['seconds']:.2f} s): exit 0 in {seconds:.2f} s, its commitment, "
+        f"proof and verdict equal to the in-process calls'")
+    return {"cc_s": built["seconds"], "run_s": seconds}
+
+
+def capi_phase(ctx, card: str):
+    """Phase 12: the port's C library built by cc; the mainnet setup loaded
+    through load_trusted_setup_file on the card (one table launch); the 208
+    vectors (`run_capi_vectors`); `check_capi`; the path's launches (the C
+    calls', less the Python context's), every one of CAPI_KERNELS
+    launched; then `run_capi_client`. -> (results, launches)."""
+    from lambdaworks_kzg_tpu_torch.models import srs
+    from lambdaworks_kzg_tpu_torch.ops import kernels
+
+    lib, info = capi_library()
+    results = {"build_s": info["seconds"]}
+    log(f"  cc built {os.path.relpath(info['library'], HERE)} in {info['seconds']:.2f} s")
+    kernels.reset_counts()  # the C ABI's path starts here
+    t0 = time.perf_counter()
+    ret, settings = capi_load_file(lib, srs.MAINNET_SETUP_PATH)
+    results["load_s"] = time.perf_counter() - t0
+    if ret != C_KZG_OK:
+        raise AssertionError(f"load_trusted_setup_file -> {ret}")
+    expect_launches("load_trusted_setup_file", dict.fromkeys(launch_counts(), 0),
+                    {"g1_fixedbase_table": 1})  # the context is on the card
+    log(f"  load_trusted_setup_file({os.path.relpath(srs.MAINNET_SETUP_PATH, HERE)}) in "
+        f"{results['load_s']:.3f} s, one g1_fixedbase_table launch")
+    try:
+        results["vectors"] = run_capi_vectors(lib, settings)
+        checked, excluded = check_capi(lib, settings, ctx, card)
+    finally:
+        lib.free_trusted_setup(ctypes.byref(settings))
+    launches = {k: n - excluded[k] for k, n in launch_counts().items()}  # the path ends here
+    results["timing"] = checked["timing"]
+    log(f"  C ABI path launches {launches}")
+    missing = [name for name in CAPI_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"not launched on the C ABI's path: {missing}")
+    results["client"] = run_capi_client(checked["client_expected"])
+    return results, launches
+
+
 def time_ms(fn, reps: int, warm: int = 2) -> float:
     """Device ms per call. The launches queue up behind a ~20 ms spin on
     the card, so a kernel shorter than its wrapper's host cost is timed
@@ -1724,8 +2072,9 @@ def run() -> None:
         commit_set = (blobs, batch)
 
     with Phase("7 proof vectors"):
+        # a subset: phase 12 runs all 58 through the C ABI on this setup
         for fn in ("compute_kzg_proof", "compute_blob_kzg_proof"):
-            run_vectors(ctx, fn)
+            run_vectors(ctx, fn, valid_cap=PROOF_VECTOR_CAP)
 
     with Phase("8 verify path"):
         rng = np.random.default_rng(4846)
@@ -2150,6 +2499,13 @@ def run() -> None:
                 entry["mesh_fold"] = fold
         log(f"  {card}; the meshes are logical: one card runs every shard, so no time here is a "
             "multi-card time")
+
+    with Phase("12 the C ABI"):
+        results["capi"], capi_launches = capi_phase(ctx, card)
+        for entry in entries:
+            n = capi_launches.get(entry["name"], 0)
+            entry["launches_by_path"]["capi"] = n
+            entry["launches"] += n
 
     log(json.dumps({"end_to_end": results, "card": card}))
     log(json.dumps({"kernels": entries}))

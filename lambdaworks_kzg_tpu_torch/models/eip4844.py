@@ -20,13 +20,16 @@ single checks decompress their points on the host.
 
 from typing import List, Optional, Sequence, Tuple
 
+import torch
+
 from ..constants import BYTES_PER_FIELD_ELEMENT
 from ..host import curve as C
+from ..ops import kernels
 from ..ops.backend import TorchBackend
 from ..utils import hashing as H
 from ..utils.config import KZGConfig
 from .kzg import KZG
-from .srs import TrustedSetup, load_mainnet_setup
+from .srs import TrustedSetup
 
 
 class KZGError(ValueError):
@@ -54,20 +57,24 @@ def _check_fr(data: bytes, what: str) -> int:
 
 
 class EIP4844Context:
-    """A setup bound to a device, or to a mesh of devices. device defaults
-    to "cuda" and raises when CUDA is absent; pass device="cpu" for the
-    plain versions. backend: a ready TorchBackend (for instance one given
-    a table). config: a KZGConfig; None reads the environment
-    (`KZGConfig.from_env`). mesh: a (data, points) `parallel.mesh.Mesh`
-    that every MSM is sharded over (`parallel/`); without a backend and a
-    mesh, `config.mesh_shape` (LWKZG_MESH_SHAPE=DxP) names one over the
-    devices of `device`'s type. A backend and a mesh together raise: give
-    the backend its mesh."""
+    """A setup bound to a device, or to a mesh of devices. config: a
+    KZGConfig; None reads the environment (`KZGConfig.from_env`). device
+    defaults to `config.device()`, the card unless the config's backend is
+    "host" (LWKZG_BACKEND=host), and "cuda" raises when CUDA is absent;
+    device="cpu" runs the plain versions. setup defaults to
+    `config.load_setup()`: LWKZG_TRUSTED_SETUP's file, else the mainnet
+    setup. backend: a ready TorchBackend (for instance one given a table).
+    mesh: a (data, points) `parallel.mesh.Mesh` that every MSM is sharded
+    over (`parallel/`); without a backend and a mesh, `config.mesh_shape`
+    (LWKZG_MESH_SHAPE=DxP) names one over the devices of `device`'s type.
+    A backend and a mesh together raise: give the backend its mesh."""
 
-    def __init__(self, setup: Optional[TrustedSetup] = None, device="cuda",
+    def __init__(self, setup: Optional[TrustedSetup] = None, device=None,
                  backend=None, config: Optional[KZGConfig] = None, mesh=None):
-        self.setup = setup if setup is not None else load_mainnet_setup()
         self.config = (config if config is not None else KZGConfig.from_env()).validate()
+        if device is None:
+            device = self.config.device()
+        self.setup = setup if setup is not None else self.config.load_setup(device)
         if backend is None:
             if mesh is None:
                 mesh = self.config.make_mesh(device)
@@ -77,6 +84,31 @@ class EIP4844Context:
         self.backend = backend
         self.kzg = KZG(self.setup, self.backend, self.config)
         self.n = self.setup.n
+
+    def warmup(self, batch_sizes: Sequence[int] = ()) -> None:
+        """Build what the first calls would otherwise wait for: the
+        kernels (nvcc at first use on a card, into `_build/`, the port's
+        only compile cache; the table was built with the context), then
+        each entry point once on a fixed blob (element i is i; the batch
+        verification on two copies, so that its batched path runs), and
+        once more per batch size through the batch APIs. This is the
+        port's counterpart of the JAX package's `warmup` and its AOT
+        exports (`ops/aot.py`)."""
+        if torch.device(self.backend.device).type == "cuda":
+            kernels.build()
+        blob = b"".join(i.to_bytes(BYTES_PER_FIELD_ELEMENT, "little") for i in range(self.n))
+        commitment = self.blob_to_kzg_commitment(blob)
+        z_bytes = (2).to_bytes(BYTES_PER_FIELD_ELEMENT, "little")
+        proof, y = self.compute_kzg_proof(blob, z_bytes)
+        self.verify_kzg_proof(commitment, z_bytes, y, proof)
+        blob_proof = self.compute_blob_kzg_proof(blob, commitment)
+        self.verify_blob_kzg_proof(blob, commitment, blob_proof)
+        self.verify_blob_kzg_proof_batch([blob] * 2, [commitment] * 2, [blob_proof] * 2)
+        for b in batch_sizes:
+            blobs = [blob] * b
+            commitments = self.blob_to_kzg_commitment_batch(blobs)
+            proofs = self.compute_blob_kzg_proof_batch(blobs, commitments)
+            self.verify_blob_kzg_proof_batch(blobs, commitments, proofs)
 
     def _scalars(self, blobs):
         """Blobs -> plain limbs on the device. Only the input checks map

@@ -20,6 +20,7 @@ import hashlib
 import os
 import secrets
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -195,10 +196,11 @@ def _setup_from_lists(lagrange, monomial, g2, digest: str) -> TrustedSetup:
 
 
 def load_trusted_setup_from_bytes(g1_bytes, g2_bytes, use_cache: bool = True,
-                                  strict_counts: bool = True, cache_dir: str = CACHE_DIR,
+                                  strict_counts: bool = True, cache_dir: Optional[str] = None,
                                   device="cuda") -> TrustedSetup:
     """A setup from its compressed points: read from the cache when one
-    holds this digest, else converted on `device` and cached. The device
+    holds this digest, else converted on `device` and cached in
+    `cache_dir` (default: `CACHE_DIR`, read when called). The device
     is resolved only for a conversion, which raises where CUDA is asked
     for and absent; an existing cache file is never overwritten.
     strict_counts: exactly 4096 G1 and 65 G2 points, as the mainnet file."""
@@ -209,7 +211,7 @@ def load_trusted_setup_from_bytes(g1_bytes, g2_bytes, use_cache: bool = True,
     if n1 < 2 or n1 & (n1 - 1):
         raise SetupLoadError("g1 count must be a power of two")
     digest = setup_digest(g1_bytes, g2_bytes)
-    cache = _cache_path(digest, cache_dir)
+    cache = _cache_path(digest, cache_dir or CACHE_DIR)
     if use_cache and os.path.exists(cache):
         setup = setup_from_cache(cache, digest)
         if setup.n != n1:
@@ -234,7 +236,7 @@ def _write_cache(path: str, lagrange, monomial, g2) -> None:
         pass
 
 
-def load_trusted_setup_file(path: str, cache_dir: str = CACHE_DIR, device="cuda",
+def load_trusted_setup_file(path: str, cache_dir: Optional[str] = None, device="cuda",
                             use_cache: bool = True) -> TrustedSetup:
     """A setup file (any power-of-two G1 count), from its cache or
     converted on `device`."""
@@ -244,8 +246,17 @@ def load_trusted_setup_file(path: str, cache_dir: str = CACHE_DIR, device="cuda"
                                          strict_counts=False, cache_dir=cache_dir, device=device)
 
 
-def load_mainnet_setup() -> TrustedSetup:
-    return load_trusted_setup_file(MAINNET_SETUP_PATH)
+def load_mainnet_setup(use_cache: bool = True, device="cuda") -> TrustedSetup:
+    """The mainnet setup from `testdata/trusted_setup.txt` (its conversion
+    read from the cache, or made on `device`); where that file is absent,
+    the repository's `cache/srs_mainnet.npz`, as the JAX package falls
+    back to it."""
+    if os.path.exists(MAINNET_SETUP_PATH):
+        return load_trusted_setup_file(MAINNET_SETUP_PATH, device=device, use_cache=use_cache)
+    cache = _cache_path(MAINNET_DIGEST, CACHE_DIR)
+    if os.path.exists(cache):
+        return setup_from_cache(cache, MAINNET_DIGEST)
+    raise SetupLoadError("no mainnet trusted setup file found")
 
 
 def create_dev_setup(n: int = 64, secret=None) -> TrustedSetup:

@@ -8,7 +8,9 @@
   invalid ones: a dense blob takes ~30 s of plain PyTorch here, and all
   ten run on the card in chip_smoke.py);
 - the package imports with `jax`, `yaml` and `lambdaworks_kzg_tpu`
-  blocked, and its entry points refuse a missing CUDA device."""
+  blocked (the C ABI's adapter and build module among its modules), and
+  its entry points refuse a missing CUDA device unless LWKZG_BACKEND=host
+  puts them on the CPU."""
 
 import glob
 import os
@@ -192,12 +194,20 @@ def test_yaml_reader_matches_yaml():
         assert out == (None if data["output"] is None else bytes.fromhex(data["output"][2:]))
 
 
-def test_default_device_refuses_missing_cuda():
+def test_default_device_refuses_missing_cuda(monkeypatch):
+    """A context given no device runs on the card: without CUDA it raises,
+    unless LWKZG_BACKEND=host puts it on the CPU; an explicit device beats
+    the environment."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     setup = convert.setup_from_numpy(np.zeros((2, 24, 4), np.uint32), np.zeros(4, bool))
+    monkeypatch.delenv("LWKZG_BACKEND", raising=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         EIP4844Context(setup)
+    monkeypatch.setenv("LWKZG_BACKEND", "host")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EIP4844Context(setup, device="cuda")
+    assert EIP4844Context(setup).backend.device == torch.device("cpu")
 
 
 def test_decompress_batch_defaults_to_cuda():
@@ -246,7 +256,7 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 for name in ("ops.ntt", "ops.fp2_ops", "ops.tower_ops", "ops.g2_ops", "ops.pairing_ops",
              "utils.blob", "utils.config", "parallel", "parallel.mesh", "parallel.msm",
-             "parallel.ntt"):
+             "parallel.ntt", "capi_adapter", "capi"):
     assert pkg.__name__ + "." + name in sys.modules, name
 print("ok")
 """

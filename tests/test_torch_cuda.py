@@ -61,7 +61,14 @@ a true one whose pair has a member at infinity), B = 2 (a true check)
 and B = 5 (a false check with members at infinity), on Jacobian points
 with Z != 1, and FE^3 equals the host pairing's value cubed; a true and
 a false pairings_verify_host_points on the card launch each pairing
-kernel once."""
+kernel once.
+
+The C ABI (capi/): the port's library, loaded with ctypes, makes a
+context on the card from a FILE * of the mainnet setup (one table
+launch) and gives one commitment vector, one compute_kzg_proof vector
+and one verify_blob_kzg_proof_batch vector of several blobs byte for
+byte. EIP4844Context() with no arguments lands on the card, and its
+warmup() launches the kernels of each entry point."""
 
 import os
 import random
@@ -606,3 +613,80 @@ def test_pairings_verify_on_card_launches_each_kernel_once():
         assert got is verdict
         assert (kernels.miller_loop.launches, kernels.final_exp.launches) == (before[0] + 1,
                                                                               before[1] + 1)
+
+
+def _first_vector(fn: str, accept):
+    from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "testdata",
+                        "consensus", fn, "small")
+    for name in sorted(os.listdir(root)):
+        case = load_case(os.path.join(root, name, "data.yaml"))
+        if accept(case):
+            return case
+    raise AssertionError(f"no {fn} vector fits")
+
+
+def test_c_abi_on_card(monkeypatch):
+    """The port's C library (capi/) on the card: the mainnet setup from a
+    FILE *, then one commitment vector, one compute_kzg_proof vector and
+    one verify_blob_kzg_proof_batch vector of several blobs, byte-equal,
+    each call launching the kernels on the card."""
+    import ctypes
+
+    from lambdaworks_kzg_tpu_torch import capi
+
+    monkeypatch.delenv("LWKZG_BACKEND", raising=False)  # the default: the card
+    lib = ctypes.CDLL(capi.build()["library"])
+
+    class Settings(ctypes.Structure):
+        _fields_ = [("fs", ctypes.c_void_p), ("g1_values", ctypes.c_void_p),
+                    ("g2_values", ctypes.c_void_p)]
+
+    libc = ctypes.CDLL(None)
+    libc.fopen.restype = ctypes.c_void_p
+    fp = libc.fopen(srs.MAINNET_SETUP_PATH.encode(), b"r")
+    s = Settings()
+    before = kernels.fixedbase_table.launches
+    assert lib.load_trusted_setup_file(ctypes.byref(s), ctypes.c_void_p(fp)) == 0
+    libc.fclose(ctypes.c_void_p(fp))
+    assert kernels.fixedbase_table.launches == before + 1
+    try:
+        commit = _first_vector("blob_to_kzg_commitment", lambda c: c["output"] is not None)
+        out = ctypes.create_string_buffer(48)
+        before = kernels.bucket_accumulate.launches
+        assert lib.blob_to_kzg_commitment(out, commit["input"]["blob"], ctypes.byref(s)) == 0
+        assert out.raw == commit["output"] and kernels.bucket_accumulate.launches == before + 1
+
+        prove = _first_vector("compute_kzg_proof", lambda c: c["output"] is not None)
+        proof, y = ctypes.create_string_buffer(48), ctypes.create_string_buffer(32)
+        assert lib.compute_kzg_proof(proof, y, prove["input"]["blob"], prove["input"]["z"],
+                                     ctypes.byref(s)) == 0
+        assert [proof.raw, y.raw] == prove["output"]
+
+        batch = _first_vector("verify_blob_kzg_proof_batch",
+                              lambda c: c["output"] is True and len(c["input"]["blobs"]) >= 2)
+        inp, ok = batch["input"], ctypes.c_bool(False)
+        before = kernels.miller_loop.launches
+        assert lib.verify_blob_kzg_proof_batch(
+            ctypes.byref(ok), b"".join(inp["blobs"]), b"".join(inp["commitments"]),
+            b"".join(inp["proofs"]), ctypes.c_size_t(len(inp["blobs"])), ctypes.byref(s)) == 0
+        assert ok.value is True and kernels.miller_loop.launches == before + 1
+    finally:
+        lib.free_trusted_setup(ctypes.byref(s))
+
+
+def test_warmup_on_card(monkeypatch):
+    """EIP4844Context() with no arguments is the mainnet setup on the card;
+    warmup() builds the kernels and runs the entry points there: the MSM
+    kernels for its commitments and proofs, the pairing kernels for its
+    verifications, the batched decompression for its batch of two."""
+    monkeypatch.delenv("LWKZG_BACKEND", raising=False)
+    monkeypatch.delenv("LWKZG_TRUSTED_SETUP", raising=False)
+    ctx = EIP4844Context()
+    assert ctx.backend.device.type == "cuda" and ctx.n == 4096
+    watched = (kernels.bucket_accumulate, kernels.miller_loop, kernels.decompress)
+    before = [k.launches for k in watched]
+    ctx.warmup()
+    # commitment, two proofs, the batch's three generic MSMs; three checks; one batch
+    assert [k.launches - b for k, b in zip(watched, before)] == [6, 3, 1]
