@@ -9,7 +9,8 @@ Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. nvcc builds the twelve kernels and the two field checks from
      lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
-     linked into one library); ptxas' report, and per pairing kernel its
+     linked into one library), and beside it g++ the native tier
+     (csrc/native/bls12_381.cpp, native.py); ptxas' report, and per pairing kernel its
      registers and spills with the levels, linear waves, products and
      inversions of one run at B = 2 (counted from its level program);
   3. each kernel against its plain PyTorch version on the card, limb for
@@ -79,7 +80,9 @@ Phases, each printed with its seconds:
      for bit, on the card (phase 12 runs all of them through the C ABI);
   8. the verify path on the default context: the 93 verify_kzg_proof, 24
      verify_blob_kzg_proof and 23 verify_blob_kzg_proof_batch vectors (the
-     pairing check and the blob evaluations on the card), each verdict or
+     pairing check and a batch's blob evaluations on the card; the single
+     checks' decompressions, [y]G1, [z]G2 and blob evaluation on the
+     native tier), each verdict or
      KZGError as the vector has it, timed; every vector launches one
      pairing_miller_loop and one pairing_final_exp per pairing check it
      makes, and no host pairing runs; each batch of n >= 2 that passes
@@ -95,7 +98,9 @@ Phases, each printed with its seconds:
      EIP4844Context(..., config=KZGConfig(device_pairing=False)): the same
      verdicts, timed, with exactly phase 8's vector launches less one
      launch of each pairing kernel per check, and one host pairing per
-     check;
+     check, on the native tier; then 10 of them (per function a null
+     one, and true and false ones) with LWKZG_NATIVE=0: the same
+     verdicts, one Python-int pairing per check;
   9. the prove path: three seeded blobs through compute_blob_kzg_proof
      and a batch of six through compute_blob_kzg_proof_batch (twice),
      timed with CUDA events, each call launching each MSM kernel once and
@@ -116,7 +121,8 @@ Phases, each printed with its seconds:
      and 12 points, the two field checks on 4096 elements, and both
      pairing kernels at B = 2 (with phase 2's level counts and ptxas
      figures); plain times are phase 3's at the same shapes where it ran
-     them;
+     them; then utils/profiling.py's roofline table (g1_madd, g1_add,
+     g1_dbl chained in one CUDA graph at 8192 lanes, the plain Fp product);
  11. the multi-device tier (lambdaworks_kzg_tpu_torch/parallel) on the
      converted setup, on logical meshes over the card named four times,
      (1, 1), (2, 2) and (1, 4), and on a mesh of every card when there is
@@ -157,23 +163,42 @@ Phases, each printed with its seconds:
      and run as a C program (its interpreter embedded, PYTHONPATH the
      repository root and this interpreter's site directories): it loads
      the setup from a FILE *, commits to a seeded blob, proves and
-     verifies it, and prints what the same calls gave in this process.
+     verifies it, and prints what the same calls gave in this process;
+ 13. the native tier on the card's host: its g++ seconds (phase 2);
+     verify_kzg_proof on the default context with the tier on and with
+     LWKZG_NATIVE=0, the mainnet conversion's G2 stage both ways, and
+     the three sizes a CPU backend sends to the tier, natively and on the
+     card: 12 decompressions (g1_decompress + g1_subgroup_mask), the three
+     generic MSMs of a batch of 6 (6, 6 and 7 points), 6 blob evaluations
+     (the card's Fr path); each in turns, medians of 5, equal results;
+ 14. parallel/distributed.py: `python3 chip_smoke.py --rank ...` processes
+     on localhost, world size 1 (nccl), then 2 and 4 ranks on gloo
+     sharing the one card; each rank initializes the group (which must
+     choose that backend), loads the mainnet setup, commits to phase 6's
+     blob 0 with the points axis across the ranks, and to phase 6's batch
+     of 6 and verifies phase 8's batch of 6 (true, and false with proofs
+     0 and 1 swapped) with the data axis across them, each equal to those
+     phases' results in every rank, and prints its times and launches; a
+     failed rank fails the phase.
 Launch counts are zeroed just before each path and read just after it:
 the conversion (phase 3b), the commit path (phases 4 to 6), the verify
 path (phase 8, after its seeded blobs are committed and proved), the
 host pairing tier's verify path (phase 8b), the prove path (phase 9,
-from its first proof to its last), the mesh path (phase 11) and the C
+from its first proof to its last), the mesh path (phase 11), the C
 ABI's path (phase 12, less the launches of its Python context's timed
-calls); phase
+calls) and the distributed path (phase 14, in each rank from its first
+context to its last call, summed over the ranks and worlds); phase
 3b checks the conversion's exact launches, phase 4 that the table build
 made one table launch and no g1_dbl launch, phases 6 and 9 that each
 call launches each MSM kernel once, phase 8 the launches of each vector
-and batch, 8b none of the pairing kernels, phases 11 and 12 each call's.
+and batch, 8b none of the pairing kernels, phases 11 and 12 each call's,
+phase 14 that the path launched each of DIST_KERNELS.
 The line before the last is {"kernels": [...]}, with each kernel's
-launches on the seven paths; the last is {"ok": true, "device": {...}}. Any
+launches on the eight paths; the last is {"ok": true, "device": {...}}. Any
 failure ends the run with a non-zero exit and without those lines.
 """
 
+import contextlib
 import ctypes
 import json
 import os
@@ -186,28 +211,20 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "lambdaworks_kzg_tpu_torch"
 FIXEDBASE = os.path.join(HERE, "cache", "fixedbase_62bcf72bba2b37b8_c8.npz")
 VECTORS = os.path.join(HERE, "testdata", "consensus", "blob_to_kzg_commitment", "small")
 
-# Peak rates of one H100 SXM at its 700 W limit: HBM3 at 3.35 TB/s, and
-# 32-bit integer multiply-adds at half the fp32 FMA rate (64 vs 128 lanes
-# per SM per clock): 67 TFLOP/s fp32 = 33.5 T FMA/s -> 16.75 T IMAD/s.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 67e12 / 2 / 2
-# One Montgomery product (12 x 32-bit limbs): 144 wide 32x32->64 products
-# (two IMADs each) for a b, 144 for the reduction and 12 low products for
-# m; a squaring shares its 66 cross products, so a a takes 78 wide ones.
-IMAD_PER_FP_MUL = 2 * (144 + 144) + 12
-IMAD_PER_FP_SQR = 2 * (78 + 144) + 12
+sys.path.insert(0, HERE)
+try:  # the H100's peak rates and the IMADs of an Fp product and a point op
+    from lambdaworks_kzg_tpu_torch.utils.profiling import (FP_OPS, HBM_BYTES_PER_S, IMAD_PER_FP_MUL,
+                                                           IMAD_PER_FP_SQR, IMAD_PER_S, card_line)
+except ImportError as e:
+    sys.exit(f"chip_smoke: {PKG}/ must sit beside this script ({e})")
 FP_BYTES = 48
-# (products, squarings) of one point op on finite, non-doubling operands.
-# A doubling is counted as dbl-2009-l with Z3 = 2 Y Z (2 products, 5
-# squarings), the fewest IMADs for it; the kernels compute the same Z3 as
-# (Y + Z)^2 - YY - ZZ (1 product, 7 squarings), which costs 324 more.
-FP_OPS = {"madd": (7, 4), "add": (11, 5), "dbl": (2, 5)}
 
 
 def op_imads(op: str) -> int:
@@ -425,6 +442,9 @@ VECTOR_ARGS = {
     "verify_blob_kzg_proof_batch": ("blobs", "commitments", "proofs"),
 }
 VERIFY_FNS = ("verify_kzg_proof", "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch")
+# phase 8b's vectors run again with the native tier off: 10 of the 140
+NATIVE_OFF_VECTORS = {"verify_kzg_proof": 4, "verify_blob_kzg_proof": 3,
+                      "verify_blob_kzg_proof_batch": 3}
 VECTOR_COUNTS = {"blob_to_kzg_commitment": 10, "compute_kzg_proof": 46, "compute_blob_kzg_proof": 12,
                  "verify_kzg_proof": 93, "verify_blob_kzg_proof": 24,
                  "verify_blob_kzg_proof_batch": 23}
@@ -441,6 +461,13 @@ CAPI_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce"
 MSM_LAUNCHES = {"g1_bucket_accumulate": 1, "g1_bucket_reduce": 1}
 C_KZG_OK, C_KZG_BADARGS = 0, 1
 CAPI_REPS = 5  # timed calls per entry point, through the ABI and on a Python context
+NATIVE_REPS = 5  # phase 13's calls per way, in turns
+# phase 14: the worlds and the backend each must choose (NCCL refuses two
+# ranks on one card), the kernels every world's ranks launch in all
+DIST_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+DIST_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce", "g1_add",
+                "g1_decompress", "g1_subgroup_mask", "pairing_miller_loop", "pairing_final_exp")
+DIST_TIMEOUT_S = 240
 CLIENT_SEED = 4849  # kzg_client's blob
 
 
@@ -461,14 +488,6 @@ class Phase:
         dt = time.perf_counter() - self.t0
         log(f"phase {self.name}: {'ok' if exc is None else 'FAILED'} in {dt:.2f} s")
         return False
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def make_lanes(points, M: int, seed: int, exceptional: bool = True):
@@ -659,6 +678,48 @@ def run_vectors(ctx, fn: str, extra=None, device_checks=None, valid_cap=None) ->
     if wrong or len(names) != VECTOR_COUNTS[fn]:
         raise AssertionError(f"{fn}: wrong on {wrong} ({len(names)} vectors)")
     return ran
+
+
+@contextlib.contextmanager
+def native_off():
+    """LWKZG_NATIVE=0 for the block: the native tier off, as a user turns
+    it off."""
+    old = os.environ.get("LWKZG_NATIVE")
+    os.environ["LWKZG_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["LWKZG_NATIVE"]
+        else:
+            os.environ["LWKZG_NATIVE"] = old
+
+
+def run_vector_subset(ctx, counts: dict) -> int:
+    """counts[fn] vectors of each verify function through ctx, each
+    verdict or KZGError as the vector has it: by name, the first null
+    one, and of the others the first half true and the rest false ->
+    the pairing checks they make (one per verdict but the empty batch's)."""
+    from lambdaworks_kzg_tpu_torch import KZGError
+    from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
+
+    checks = 0
+    for fn, count in counts.items():
+        cases = [(name, load_case(os.path.join(CONSENSUS, fn, "small", name, "data.yaml")))
+                 for name in sorted(os.listdir(os.path.join(CONSENSUS, fn, "small")))]
+        by_output = {out: [c for c in cases if c[1]["output"] is out] for out in (None, True, False)}
+        k = count - 1
+        picked = by_output[None][:1] + by_output[True][:(k + 1) // 2] + by_output[False][:k // 2]
+        for name, case in picked:
+            args = [case["input"][a] for a in VECTOR_ARGS[fn]]
+            try:
+                got = getattr(ctx, fn)(*args)
+            except KZGError:
+                got = None
+            if got is not case["output"]:
+                raise AssertionError(f"{name}: {got}, not {case['output']}")
+            checks += got is not None and not (fn == "verify_blob_kzg_proof_batch" and not args[0])
+    return checks
 
 
 def timed_call(fn, *args):
@@ -1877,6 +1938,253 @@ def capi_phase(ctx, card: str):
     return results, launches
 
 
+def host_ms(fn):
+    """fn() -> (result, ms on the host clock, the card synchronized)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def in_turns(ways: dict, reps: int) -> tuple:
+    """Each of ways' calls reps times, in turns -> ({way: the first
+    result}, {way: {"median_ms", "ms"}}); raises unless every call of
+    every way gives the same result."""
+    results, times = {}, {way: [] for way in ways}
+    for _ in range(reps):
+        for way, fn in ways.items():
+            out, ms = fn()
+            times[way].append(ms)
+            if results.setdefault(way, out) != out:
+                raise AssertionError(f"{way}: a repeated call gave another result")
+    first = next(iter(results.values()))
+    if any(out != first for out in results.values()):
+        raise AssertionError(f"the ways disagree: {list(ways)}")
+    return results, {way: {"median_ms": statistics.median(ms), "ms": ms} for way, ms in times.items()}
+
+
+def native_phase(ctx, blobs, commitments, proofs, card: str) -> dict:
+    """Phase 13: the native tier on the card's host. verify_kzg_proof on
+    the default context with the tier on and with LWKZG_NATIVE=0, the G2
+    stage of a mainnet conversion both ways, and the three sizes a CPU
+    backend sends to the tier (12 decompressions, the three generic MSMs
+    of a batch of 6, 6 blob evaluations) natively and on the card, each
+    in turns, medians of NATIVE_REPS, equal results."""
+    from lambdaworks_kzg_tpu_torch import native
+    from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+    from lambdaworks_kzg_tpu_torch.models import srs
+    from lambdaworks_kzg_tpu_torch.utils import hashing as H
+    from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
+
+    out = {}
+    fn = "verify_kzg_proof"
+    for name in sorted(os.listdir(os.path.join(CONSENSUS, fn, "small"))):  # a true check of
+        case = load_case(os.path.join(CONSENSUS, fn, "small", name, "data.yaml"))  # finite points
+        args = [case["input"][a] for a in VECTOR_ARGS[fn]]
+        if case["output"] is True and args[0][0] != 0xC0 and args[3][0] != 0xC0:
+            break
+
+    def verify_off():
+        with native_off():
+            return host_ms(lambda: ctx.verify_kzg_proof(*args))
+
+    verdicts, out["verify_kzg_proof"] = in_turns(
+        {"native": lambda: host_ms(lambda: ctx.verify_kzg_proof(*args)), "off": verify_off}, NATIVE_REPS)
+    if verdicts["native"] is not True:
+        raise AssertionError(f"{name}: verify_kzg_proof gave {verdicts['native']}")
+    log(f"  verify_kzg_proof ({name}) on the default context: "
+        f"{out['verify_kzg_proof']['native']['median_ms']:.2f} ms with the native tier, "
+        f"{out['verify_kzg_proof']['off']['median_ms']:.2f} ms with LWKZG_NATIVE=0 (medians of "
+        f"{NATIVE_REPS}; {card})")
+
+    with open(srs.MAINNET_SETUP_PATH, encoding="utf-8") as f:
+        _, g2_bytes = srs._parse_setup_text(f.read())
+
+    def g2_off():
+        with native_off():
+            return host_ms(lambda: srs._decompress_g2_list(g2_bytes))
+
+    _, out["g2_stage"] = in_turns(
+        {"native": lambda: host_ms(lambda: srs._decompress_g2_list(g2_bytes)), "off": g2_off},
+        NATIVE_REPS)
+    log(f"  the conversion's G2 stage ({len(g2_bytes)} points): "
+        f"{out['g2_stage']['native']['median_ms']:.2f} ms native, "
+        f"{out['g2_stage']['off']['median_ms']:.2f} ms in Python ints (PERF.md had 185-297 ms)")
+
+    compressed = list(commitments) + list(proofs)
+    _, out["decompress_12"] = in_turns({
+        "native": lambda: host_ms(lambda: [native.g1_decompress(b) for b in compressed]),
+        "card": lambda: host_ms(lambda: [HC.to_affine(pt)
+                                         for pt in ctx.backend.decompress_g1_batch(compressed)]),
+    }, NATIVE_REPS)
+    n = ctx.n
+    points = ctx.backend.decompress_g1_batch(compressed)
+    zs = [H.compute_challenge(b, c, n) for b, c in zip(blobs, commitments)]
+    ys = ctx.backend.evaluate_blobs(blobs, zs)
+    r = H.compute_r_powers(list(commitments), zs, ys, list(proofs), n)
+    proof_aff = [HC.to_affine(pt) for pt in points[6:]]
+    commit_aff = [HC.to_affine(pt) for pt in points[:6]] + [HC.to_affine(HC.G1_GENERATOR)]
+    msms = [(r, proof_aff), ([a * z % R for a, z in zip(r, zs)], proof_aff),
+            (r + [(-sum(a * y for a, y in zip(r, ys))) % R], commit_aff)]
+    _, out["msm_6_6_7"] = in_turns({
+        "native": lambda: host_ms(lambda: [native.g1_msm_affine([k % R for k in sc], pts)
+                                           for sc, pts in msms]),
+        "card": lambda: host_ms(lambda: [HC.to_affine(ctx.backend.msm(sc, pts)) for sc, pts in msms]),
+    }, NATIVE_REPS)
+    roots = ctx.backend.domain.roots_brp_le
+    _, out["evaluate_6"] = in_turns({
+        "native": lambda: host_ms(lambda: [native.blob_eval(b, roots, n, z) for b, z in zip(blobs, zs)]),
+        "card": lambda: host_ms(lambda: ctx.backend.evaluate_blobs(blobs, zs)),
+    }, NATIVE_REPS)
+    for key, what in (("decompress_12", "12 decompressions (+ subgroup checks)"),
+                      ("msm_6_6_7", "the three generic MSMs of a batch of 6 (6, 6, 7 points)"),
+                      ("evaluate_6", "6 blob evaluations")):
+        log(f"  {what}: native {out[key]['native']['median_ms']:.3f} ms, card "
+            f"{out[key]['card']['median_ms']:.3f} ms (medians of {NATIVE_REPS}, equal results)")
+    return out
+
+
+def distributed_job(backend: str, commit_set, verify_set) -> dict:
+    """What every rank of phase 14 is given: the blobs and what phases 6
+    and 8 gave for them."""
+    blobs, commitments = commit_set
+    vblobs, vcs, vps = verify_set
+    return {"backend": backend, "blobs": [b.hex() for b in blobs],
+            "commitments": [c.hex() for c in commitments],
+            "verify_blobs": [b.hex() for b in vblobs], "verify_commitments": [c.hex() for c in vcs],
+            "verify_proofs": [p.hex() for p in vps]}
+
+
+def rank_worker(coord: str, world: int, rank: int, job_path: str) -> int:
+    """One rank of phase 14 (`chip_smoke.py --rank ...`): initialize the
+    process group, then on the mainnet setup a commitment with the points
+    axis across the ranks, a batch of 6 commitments and a batch
+    verification of 6 (true, and false with proofs 0 and 1 swapped) with
+    the data axis across them, each equal to the job's; prints one
+    RANK_RESULT line with the times and this rank's launches."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch import EIP4844Context, load_mainnet_setup
+    from lambdaworks_kzg_tpu_torch.ops import kernels
+    from lambdaworks_kzg_tpu_torch.parallel import distributed
+
+    with open(job_path) as f:
+        job = json.load(f)
+    blobs = [bytes.fromhex(b) for b in job["blobs"]]
+    want = [bytes.fromhex(c) for c in job["commitments"]]
+    vblobs = [bytes.fromhex(b) for b in job["verify_blobs"]]
+    vcs = [bytes.fromhex(c) for c in job["verify_commitments"]]
+    vps = [bytes.fromhex(p) for p in job["verify_proofs"]]
+    t0 = time.perf_counter()
+    if distributed.initialize(coord, world, rank) is not True:
+        raise AssertionError("initialize() did not join the group")
+    backend = torch.distributed.get_backend()
+    if backend != job["backend"]:
+        raise AssertionError(f"the group chose {backend}, not {job['backend']}")
+    times = {"initialize_s": time.perf_counter() - t0}
+    setup = load_mainnet_setup()
+    kernels.reset_counts()  # this rank's distributed path starts here
+    points_mesh = distributed.global_mesh(data=1, points=world)
+    data_mesh = distributed.global_mesh()
+    (ctx_points, times["context_points_ms"]) = host_ms(lambda: EIP4844Context(setup, mesh=points_mesh))
+    (ctx_data, times["context_data_ms"]) = host_ms(lambda: EIP4844Context(setup, mesh=data_mesh))
+    single, times["commit_points_ms"] = host_ms(lambda: ctx_points.blob_to_kzg_commitment(blobs[0]))
+    batch, times["commit_batch6_ms"] = host_ms(lambda: ctx_data.blob_to_kzg_commitment_batch(blobs))
+    ok, times["verify_batch6_true_ms"] = host_ms(
+        lambda: ctx_data.verify_blob_kzg_proof_batch(vblobs, vcs, vps))
+    bad, times["verify_batch6_false_ms"] = host_ms(
+        lambda: ctx_data.verify_blob_kzg_proof_batch(vblobs, vcs, [vps[1], vps[0]] + vps[2:]))
+    launches = launch_counts()  # the path ends here
+    if single != want[0] or batch != want or ok is not True or bad is not False:
+        raise AssertionError(f"rank {rank} of {world}: commitment {single == want[0]}, batch "
+                             f"{batch == want}, verdicts {ok} / {bad}")
+    print("RANK_RESULT " + json.dumps({
+        "rank": rank, "world": world, "backend": backend, "meshes": [points_mesh.shape, data_mesh.shape],
+        "commitment": single.hex(), "batch": [c.hex() for c in batch], "verdicts": [ok, bad],
+        "times": times, "launches": launches}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_world(world: int, job: dict, tmp: str) -> list:
+    """World ranks of `rank_worker` at once on a free localhost port ->
+    their RANK_RESULT objects; any rank that fails (or a deadline of
+    DIST_TIMEOUT_S) kills the others and fails the phase."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    job_path = os.path.join(tmp, f"job_{world}.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    logs = [open(os.path.join(tmp, f"rank_{world}_{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", f"localhost:{port}",
+                               str(world), str(r), job_path], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    results = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = [line for line in text.splitlines() if line.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"rank {r} of {world} exited {p.returncode}:\n" + text[-6000:])
+        results.append(json.loads(lines[0][len("RANK_RESULT "):]))
+    return results
+
+
+def distributed_phase(commit_set, verify_set, card: str) -> tuple:
+    """Phase 14: world size 1 on nccl, then 2 and 4 ranks on gloo sharing
+    the card (NCCL refuses two ranks on one card), each rank a
+    `rank_worker` process. -> (results, the launches of every rank of
+    every world summed)."""
+    tmp = tempfile.mkdtemp(prefix="lwkzg_dist_")
+    out, launches = {}, {}
+    try:
+        for world, backend in DIST_WORLDS:
+            t0 = time.perf_counter()
+            ranks = run_world(world, distributed_job(backend, commit_set, verify_set), tmp)
+            seconds = time.perf_counter() - t0
+            firsts = {(r["commitment"], tuple(r["batch"]), tuple(r["verdicts"])) for r in ranks}
+            if len(firsts) != 1:
+                raise AssertionError(f"world {world}: the ranks disagree")
+            for r in ranks:
+                for name, n in r["launches"].items():
+                    launches[name] = launches.get(name, 0) + n
+                log(f"  world {world} ({backend}) rank {r['rank']}: meshes {r['meshes']}, equal to "
+                    f"phases 6 and 8; times {r['times']}; launches "
+                    f"{ {k: n for k, n in r['launches'].items() if n} }")
+            out[f"world_{world}"] = {"backend": backend, "seconds": seconds,
+                                     "ranks": [{"rank": r["rank"], "times": r["times"],
+                                                "launches": r["launches"]} for r in ranks]}
+            log(f"  world {world}: {world} processes in {seconds:.2f} s ({card})")
+    finally:
+        shutil.rmtree(tmp)
+    missing = [name for name in DIST_KERNELS if launches.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"not launched on the distributed path: {missing} ({launches})")
+    return out, launches
+
+
 def time_ms(fn, reps: int, warm: int = 2) -> float:
     """Device ms per call. The launches queue up behind a ~20 ms spin on
     the card, so a kernel shorter than its wrapper's host cost is timed
@@ -1905,7 +2213,7 @@ def run() -> None:
         raise SystemExit("chip_smoke: CUDA is not available; this run needs an NVIDIA card")
 
     from lambdaworks_kzg_tpu_torch import (EIP4844Context, KZGConfig, KZGError, convert,
-                                           load_mainnet_setup, load_trusted_setup_file)
+                                           load_mainnet_setup, load_trusted_setup_file, native)
     from lambdaworks_kzg_tpu_torch.models import kzg as kzg_module, srs
     from lambdaworks_kzg_tpu_torch.constants import P, R, num_windows
     from lambdaworks_kzg_tpu_torch.host import curve as HC
@@ -1913,6 +2221,7 @@ def run() -> None:
                                                msm, pairing_ops)
     from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
     from lambdaworks_kzg_tpu_torch.utils import hashing as H
+    from lambdaworks_kzg_tpu_torch.utils.profiling import collect_kernel_stats, roofline_table
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
 
     dev = torch.device("cuda", 0)
@@ -1925,9 +2234,17 @@ def run() -> None:
             f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     with Phase("2 build"):
-        info = kernels.build()
+        with ThreadPoolExecutor(1) as pool:  # g++ for the native tier beside nvcc
+            native_build = pool.submit(native.build)
+            info = kernels.build()
+            built_native = native_build.result()
         results["build_s"] = info["seconds"]
+        results["native_build_s"] = built_native["seconds"]
         log(f"nvcc build {info['seconds']:.2f} s -> {os.path.relpath(info['library'], HERE)}")
+        log(f"g++ build of the native tier {built_native['seconds']:.2f} s -> "
+            f"{os.path.relpath(built_native['library'], HERE)}")
+        if not native.available():
+            raise AssertionError("the native tier is off: this run needs it (LWKZG_NATIVE unset)")
         for line in info["log"].splitlines():
             if "Function properties for" in line or "registers" in line or "spill" in line:
                 log("  " + line.strip())
@@ -2083,21 +2400,22 @@ def run() -> None:
             blobs = random_blobs(rng, count)
             cs = ctx.blob_to_kzg_commitment_batch(blobs)
             batches[count] = (blobs, cs, ctx.compute_blob_kzg_proof_batch(blobs, cs))
-        # count each tier's pairing checks
-        tier_checks = {"host": 0, "device": 0}
-        host_pairings_verify = kzg_module.pairings_verify
-        device_pairings_verify = pairing_ops.pairings_verify_host_points
+        # count each tier's pairing checks: the host tier's on the native
+        # library, or in Python ints with the tier off, and the card's
+        tier_checks = {"host": 0, "native": 0, "device": 0}
+        pairing_fns = {"host": (kzg_module, "pairings_verify"),
+                       "native": (native, "pairings_verify_affine"),
+                       "device": (pairing_ops, "pairings_verify_host_points")}
+        originals = {tier: getattr(mod, name) for tier, (mod, name) in pairing_fns.items()}
 
-        def counted_host_pairing(*args):
-            tier_checks["host"] += 1
-            return host_pairings_verify(*args)
+        def counting(tier):
+            def pairing(*args):
+                tier_checks[tier] += 1
+                return originals[tier](*args)
+            return pairing
 
-        def counted_device_pairing(*args):
-            tier_checks["device"] += 1
-            return device_pairings_verify(*args)
-
-        kzg_module.pairings_verify = counted_host_pairing
-        pairing_ops.pairings_verify_host_points = counted_device_pairing
+        for tier, (mod, name) in pairing_fns.items():
+            setattr(mod, name, counting(tier))
         if not ctx.kzg.device_pairing():
             raise AssertionError("the default context on the card must take the device pairing tier")
         kernels.reset_counts()  # the verify path starts here
@@ -2107,12 +2425,13 @@ def run() -> None:
         results["verify_vectors_s"] = time.perf_counter() - t0
         vector_checks = tier_checks["device"]
         vector_launches = launch_counts()
-        if tier_checks["host"] or any(vector_launches[k] != n * vector_checks
-                                      for k, n in PAIRING_LAUNCHES.items()):
+        if tier_checks["host"] or tier_checks["native"] or any(
+                vector_launches[k] != n * vector_checks for k, n in PAIRING_LAUNCHES.items()):
             raise AssertionError(f"the default verify path made {tier_checks} pairing checks with "
                                  f"launches {vector_launches}")
         log(f"  the 140 verify vectors on the default context: {vector_checks} pairing checks on "
-            f"the card, one launch of each pairing kernel per check, no host pairing")
+            f"the card, one launch of each pairing kernel per check, no host pairing; the "
+            f"decompressions, [y]G1, [z]G2 and single blob evaluations on the native tier")
         results["verify_batch_ms"] = {}
         for count, (blobs, cs, ps) in batches.items():
             swapped = [ps[1], ps[0]] + ps[2:]  # proofs 0 and 1 swapped
@@ -2147,7 +2466,7 @@ def run() -> None:
     with Phase("8b verify path, host pairing tier"):
         ctx_host = EIP4844Context(converted, backend=ctx.backend,
                                   config=KZGConfig(device_pairing=False))
-        tier_checks.update(host=0, device=0)
+        tier_checks.update(host=0, native=0, device=0)
         kernels.reset_counts()  # the host tier's verify path starts here
         t0 = time.perf_counter()
         for fn in VERIFY_FNS:
@@ -2155,17 +2474,31 @@ def run() -> None:
         torch.cuda.synchronize()
         results["verify_vectors_host_pairing_s"] = time.perf_counter() - t0
         host_launches = launch_counts()  # the path ends here
-        kzg_module.pairings_verify = host_pairings_verify
-        pairing_ops.pairings_verify_host_points = device_pairings_verify
         want = {name: n - vector_checks * PAIRING_LAUNCHES.get(name, 0)
                 for name, n in vector_launches.items()}
-        if host_launches != want or tier_checks != {"host": vector_checks, "device": 0}:
+        if host_launches != want or tier_checks != {"host": 0, "native": vector_checks, "device": 0}:
             raise AssertionError(f"the host tier's launches are {host_launches} with {tier_checks} "
-                                 f"pairing checks, not {want} and {vector_checks} on the host")
+                                 f"pairing checks, not {want} and {vector_checks} native ones")
         log(f"  the 140 verify vectors through KZGConfig(device_pairing=False): all as the "
             f"vectors have them in {results['verify_vectors_host_pairing_s']:.2f} s (device tier "
-            f"{results['verify_vectors_s']:.2f} s); {vector_checks} host pairing checks, no "
-            f"pairing kernel; launches {host_launches}")
+            f"{results['verify_vectors_s']:.2f} s); {vector_checks} host pairing checks, all on "
+            f"the native tier, no pairing kernel; launches {host_launches}")
+        # the same verdicts with the native tier off (LWKZG_NATIVE=0):
+        # Python-int decompressions, scalar multiplications and pairings
+        tier_checks.update(host=0, native=0, device=0)
+        t0 = time.perf_counter()
+        with native_off():
+            off_checks = run_vector_subset(ctx_host, NATIVE_OFF_VECTORS)
+        results["verify_vectors_native_off"] = {"vectors": sum(NATIVE_OFF_VECTORS.values()),
+                                                "s": time.perf_counter() - t0}
+        if tier_checks != {"host": off_checks, "native": 0, "device": 0}:
+            raise AssertionError(f"with the native tier off: {tier_checks} pairing checks, not "
+                                 f"{off_checks} in Python ints")
+        for tier, (mod, name) in pairing_fns.items():
+            setattr(mod, name, originals[tier])
+        log(f"  {sum(NATIVE_OFF_VECTORS.values())} of them ({NATIVE_OFF_VECTORS}) again with "
+            f"LWKZG_NATIVE=0: the same verdicts, {off_checks} pairing checks in Python ints, "
+            f"{results['verify_vectors_native_off']['s']:.2f} s")
 
     with Phase("9 prove path"):
         rng = np.random.default_rng(4845)
@@ -2472,6 +2805,15 @@ def run() -> None:
                   plain["final_exp_plain_ms"], (2 * 12 + 6 * 2 + 12) * FP_BYTES + 1,
                   final_exp_imads(2), 2)
 
+        # the roofline table of utils/profiling.py: g1_madd, g1_add and
+        # g1_dbl chained in one CUDA graph at 8192 lanes, and the plain Fp
+        # product, against the card's speed of light
+        stats = collect_kernel_stats()
+        results["roofline"] = [{"name": st.name, "lanes": st.lanes, "ns_per_lane": st.ns_per_lane,
+                                "fp_mul_rate": st.fp_mul_rate} for st in stats]
+        for line in roofline_table(stats).splitlines():
+            log("  " + line)
+
     kernels.reset_counts()  # the mesh path starts here
     with Phase("11 the mesh"):
         results["mesh"] = check_mesh(converted, dev, commit_set, prove_set, batches)
@@ -2507,6 +2849,17 @@ def run() -> None:
             entry["launches_by_path"]["capi"] = n
             entry["launches"] += n
 
+    with Phase("13 the native tier"):
+        results["native"] = native_phase(ctx, *batches[6], card)
+        results["native"]["build_s"] = results["native_build_s"]
+
+    with Phase("14 distributed"):
+        results["distributed"], dist_launches = distributed_phase(commit_set, batches[6], card)
+        for entry in entries:
+            n = dist_launches.get(entry["name"], 0)
+            entry["launches_by_path"]["distributed"] = n
+            entry["launches"] += n
+
     log(json.dumps({"end_to_end": results, "card": card}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
@@ -2517,10 +2870,9 @@ def run() -> None:
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, PKG)):
-        print(f"chip_smoke: {PKG}/ must sit beside this script", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 14
+        coord, world, rank, job_path = sys.argv[2:6]
+        return rank_worker(coord, int(world), int(rank), job_path)
     try:
         run()
     except SystemExit as e:

@@ -184,6 +184,18 @@ def points_eq(p1, p2) -> bool:
 
 
 def g1_in_subgroup(pt) -> bool:
+    """P in G1: on the native tier when it is on (`native.py`), else
+    `_g1_in_subgroup_py`."""
+    if is_infinity(pt):
+        return True
+    from .. import native
+
+    if native.available():
+        return native.g1_in_subgroup_affine(to_affine(pt))
+    return _g1_in_subgroup_py(pt)
+
+
+def _g1_in_subgroup_py(pt) -> bool:
     """Scott's endomorphism check: sigma(P) == -[x^2]P, where
     sigma(X, Y, Z) = (BETA X, Y, Z) acts as -x^2 on G1."""
     if is_infinity(pt):
@@ -241,6 +253,18 @@ def g2_points_eq(p1, p2) -> bool:
 
 
 def g2_in_subgroup(pt) -> bool:
+    """Q in G2: on the native tier when it is on (`native.py`), else
+    `_g2_in_subgroup_py`."""
+    if g2_is_infinity(pt):
+        return True
+    from .. import native
+
+    if native.available():
+        return native.g2_in_subgroup_affine(g2_to_affine(pt))
+    return _g2_in_subgroup_py(pt)
+
+
+def _g2_in_subgroup_py(pt) -> bool:
     """psi(Q) == [x]Q = -[|x|]Q (x < 0), psi the untwist-Frobenius-twist
     endomorphism: one 64-bit scalar multiplication instead of [r]Q."""
     if g2_is_infinity(pt):

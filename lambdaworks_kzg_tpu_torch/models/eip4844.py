@@ -11,17 +11,20 @@ MSM is sharded over its devices and the rest runs on its lead device.
 Verification runs its pairing check on the context's device when that
 is a card, and on the host tier when it is the CPU (`models/kzg.py`);
 `KZGConfig.device_pairing` (or LWKZG_DEVICE_PAIRING=1 / 0) forces one
-tier. Its blob evaluations run on the device.
-`verify_blob_kzg_proof_batch` decompresses and subgroup-checks its 2n
-points in one batched pass and forms its three linear combinations with
-the generic MSM, both on the device, as the JAX device branch does; the
-single checks decompress their points on the host.
+tier. `verify_blob_kzg_proof_batch` decompresses and subgroup-checks
+its 2n points in one batched pass, evaluates its blobs and forms its
+three linear combinations with the generic MSM, all on the device, as
+the JAX device branch does (a CPU backend sends small batches to the
+native tier, `ops/backend.py`). The single checks decompress their points
+on the host, and `verify_blob_kzg_proof` evaluates its blob there, on
+the native C++ tier (`native.py`) unless LWKZG_NATIVE=0 turns it off.
 """
 
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import native
 from ..constants import BYTES_PER_FIELD_ELEMENT
 from ..host import curve as C
 from ..ops import kernels
@@ -39,8 +42,16 @@ class KZGError(ValueError):
 
 
 def _check_g1(data: bytes, what: str):
+    """48 bytes -> host Jacobian point in G1, decompressed on the native
+    tier when it is on; KZGError for every rejection."""
     if len(data) != 48:
         raise KZGError(f"{what} must be 48 bytes")
+    if native.available():
+        try:
+            aff = native.g1_decompress(bytes(data), subgroup_check=True)
+        except ValueError as e:
+            raise KZGError(f"bad {what}: {e}") from e
+        return C.INFINITY if aff is None else C.from_affine(aff)
     try:
         return C.decompress_g1(bytes(data), subgroup_check=True)
     except C.DeserializationError as e:
@@ -93,9 +104,13 @@ class EIP4844Context:
         verification on two copies, so that its batched path runs), and
         once more per batch size through the batch APIs. This is the
         port's counterpart of the JAX package's `warmup` and its AOT
-        exports (`ops/aot.py`)."""
+        exports (`ops/aot.py`). It also builds the native tier (g++ at
+        first use, into `_build/`) and the domain's bytes that tier
+        evaluates over."""
         if torch.device(self.backend.device).type == "cuda":
             kernels.build()
+        if native.available():  # builds the tier; the next line fills the cached bytes
+            self.backend.domain.roots_brp_le
         blob = b"".join(i.to_bytes(BYTES_PER_FIELD_ELEMENT, "little") for i in range(self.n))
         commitment = self.blob_to_kzg_commitment(blob)
         z_bytes = (2).to_bytes(BYTES_PER_FIELD_ELEMENT, "little")
@@ -179,7 +194,13 @@ class EIP4844Context:
         commitment = _check_g1(commitment_bytes, "commitment")
         proof = _check_g1(proof_bytes, "proof")
         z = H.compute_challenge(bytes(blob), bytes(commitment_bytes), self.n)
-        y = self.backend.evaluate_scalars(self._scalars([blob]), [z])[0]
+        if native.available():  # one evaluation on the host: no device round trip
+            try:
+                y = native.blob_eval(bytes(blob), self.backend.domain.roots_brp_le, self.n, z)
+            except ValueError as e:
+                raise KZGError(str(e)) from e
+        else:
+            y = self.backend.evaluate_scalars(self._scalars([blob]), [z])[0]
         return self.kzg.verify(commitment, z, y, proof)
 
     def verify_blob_kzg_proof_batch(self, blobs: Sequence[bytes],
@@ -205,6 +226,9 @@ class EIP4844Context:
             raise KZGError(str(e)) from e
         commitments, proofs = points[:n], points[n:]
         zs = [H.compute_challenge(bytes(b), c, self.n) for b, c in zip(blobs, c_list)]
-        ys = self.backend.evaluate_scalars(self._scalars(blobs), zs)
+        try:
+            ys = self.backend.evaluate_blobs(blobs, zs)
+        except ValueError as e:
+            raise KZGError(str(e)) from e
         r_powers = H.compute_r_powers(c_list, zs, ys, p_list, self.n)
         return self.kzg.verify_batch(commitments, zs, ys, proofs, r_powers)

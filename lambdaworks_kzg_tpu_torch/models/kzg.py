@@ -3,18 +3,22 @@ or on the host tier (Python ints), as `KZGConfig.device_pairing` says;
 the batch check's linear combinations through the backend's MSM.
 
 The port of `KZG.verify` and `KZG.verify_batch` of the JAX package's
-`models/kzg.py`: the scalar multiplications of a single check run on the
-host. The pairing check follows the backend's device by default: on a
-CUDA device it goes through `ops/pairing_ops.pairings_verify_host_points`
-(one launch of each pairing kernel), on the CPU through the host tier
-(`host/pairing.py`), whose Python ints beat the plain PyTorch tower
-there; `device_pairing=True` or `False` forces one tier. The batch
-check's three linear combinations go through `backend.msm` (the generic
-MSM on the device, `ops/backend.py`).
+`models/kzg.py`: the scalar multiplications of a single check, [y]G1
+and [z]G2, run on the host, on the native C++ tier (`native.py`) unless
+LWKZG_NATIVE=0 turns it off, on either pairing tier (JAX's device
+branch keeps Python ints there, a departure ROADMAP.md records). The pairing
+check follows the backend's device by default: on a CUDA device it goes
+through `ops/pairing_ops.pairings_verify_host_points` (one launch of each
+pairing kernel), on the CPU through the host tier: the native pairing,
+or with the tier off `host/pairing.py` (Python ints), both of which beat
+the plain PyTorch tower there; `device_pairing=True` or `False` forces
+one tier. The batch check's three linear combinations go through
+`backend.msm` (the generic MSM on the device, `ops/backend.py`).
 """
 
 import torch
 
+from .. import native
 from ..constants import R
 from ..host import curve as C
 from ..host.pairing import pairings_verify
@@ -47,16 +51,28 @@ class KZG:
         return torch.device(self.backend.device).type == "cuda"
 
     def _pairings_verify(self, a1, a2, b1, b2) -> bool:
-        """e(a1, a2) == e(b1, b2) on the tier `device_pairing` picks."""
+        """e(a1, a2) == e(b1, b2) on the tier `device_pairing` picks; the
+        host tier on the native library when it is on."""
         if self.device_pairing():
             return pairing_ops.pairings_verify_host_points(a1, a2, b1, b2, self.backend.device)
+        if native.available():
+            return native.pairings_verify_affine(C.to_affine(a1), C.g2_to_affine(a2),
+                                                 C.to_affine(b1), C.g2_to_affine(b2))
         return pairings_verify(a1, a2, b1, b2)
 
     def verify(self, commitment, z: int, y: int, proof) -> bool:
         """e(C - [y]G1, [1]_2) == e(proof, [s - z]_2)."""
         g2_one, g2_s = self._g2()
-        p_minus_y = C.point_add(commitment, C.point_neg(C.point_scalar_mul(C.G1_GENERATOR, y)))
-        x_minus_z = C.g2_add(g2_s, C.g2_neg(C.g2_scalar_mul(C.G2_GENERATOR, z)))
+        if native.available():
+            yg = native.g1_scalar_mul_affine(C.to_affine(C.G1_GENERATOR), y % R)
+            zg2 = native.g2_scalar_mul_affine(C.g2_to_affine(C.G2_GENERATOR), z % R)
+            y_g1 = C.INFINITY if yg is None else C.from_affine(yg)
+            z_g2 = C.G2_INFINITY if zg2 is None else C.g2_from_affine(zg2)
+        else:
+            y_g1 = C.point_scalar_mul(C.G1_GENERATOR, y)
+            z_g2 = C.g2_scalar_mul(C.G2_GENERATOR, z)
+        p_minus_y = C.point_add(commitment, C.point_neg(y_g1))
+        x_minus_z = C.g2_add(g2_s, C.g2_neg(z_g2))
         return self._pairings_verify(p_minus_y, g2_one, proof, x_minus_z)
 
     def verify_batch(self, commitments, zs, ys, proofs, r_powers) -> bool:

@@ -10,6 +10,8 @@ no kernel, and the code is its own plain version. `host/fft.py` and the
 host quotient are the oracles.
 """
 
+import functools
+
 import torch
 
 from ..constants import R
@@ -52,8 +54,9 @@ def _masked_pick(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
 class FrDomain:
     """The domain of size n on one device: the roots in bit-reversed
     order (`roots_brp`, Montgomery [16, n], and `roots_brp_ints` with
-    `root_index` on the host) and 1/n. On the card unless "cpu" is asked
-    for; raises where CUDA is absent."""
+    `root_index` on the host, `roots_brp_le` as the native tier's bytes)
+    and 1/n. On the card unless "cpu" is asked for; raises where CUDA is
+    absent."""
 
     def __init__(self, n: int, device="cuda"):
         if n < 1 or n & (n - 1):
@@ -64,6 +67,12 @@ class FrDomain:
         self.root_index = {w: i for i, w in enumerate(self.roots_brp_ints)}
         self.roots_brp = self.mont(self.roots_brp_ints)
         self.n_inv = self.mont([pow(n, R - 2, R)])
+
+    @functools.cached_property
+    def roots_brp_le(self) -> bytes:
+        """The roots in bit-reversed order as n 32-byte little-endian
+        words, the domain `native.blob_eval` takes."""
+        return b"".join(w.to_bytes(32, "little") for w in self.roots_brp_ints)
 
     def mont(self, values) -> torch.Tensor:
         """Host ints -> Montgomery limbs [16, len(values)] on the device."""

@@ -39,7 +39,11 @@ Build: at first use `nvcc` compiles each source for sm_90a, all at once,
 and links the objects into one shared library with a plain C
 interface in `_build/` beside this package (listed in .gitignore);
 `ctypes` loads it. The library's name carries a hash of the sources and
-flags, so an edit rebuilds.
+flags, so an edit rebuilds. Processes that start together (test
+workers, the ranks of a process group) build it once: one holds the
+build's lock while the others wait, and the library is written under a
+name of the building process's own and moved into place whole
+(`utils/build.py`).
 
 Wrappers take the kernel layout, int32 tensors that hold u32 limbs
 (`limbs.to_u32_layout`): [3, 12, M] Jacobian, [2, 12, M] affine, a bool[M]
@@ -56,7 +60,6 @@ stream, raise when the launch fails, and count their launches.
 """
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -67,6 +70,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ..constants import num_windows
+from ..utils import build as B
 from . import limbs as lb, pairing_levels, tower_ops
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,11 +108,8 @@ def find_nvcc() -> str:
 
 
 def _library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in SOURCES + HEADERS:
-        with open(os.path.join(CSRC, fname), "rb") as f:
-            h.update(fname.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"liblwkzg_{h.hexdigest()[:16]}.so")
+    return B.digest_path(BUILD_DIR, "liblwkzg", [os.path.join(CSRC, f) for f in SOURCES + HEADERS],
+                         NVCC_FLAGS)
 
 
 def build() -> dict:
@@ -117,6 +118,11 @@ def build() -> dict:
     Returns {"library", "seconds", "built", "log"}; `log` holds nvcc's
     output, including ptxas' register and spill report."""
     lib_path = _library_path()
+    with B.exclusive(lib_path):
+        return _build(lib_path)
+
+
+def _build(lib_path: str) -> dict:
     log_path = lib_path[:-3] + ".log"
     if os.path.exists(lib_path):
         log = open(log_path).read() if os.path.exists(log_path) else ""
@@ -142,8 +148,9 @@ def build() -> dict:
     failed = [proc for proc in procs if proc.returncode != 0]
     if failed:
         raise RuntimeError(f"nvcc failed ({failed[0].returncode}):\n{log}")
-    with open(log_path, "w") as f:
+    with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
         f.write(log)
+    os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
     os.replace(tmp, lib_path)
     return {"library": lib_path, "seconds": seconds, "built": True, "log": log}
 

@@ -5,8 +5,8 @@ NTT sharded over it (the JAX package's `parallel/`).
 `KZGConfig.mesh_shape`, LWKZG_MESH_SHAPE=DxP) runs every MSM of a setup
 sharded over it (`ops/backend.TorchBackend`); `ntt.sharded_ntt` runs the
 four-step NTT over one axis. One process drives every
-device of one host. The JAX package's `parallel/distributed.py` (one
-process per host) has no counterpart yet.
+device of one host; `distributed` (`initialize`, `global_mesh`) spreads a
+mesh over several processes on `torch.distributed`.
 
 Exports resolve lazily (PEP 562), as in the JAX package.
 """
@@ -21,10 +21,12 @@ _EXPORTS = {
     "make_batch_msm_step": ".msm",
 }
 
-__all__ = list(_EXPORTS)
+__all__ = list(_EXPORTS) + ["distributed"]
 
 
 def __getattr__(name):
     if name in _EXPORTS:
         return getattr(import_module(_EXPORTS[name], __name__), name)
+    if name == "distributed":
+        return import_module(".distributed", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

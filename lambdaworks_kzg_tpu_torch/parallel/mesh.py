@@ -15,6 +15,12 @@ the small partial results between devices and folds them
 (`parallel/msm.py`, `parallel/ntt.py`). One host needs no
 `torch.distributed`.
 
+Across processes (`parallel/distributed.py`, JAX's multi-controller
+runs) the mesh also holds the rank that owns each cell and the rank of
+the process that holds the mesh: every process calls the same entry
+points in the same order, runs only its own cells and exchanges only
+their small results. A mesh of one process has None there.
+
 A device may repeat only where the caller lists it so: a mesh over
 ``["cuda:0"] * 4`` or ``["cpu"] * 8`` is a logical mesh, which runs every
 shard on that one device; it checks the sharded results and counts the
@@ -31,20 +37,34 @@ from ..ops.dispatch import resolve_device
 
 @dataclass(frozen=True)
 class Mesh:
-    """A [data][points] grid of devices; hashable, so it can key a cache."""
+    """A [data][points] grid of devices; hashable, so it can key a cache.
+
+    ranks: None for a mesh of one process; across processes the
+    [data][points] grid of the rank that owns each cell (whose device
+    `devices` names as that process sees it), and rank: this process's."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
+    ranks: Optional[Tuple[Tuple[int, ...], ...]] = None
+    rank: Optional[int] = None
     axis_names = ("data", "points")
 
     @property
     def shape(self) -> dict:
         return {"data": len(self.devices), "points": len(self.devices[0])}
 
+    def owns(self, row: int, col: int) -> bool:
+        """Whether this process runs cell (row, col)."""
+        return self.ranks is None or self.ranks[row][col] == self.rank
+
     @property
     def lead(self) -> torch.device:
         """Where results are gathered, and where a backend on the mesh
-        keeps its Fr layer and runs its pairing check."""
-        return self.devices[0][0]
+        keeps its Fr layer and runs its pairing check: the first device,
+        or across processes the first this process owns."""
+        if self.ranks is None:
+            return self.devices[0][0]
+        return next(dev for r, row in enumerate(self.devices)
+                    for p, dev in enumerate(row) if self.owns(r, p))
 
     def axis_devices(self, axis: str) -> Tuple[torch.device, ...]:
         """The devices along `axis` through the lead device: row 0 for

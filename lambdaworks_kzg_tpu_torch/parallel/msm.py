@@ -32,6 +32,13 @@ then brings the results to the host.
 Tables are cut per (device, shard), and a device that holds several
 shards (a logical mesh) builds one table over all of them: no device
 builds twice.
+
+On a mesh across processes (`parallel/distributed.py`) a process builds
+the tables of its own cells only and runs only their shards; each of
+its rows' partials is folded as above, a row it has no cell in is
+infinity, and one all_gather brings every process's [3, L, B] to every
+process, where they are folded in rank order: every process returns the
+same points.
 """
 
 import torch
@@ -40,6 +47,7 @@ from ..constants import num_windows
 from ..ops import dispatch, g1_ops, msm as msm1
 from ..ops.g1_ops import L
 from ..ops.msm import GROUPS
+from . import distributed
 from .mesh import to_device
 
 # Below ~2^14 points per shard the Pippenger bucket loads are small enough
@@ -108,9 +116,9 @@ class ShardedBasis:
         else:
             self.width = -(-w // p_axis)  # windows a shard
         held = {}  # device -> the shards it holds, in order
-        for row in mesh.devices[: self.rows]:
+        for r, row in enumerate(mesh.devices[: self.rows]):
             for p, dev in enumerate(row):
-                if p not in held.setdefault(dev, []):
+                if mesh.owns(r, p) and p not in held.setdefault(dev, []):
                     held[dev].append(p)
         self.tables = {}
         for dev, shards in held.items():
@@ -184,17 +192,26 @@ class ShardedBasis:
             blobs = scalars[r * per_row:(r + 1) * per_row]
             row = []
             for p, dev in enumerate(self.mesh.devices[r]):
+                if not self.mesh.owns(r, p):
+                    continue
                 mine = blobs[..., p * self.width:(p + 1) * self.width] if self.shard == "points" else blobs
                 table, valid = self.tables[(dev, p)]
                 digits = self._digits(to_device(mine, dev), p)
-                row.append(msm1.msm_fixedbase_digits(table, valid, digits, self.c, GROUPS))
+                row.append((dev, msm1.msm_fixedbase_digits(table, valid, digits, self.c, GROUPS)))
             partials.append(row)
+        lead = self.mesh.lead
         sums = []
-        for r, row in enumerate(partials):
-            home = self.mesh.devices[r][0]
-            parts = torch.stack([to_device(dispatch.from_op_layout(pt), home) for pt in row])
-            sums.append(to_device(_tree_fold_points(parts), self.mesh.lead))
-        return torch.cat(sums, dim=-1)[..., :b]
+        for row in partials:
+            if not row:  # every cell of the row is another process's
+                sums.append(g1_ops.infinity_like((), per_row, lead))
+                continue
+            home = row[0][0]
+            parts = torch.stack([to_device(dispatch.from_op_layout(pt), home) for _, pt in row])
+            sums.append(to_device(_tree_fold_points(parts), lead))
+        out = torch.cat(sums, dim=-1)
+        if self.mesh.ranks is not None:
+            out = _tree_fold_points(distributed.all_gather_points(out))
+        return out[..., :b]
 
 
 def make_msm_step(mesh, c: int = 8, shard: str = "points", scalar_bits: int = 255):

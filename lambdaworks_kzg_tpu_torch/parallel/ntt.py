@@ -51,6 +51,8 @@ def _twiddle_rows(n: int, d: int, inverse: bool) -> np.ndarray:
 def make_ntt_step(mesh, axis: str, n: int, inverse: bool = False):
     """The (cached) step [16, n] Montgomery on any device -> [16, n] on the
     mesh's lead device. n must be divisible by D^2, D the axis size."""
+    if mesh.ranks is not None:
+        raise ValueError("the sharded NTT runs in one process: its mesh cannot span processes")
     key = (mesh, axis, n, inverse)
     if key in _steps:
         return _steps[key]

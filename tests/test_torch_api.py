@@ -10,7 +10,8 @@
   JAX one does and rejects a bad backend as it does; `device()` and
   `load_setup()` follow them;
 - `EIP4844Context.warmup()` on a CPU context of the degree-4 setup runs
-  each entry point once and builds no kernel.
+  each entry point once, builds no kernel, and loads the native tier and
+  the domain's bytes it evaluates over.
 """
 
 import os
@@ -24,7 +25,7 @@ import lambdaworks_kzg_tpu as J
 import lambdaworks_kzg_tpu_torch as T
 from lambdaworks_kzg_tpu.models import srs as JSRS
 from lambdaworks_kzg_tpu.utils.config import KZGConfig as JaxConfig
-from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGConfig
+from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGConfig, native
 from lambdaworks_kzg_tpu_torch.models import srs
 from lambdaworks_kzg_tpu_torch.ops import kernels
 
@@ -121,7 +122,9 @@ ENTRY_POINTS = ("blob_to_kzg_commitment", "compute_kzg_proof", "verify_kzg_proof
 def test_warmup_runs_each_entry_point_once(setup4, monkeypatch):
     """On a CPU context (LWKZG_BACKEND=host, no device argument) warmup calls
     each of the six entry points once, the batch APIs not at all without
-    batch sizes, and builds no kernel; its three verifications hold."""
+    batch sizes, and builds no kernel; its three verifications hold. It
+    loads the native tier (building it if need be) and fills the domain's
+    root bytes, so that no first call waits for either."""
     monkeypatch.setenv("LWKZG_BACKEND", "host")
     ctx = EIP4844Context(setup4)
     assert ctx.backend.device == torch.device("cpu")
@@ -140,6 +143,9 @@ def test_warmup_runs_each_entry_point_once(setup4, monkeypatch):
                 verdicts.append(out)
             return out
         setattr(ctx, name, counted)
+    monkeypatch.setattr(native, "_lib", None)
+    assert "roots_brp_le" not in vars(ctx.backend.domain)
     ctx.warmup()
     assert calls == {name: 1 for name in ENTRY_POINTS[:6]}
     assert verdicts == [True, True, True]
+    assert native._lib is not None and "roots_brp_le" in vars(ctx.backend.domain)

@@ -256,7 +256,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 for name in ("ops.ntt", "ops.fp2_ops", "ops.tower_ops", "ops.g2_ops", "ops.pairing_ops",
              "utils.blob", "utils.config", "parallel", "parallel.mesh", "parallel.msm",
-             "parallel.ntt", "capi_adapter", "capi"):
+             "parallel.ntt", "capi_adapter", "capi", "native", "parallel.distributed",
+             "utils.profiling", "utils.build"):
     assert pkg.__name__ + "." + name in sys.modules, name
 print("ok")
 """

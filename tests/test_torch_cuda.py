@@ -690,3 +690,81 @@ def test_warmup_on_card(monkeypatch):
     ctx.warmup()
     # commitment, two proofs, the batch's three generic MSMs; three checks; one batch
     assert [k.launches - b for k, b in zip(watched, before)] == [6, 3, 1]
+
+
+def test_native_routing_on_a_cuda_context(monkeypatch):
+    """On a card the single checks take the native tier (decompression,
+    [y]G1, [z]G2, verify_blob_kzg_proof's evaluation) while the pairing
+    stays on the pairing kernels; a batch verification keeps the card
+    (g1_decompress, the generic MSM, the card's evaluation) and calls
+    none of the tier's batch functions. With LWKZG_NATIVE=0 the verdicts
+    are the same."""
+    from lambdaworks_kzg_tpu_torch import native
+
+    setup = srs.load_mainnet_setup()
+    ctx = EIP4844Context(setup, backend=TorchBackend(setup, "cuda",
+                                                     fixedbase=convert.fixedbase_from_npz(FIXEDBASE, "cpu")))
+    calls = {}
+    for name in ("g1_decompress", "g1_scalar_mul_affine", "g2_scalar_mul_affine", "blob_eval",
+                 "g1_msm_affine", "pairings_verify_affine"):
+        def spy(*args, _fn=getattr(native, name), _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(native, name, spy)
+    rng = random.Random(29)
+    blobs = [b"".join(rng.randrange(R).to_bytes(32, "little") for _ in range(4096)) for _ in range(2)]
+    cs = ctx.blob_to_kzg_commitment_batch(blobs)
+    ps = ctx.compute_blob_kzg_proof_batch(blobs, cs)
+    calls.clear()
+    before = [k.launches for k in (kernels.miller_loop, kernels.decompress)]
+    assert ctx.verify_blob_kzg_proof(blobs[0], cs[0], ps[0]) is True
+    assert calls == {"g1_decompress": 2, "g1_scalar_mul_affine": 1, "g2_scalar_mul_affine": 1,
+                     "blob_eval": 1}
+    calls.clear()
+    assert ctx.verify_blob_kzg_proof_batch(blobs, cs, ps) is True
+    assert calls == {}
+    assert [k.launches - b for k, b in zip((kernels.miller_loop, kernels.decompress), before)] == [2, 1]
+    monkeypatch.setenv("LWKZG_NATIVE", "0")
+    assert ctx.verify_blob_kzg_proof(blobs[0], cs[0], ps[0]) is True
+    assert ctx.verify_blob_kzg_proof(blobs[0], cs[0], ps[1]) is False
+    assert calls == {}
+
+
+def test_world_size_one_on_nccl():
+    """initialize() of a one-process group on the card picks nccl; a
+    context on its global mesh commits as the unsharded context, its
+    results crossing the group by one all_gather."""
+    import socket
+
+    from lambdaworks_kzg_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert distributed.initialize(f"localhost:{port}", 1, 0) is True
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = distributed.global_mesh()
+        assert mesh.ranks == ((0,),) and mesh.lead == torch.device("cuda", 0)
+        setup = srs.load_mainnet_setup()
+        fixedbase = convert.fixedbase_from_npz(FIXEDBASE, "cpu")
+        ctx = EIP4844Context(setup, backend=TorchBackend(setup, fixedbase=fixedbase, mesh=mesh))
+        plain = EIP4844Context(setup, backend=TorchBackend(setup, "cuda", fixedbase=fixedbase))
+        rng = random.Random(31)
+        blobs = [b"".join(rng.randrange(R).to_bytes(32, "little") for _ in range(4096))
+                 for _ in range(3)]
+        assert ctx.blob_to_kzg_commitment_batch(blobs) == plain.blob_to_kzg_commitment_batch(blobs)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_time_chained_captures_a_cuda_graph():
+    """time_chained captures its chain of kernel launches in one CUDA
+    graph; a step that waits on the host cannot be captured and raises."""
+    from lambdaworks_kzg_tpu_torch.utils import profiling
+
+    stats = profiling.collect_kernel_stats(lanes=256, iters=8)
+    assert len(stats) == 4 and all(0 < s.seconds < 1 for s in stats)
+    x0 = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError):
+        profiling.time_chained(lambda v: v + float(v.sum().item()), x0, iters=2)

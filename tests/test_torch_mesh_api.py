@@ -23,10 +23,13 @@ from .test_torch_parallel import (_one_torch_thread, _oracle_tables, _rand_blob,
                                   cpu_mesh, dev_pair)
 
 
-def test_entry_points_on_a_mesh_match_jax(dev_pair):
+def test_entry_points_on_a_mesh_match_jax(dev_pair, monkeypatch):
     """JAX tests/test_mesh_api.py:63-96 at N = 32 on a (2, 4) mesh: three
     blobs (an odd batch: the data axis pads it; a batch verify's linear
-    combinations stay below the generic MSM's sharding threshold)."""
+    combinations stay below the generic MSM's sharding threshold). The
+    native tier is off, so that the batch verification runs the plain
+    batched decompression, evaluation and MSM on the mesh's backend."""
+    monkeypatch.setenv("LWKZG_NATIVE", "0")
     jax_ctx, plain = dev_pair
     backend = TorchBackend(plain.setup, "cpu", fixedbase=plain.backend.fixedbase(),
                            mesh=cpu_mesh(2, 4))

@@ -365,9 +365,12 @@ def test_generic_msm_matches_host_oracle(basis, c):
     assert HC.to_affine(HC.FP_OPS, got) == HC.to_affine(HC.FP_OPS, HC.g1_msm(scalars, pts_aff))
 
 
-def test_backend_msm_matches_host_oracle_and_checks_scalar_bits(basis, port_tables):
+def test_backend_msm_matches_host_oracle_and_checks_scalar_bits(basis, port_tables, monkeypatch):
     """TorchBackend.msm on a dev setup's backend (window auto_window(7) =
-    4), as batch verification calls it."""
+    4), as batch verification calls it; the native tier is off, so that
+    the plain generic MSM runs (tests/test_torch_native.py holds the
+    native route)."""
+    monkeypatch.setenv("LWKZG_NATIVE", "0")
     _, _, points, valid = basis
     setup = convert.setup_from_numpy(points, valid)
     backend = TorchBackend(setup, "cpu", fixedbase=port_tables[4])

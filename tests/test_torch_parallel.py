@@ -188,9 +188,11 @@ def test_batch_msm_matches_host_oracle(basis):
     assert [HC.to_affine(p) for p in got] == [_oracle(s, affine) for s in batch]
 
 
-def test_backend_generic_msm_shards_and_pads(dev_pair, basis):
+def test_backend_generic_msm_shards_and_pads(dev_pair, basis, monkeypatch):
     """Above max(16, 2 P) points the generic MSM pads with invalid lanes to
-    P 2^k (20 -> 32 on P = 4) and shards; below it runs unsharded."""
+    P 2^k (20 -> 32 on P = 4) and shards; below it runs unsharded. The
+    native tier is off: on a CPU backend it would take these sizes."""
+    monkeypatch.setenv("LWKZG_NATIVE", "0")
     _, ctx = dev_pair
     _, _, affine = basis
     backend = TorchBackend(ctx.setup, "cpu", fixedbase=ctx.backend.fixedbase(),

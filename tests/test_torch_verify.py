@@ -149,7 +149,11 @@ def test_verify_kzg_proof_matches_jax(dev_pair):
             jax_ctx.verify_kzg_proof(*bad)
 
 
-def test_verify_blob_kzg_proof_and_batch_match_jax(dev_pair):
+def test_verify_blob_kzg_proof_and_batch_match_jax(dev_pair, monkeypatch):
+    """With the native tier off, so that the plain batched decompression,
+    evaluation and generic MSM run (tests/test_torch_native.py runs the
+    same checks on the tier)."""
+    monkeypatch.setenv("LWKZG_NATIVE", "0")
     jax_ctx, ctx = dev_pair
     rng = random.Random(89)
     blobs = [_rand_blob(rng), _rand_blob(rng), b"\x00" * (32 * N_DEV)]
