@@ -177,24 +177,46 @@ Phases, each printed with its seconds:
      choose that backend), loads the mainnet setup, commits to phase 6's
      blob 0 with the points axis across the ranks, and to phase 6's batch
      of 6 and verifies phase 8's batch of 6 (true, and false with proofs
-     0 and 1 swapped) with the data axis across them, each equal to those
-     phases' results in every rank, and prints its times and launches; a
-     failed rank fails the phase.
+     0 and 1 swapped) with the data axis across them, and runs phase 3c's
+     NTT at n = 4096 and its inverse with the data axis across the ranks
+     and with the points axis across them (parallel/ntt.py: one
+     batch_isend_irecv exchange and one all_gather, through host tensors
+     on gloo), each
+     equal to those phases' results in every rank, and prints its times
+     and launches; a failed rank fails the phase;
+ 15. the generic MSM (ops/msm.msm_device) at the JAX package's bench
+     shapes: n = 2^16 at c = 8, n = 2^20 at c = 12, and n = 2^20 at
+     c = 12 with 248-bit scalars, over the 4096 mainnet Lagrange points
+     tiled, equal in affine form to the native tier's 4096-point MSM of
+     the scalars folded per point mod r; per shape the table build and
+     the MSM apart (CUDA events), each kernel's launches, the peak
+     allocated memory and g1_bucket_reduce's route (shared memory or
+     global scratch);
+ 16. the fuzz harnesses (lambdaworks_kzg_tpu_torch/fuzz): FUZZ_ITERS
+     iterations of fuzz_differential.py on the degree-4 setup through a
+     CPU context and the card's context (tier on, LWKZG_NATIVE=0, and
+     the host pairing tier), zero findings;
+     gen_corpus.py on the card, and the combined C target of
+     fuzz_capi.c (replay mode) on the generated seeds and a stride of the
+     vector seeds with LWKZG_BACKEND=device, no internal error.
 Launch counts are zeroed just before each path and read just after it:
 the conversion (phase 3b), the commit path (phases 4 to 6), the verify
 path (phase 8, after its seeded blobs are committed and proved), the
 host pairing tier's verify path (phase 8b), the prove path (phase 9,
 from its first proof to its last), the mesh path (phase 11), the C
 ABI's path (phase 12, less the launches of its Python context's timed
-calls) and the distributed path (phase 14, in each rank from its first
-context to its last call, summed over the ranks and worlds); phase
+calls), the distributed path (phase 14, in each rank from its first
+context to its last call, summed over the ranks and worlds), the generic
+MSM path (phase 15, each shape's msm_device call) and the fuzz path
+(phase 16, the differential in this process); phase
 3b checks the conversion's exact launches, phase 4 that the table build
 made one table launch and no g1_dbl launch, phases 6 and 9 that each
 call launches each MSM kernel once, phase 8 the launches of each vector
 and batch, 8b none of the pairing kernels, phases 11 and 12 each call's,
-phase 14 that the path launched each of DIST_KERNELS.
+phase 14 that the path launched each of DIST_KERNELS, phase 15 each
+of PATH_KERNELS.
 The line before the last is {"kernels": [...]}, with each kernel's
-launches on the eight paths; the last is {"ok": true, "device": {...}}. Any
+launches on the ten paths; the last is {"ok": true, "device": {...}}. Any
 failure ends the run with a non-zero exit and without those lines.
 """
 
@@ -468,6 +490,13 @@ DIST_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 DIST_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce", "g1_add",
                 "g1_decompress", "g1_subgroup_mask", "pairing_miller_loop", "pairing_final_exp")
 DIST_TIMEOUT_S = 240
+# phase 15: the generic MSM at the JAX package's bench shapes one card runs
+# (n, window bits, scalar bits): bench.py's msm_2e20(_packed248) and
+# scripts/bench_msm_sweep.py's 2^16, over the 4096 mainnet Lagrange points tiled
+GENERIC_MSM_SHAPES = ((1 << 16, 8, 255), (1 << 20, 12, 255), (1 << 20, 12, 248))
+FUZZ_ITERS, FUZZ_SEED = 5, 4844  # phase 16's differential iterations
+FUZZ_VECTOR_STRIDE = 16  # phase 16 replays every 16th consensus-vector seed and every generated one
+FUZZ_C_TIMEOUT_S = 300
 CLIENT_SEED = 4849  # kzg_client's blob
 
 
@@ -1333,11 +1362,12 @@ def check_pairing_kernels(dev, max_err: dict) -> dict:
     return out
 
 
-def check_ntt(dev) -> dict:
+def check_ntt(dev) -> tuple:
     """The NTT at the blob domain on the card: forward and inverse equal
     host/fft.fr_fft, the round trip, the coefficient bridge of a seeded
     blob (utils/blob.py) equal to the device inverse NTT; each direction's
-    ms (CUDA events) and launches (profiler)."""
+    ms (CUDA events) and launches (profiler). -> (that record, (the input,
+    [forward, inverse] on the card)) for phase 14."""
     import numpy as np
 
     from lambdaworks_kzg_tpu_torch.constants import R
@@ -1371,7 +1401,7 @@ def check_ntt(dev) -> dict:
         raise AssertionError("the coefficient bridge differs from the NTT on the card")
     log("  round trip exact; a seeded blob's coefficients equal the inverse NTT on the card, "
         "and coefficients_to_blob gives the blob back")
-    return out
+    return out, (values, [ntt.ntt_ints(values, inverse, device=dev) for inverse in (False, True)])
 
 
 def convert_stages(path: str, dev) -> dict:
@@ -2048,15 +2078,17 @@ def native_phase(ctx, blobs, commitments, proofs, card: str) -> dict:
     return out
 
 
-def distributed_job(backend: str, commit_set, verify_set) -> dict:
+def distributed_job(backend: str, commit_set, verify_set, ntt_set) -> dict:
     """What every rank of phase 14 is given: the blobs and what phases 6
-    and 8 gave for them."""
+    and 8 gave for them, and phase 3c's NTT input and results."""
     blobs, commitments = commit_set
     vblobs, vcs, vps = verify_set
+    values, (forward, inverse) = ntt_set
     return {"backend": backend, "blobs": [b.hex() for b in blobs],
             "commitments": [c.hex() for c in commitments],
             "verify_blobs": [b.hex() for b in vblobs], "verify_commitments": [c.hex() for c in vcs],
-            "verify_proofs": [p.hex() for p in vps]}
+            "verify_proofs": [p.hex() for p in vps],
+            "ntt": {"values": values, "forward": forward, "inverse": inverse}}
 
 
 def rank_worker(coord: str, world: int, rank: int, job_path: str) -> int:
@@ -2064,13 +2096,16 @@ def rank_worker(coord: str, world: int, rank: int, job_path: str) -> int:
     process group, then on the mainnet setup a commitment with the points
     axis across the ranks, a batch of 6 commitments and a batch
     verification of 6 (true, and false with proofs 0 and 1 swapped) with
-    the data axis across them, each equal to the job's; prints one
-    RANK_RESULT line with the times and this rank's launches."""
+    the data axis across them, and the NTT at n = 4096 and its inverse
+    with each axis across them (`parallel/ntt.py`), each equal to the
+    job's; prints one RANK_RESULT line with the times and this rank's
+    launches."""
     import torch
 
     from lambdaworks_kzg_tpu_torch import EIP4844Context, load_mainnet_setup
     from lambdaworks_kzg_tpu_torch.ops import kernels
     from lambdaworks_kzg_tpu_torch.parallel import distributed
+    from lambdaworks_kzg_tpu_torch.parallel.ntt import sharded_ntt_ints
 
     with open(job_path) as f:
         job = json.load(f)
@@ -2098,6 +2133,14 @@ def rank_worker(coord: str, world: int, rank: int, job_path: str) -> int:
         lambda: ctx_data.verify_blob_kzg_proof_batch(vblobs, vcs, vps))
     bad, times["verify_batch6_false_ms"] = host_ms(
         lambda: ctx_data.verify_blob_kzg_proof_batch(vblobs, vcs, [vps[1], vps[0]] + vps[2:]))
+    ntt_job = job["ntt"]
+    for axis, mesh in (("data", data_mesh), ("points", points_mesh)):
+        for direction in ("forward", "inverse"):
+            got, times[f"ntt_{axis}_{direction}_ms"] = host_ms(
+                lambda: sharded_ntt_ints(mesh, axis, ntt_job["values"], direction == "inverse"))
+            if got != ntt_job[direction]:
+                raise AssertionError(f"rank {rank} of {world}: the {direction} NTT with the {axis} "
+                                     "axis across the ranks differs from phase 3c's")
     launches = launch_counts()  # the path ends here
     if single != want[0] or batch != want or ok is not True or bad is not False:
         raise AssertionError(f"rank {rank} of {world}: commitment {single == want[0]}, batch "
@@ -2106,6 +2149,7 @@ def rank_worker(coord: str, world: int, rank: int, job_path: str) -> int:
         "rank": rank, "world": world, "backend": backend, "meshes": [points_mesh.shape, data_mesh.shape],
         "commitment": single.hex(), "batch": [c.hex() for c in batch], "verdicts": [ok, bad],
         "times": times, "launches": launches}), flush=True)
+    torch.distributed.barrier()  # no rank leaves while another still talks to it
     torch.distributed.destroy_process_group()
     return 0
 
@@ -2152,7 +2196,7 @@ def run_world(world: int, job: dict, tmp: str) -> list:
     return results
 
 
-def distributed_phase(commit_set, verify_set, card: str) -> tuple:
+def distributed_phase(commit_set, verify_set, ntt_set, card: str) -> tuple:
     """Phase 14: world size 1 on nccl, then 2 and 4 ranks on gloo sharing
     the card (NCCL refuses two ranks on one card), each rank a
     `rank_worker` process. -> (results, the launches of every rank of
@@ -2162,7 +2206,7 @@ def distributed_phase(commit_set, verify_set, card: str) -> tuple:
     try:
         for world, backend in DIST_WORLDS:
             t0 = time.perf_counter()
-            ranks = run_world(world, distributed_job(backend, commit_set, verify_set), tmp)
+            ranks = run_world(world, distributed_job(backend, commit_set, verify_set, ntt_set), tmp)
             seconds = time.perf_counter() - t0
             firsts = {(r["commitment"], tuple(r["batch"]), tuple(r["verdicts"])) for r in ranks}
             if len(firsts) != 1:
@@ -2171,7 +2215,7 @@ def distributed_phase(commit_set, verify_set, card: str) -> tuple:
                 for name, n in r["launches"].items():
                     launches[name] = launches.get(name, 0) + n
                 log(f"  world {world} ({backend}) rank {r['rank']}: meshes {r['meshes']}, equal to "
-                    f"phases 6 and 8; times {r['times']}; launches "
+                    f"phases 6, 8 and 3c (the NTT); times {r['times']}; launches "
                     f"{ {k: n for k, n in r['launches'].items() if n} }")
             out[f"world_{world}"] = {"backend": backend, "seconds": seconds,
                                      "ranks": [{"rank": r["rank"], "times": r["times"],
@@ -2182,6 +2226,135 @@ def distributed_phase(commit_set, verify_set, card: str) -> tuple:
     missing = [name for name in DIST_KERNELS if launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the distributed path: {missing} ({launches})")
+    return out, launches
+
+
+def generic_msm_phase(setup, dev, card: str) -> tuple:
+    """Phase 15: `ops/msm.msm_device` at GENERIC_MSM_SHAPES on tensors on
+    the card, over the 4096 mainnet Lagrange points tiled n / 4096 times,
+    with seeded scalars below 2^scalar_bits (r for 255). The oracle shares
+    no MSM code: the 4096-point MSM of each point's scalars summed mod r,
+    on the native tier, compared in affine form. Tiling sends equal points
+    into one bucket, so the accumulation's doubling fix-up runs hard.
+    Prints per shape the table build and the MSM apart (CUDA events, a
+    second run), each kernel's launches in the checked run, the peak of
+    `torch.cuda.max_memory_allocated` and g1_bucket_reduce's route. ->
+    (results, the checked runs' launches summed)."""
+    import numpy as np
+    import torch
+
+    from lambdaworks_kzg_tpu_torch import native
+    from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+    from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb, msm
+
+    basis = basis_affine(setup)
+    n_basis = len(basis)
+    points = lb.as_limb_tensor(setup.lagrange_points, dev)
+    valid = torch.from_numpy(setup.lagrange_valid.copy()).to(dev)
+    out, total = {}, {}
+    for n, c, bits in GENERIC_MSM_SHAPES:
+        tiles = n // n_basis
+        rng = np.random.default_rng(n + bits)
+        limbs = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
+        # the top limb below r's (0x73ed), or below 2^(bits - 240)
+        limbs[15] = rng.integers(0, 0x73ED if bits == 255 else 1 << (bits - 240), size=n)
+        sums = limbs.reshape(16, tiles, n_basis).sum(axis=1)
+        folded = [sum(int(sums[k, i]) << (16 * k) for k in range(16)) % R for i in range(n_basis)]
+        want = native.g1_msm_affine(folded, basis)
+        pts, ok = points.repeat(1, 1, tiles), valid.repeat(tiles)
+        scalars = torch.from_numpy(limbs).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()  # this shape's path starts here
+        got, msm_device_ms = events_ms(lambda: msm.msm_device(pts, ok, scalars, c, scalar_bits=bits))
+        launches = launch_counts()  # and ends here
+        peak = torch.cuda.max_memory_allocated()
+        point = g1_ops.points_to_host(dispatch.from_op_layout(got))[0]
+        if HC.to_affine(point) != want:
+            raise AssertionError(f"the generic MSM at n={n} c={c} bits={bits} differs from its oracle")
+        (table, table_valid), table_ms = events_ms(lambda: dispatch.fixedbase_table(pts, ok, c))
+        _, msm_ms = events_ms(lambda: msm.msm_fixedbase_device(table, table_valid, scalars, c, GROUPS))
+        del table, table_valid, got
+        route = "shared memory" if kernels._reduce_in_shared_memory(c) else "global scratch"
+        for name, k in launches.items():
+            total[name] = total.get(name, 0) + k
+        key = f"n{n}_c{c}_b{bits}"
+        out[key] = {"n": n, "c": c, "scalar_bits": bits, "msm_device_ms": msm_device_ms,
+                    "table_ms": table_ms, "msm_ms": msm_ms, "peak_bytes": peak,
+                    "launches": {name: k for name, k in launches.items() if k},
+                    "reduce_route": route}
+        log(f"  n=2^{n.bit_length() - 1} c={c} scalar_bits={bits}: equal to the native oracle "
+            f"({n_basis} points, scalars folded mod r); msm_device {msm_device_ms:.2f} ms, then apart: "
+            f"table {table_ms:.2f} ms, MSM {msm_ms:.2f} ms (CUDA events); launches "
+            f"{out[key]['launches']}; peak {peak / 2**30:.2f} GiB; g1_bucket_reduce: {route} ({card})")
+    missing = [name for name in PATH_KERNELS if total.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"not launched on the generic MSM path: {missing}")
+    return out, total
+
+
+def fuzz_phase(card: str) -> tuple:
+    """Phase 16: `fuzz/fuzz_differential.py` for FUZZ_ITERS iterations on
+    the degree-4 setup, converted on the card (the ways cpu, card, card
+    with LWKZG_NATIVE=0 and card with the host pairing tier must agree;
+    any finding fails the phase); then
+    `fuzz/gen_corpus.py` on the card and the combined C target of
+    `fuzz/fuzz_capi.c` (replay mode, gcc) on every generated seed and
+    every FUZZ_VECTOR_STRIDE-th consensus-vector seed, with
+    LWKZG_BACKEND=device: its contexts run on the card, and a call that
+    returns C_KZG_ERROR or C_KZG_MALLOC fails the phase. -> (results, the
+    differential's launches in this process; the C program's are its
+    own)."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch import capi
+    from lambdaworks_kzg_tpu_torch.fuzz import fuzz_differential, gen_corpus
+    from lambdaworks_kzg_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp(prefix="lwkzg_fuzz_")
+    try:
+        kernels.reset_counts()  # the fuzz path starts here
+        t0 = time.perf_counter()
+        fuzzer = fuzz_differential.run(FUZZ_ITERS, FUZZ_SEED, device="cuda", cache_dir=tmp, log=log)
+        torch.cuda.synchronize()
+        launches = launch_counts()  # and ends here
+        out = {"differential": {"iterations": fuzzer.iterations, "cases": len(fuzzer.cases),
+                                "calls": fuzzer.calls, "findings": len(fuzzer.findings),
+                                "s": time.perf_counter() - t0}}
+        for line in fuzzer.findings:
+            log("  " + line)
+        log(f"  differential: {out['differential']}; launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+        if fuzzer.findings:
+            raise AssertionError(f"the differential fuzzer found {len(fuzzer.findings)} faults")
+        corpus = os.path.join(tmp, "corpus")
+        t0 = time.perf_counter()
+        n_vectors = gen_corpus.corpus_from_vectors(corpus)
+        gen_corpus.corpus_from_library(corpus, 1, FUZZ_SEED, device="cuda", cache_dir=tmp)
+        ours, vectors = gen_corpus.combined_corpus(corpus)
+        picked = ours + sorted(vectors)[::FUZZ_VECTOR_STRIDE]
+        corpus_s = time.perf_counter() - t0
+        built = capi.build_fuzz()
+        env = capi.client_env()
+        env["LWKZG_BACKEND"] = "device"
+        t0 = time.perf_counter()
+        proc = subprocess.run([built["path"], *picked], env=env, capture_output=True, text=True,
+                              timeout=FUZZ_C_TIMEOUT_S)
+        replay_s = time.perf_counter() - t0
+        summary = [line for line in proc.stderr.splitlines() if line.startswith("replayed ")]
+        out["c_replay"] = {"files": len(picked), "generated_files": len(ours), "vector_seeds": n_vectors,
+                           "corpus_s": corpus_s, "build_s": built["seconds"], "s": replay_s,
+                           "summary": summary}
+        log(f"  the combined C target (LWKZG_BACKEND=device) on {len(picked)} seeds "
+            f"({len(ours)} generated on the card): exit {proc.returncode}, {summary}, {replay_s:.1f} s; "
+            f"corpus {corpus_s:.1f} s ({card})")
+        if (proc.returncode != 0 or len(summary) != 1
+                or not summary[0].startswith(f"replayed {len(picked)} corpus files:")
+                or not summary[0].endswith(" 0 internal errors")):
+            raise AssertionError(f"the C target failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    finally:
+        shutil.rmtree(tmp)
     return out, launches
 
 
@@ -2318,7 +2491,7 @@ def run() -> None:
             shutil.rmtree(tmp)
 
     with Phase("3c NTT"):
-        results["ntt"] = check_ntt(dev)
+        results["ntt"], ntt_set = check_ntt(dev)
 
     kernels.reset_counts()
     with Phase("4 setup and fixed-base table"):
@@ -2854,10 +3027,24 @@ def run() -> None:
         results["native"]["build_s"] = results["native_build_s"]
 
     with Phase("14 distributed"):
-        results["distributed"], dist_launches = distributed_phase(commit_set, batches[6], card)
+        results["distributed"], dist_launches = distributed_phase(commit_set, batches[6], ntt_set, card)
         for entry in entries:
             n = dist_launches.get(entry["name"], 0)
             entry["launches_by_path"]["distributed"] = n
+            entry["launches"] += n
+
+    with Phase("15 generic MSM at 2^16 and 2^20"):
+        results["generic_msm"], generic_launches = generic_msm_phase(setup, dev, card)
+        for entry in entries:
+            n = generic_launches.get(entry["name"], 0)
+            entry["launches_by_path"]["generic_msm"] = n
+            entry["launches"] += n
+
+    with Phase("16 fuzz"):
+        results["fuzz"], fuzz_launches = fuzz_phase(card)
+        for entry in entries:
+            n = fuzz_launches.get(entry["name"], 0)
+            entry["launches_by_path"]["fuzz"] = n
             entry["launches"] += n
 
     log(json.dumps({"end_to_end": results, "card": card}))

@@ -14,9 +14,10 @@ runs with `client_env()`'s PYTHONPATH: the repository root and this
 interpreter's site directories, where the embedded interpreter finds
 torch. `client_blob(seed, n)` is the blob that `kzg_client <setup> <seed>`
 commits to. Contexts run on the card; LWKZG_BACKEND=host puts them on the
-CPU.
+CPU. `build_fuzz` builds the fuzz harness `fuzz/fuzz_capi.c` the same way.
 """
 
+import hashlib
 import os
 import site
 import subprocess
@@ -30,6 +31,8 @@ LIBRARY = os.path.join(BUILD_DIR, "liblambdaworks_kzg_tpu_torch.so")
 HEADER = os.path.join(CAPI_DIR, "c_kzg_4844.h")
 SHIM = os.path.join(CAPI_DIR, "shim.c")
 CLIENT = os.path.join(CAPI_DIR, "kzg_client.c")
+FUZZ = os.path.join(os.path.dirname(CAPI_DIR), "fuzz", "fuzz_capi.c")
+SETUP_4 = os.path.join(REPO, "testdata", "trusted_setup_4.txt")
 
 
 def _python_flags():
@@ -81,6 +84,32 @@ def build_client(field_elements: int = 4096) -> dict:
                     ["-O2", "-Wall", f"-DFIELD_ELEMENTS_PER_BLOB={field_elements}", "-I", CAPI_DIR,
                      CLIENT, "-L", BUILD_DIR, "-llambdaworks_kzg_tpu_torch", "-Wl,-rpath," + BUILD_DIR,
                      *ldflags])
+
+
+def build_fuzz(target=None) -> dict:
+    """Compile `fuzz/fuzz_capi.c` in its replay mode (-DSTANDALONE_REPLAY,
+    for gcc) against the library (built first), on the degree-4 setup
+    (`testdata/trusted_setup_4.txt`, 4-element blobs): the combined
+    first-byte target, or with target = 0..5 the dedicated target of one
+    entry point (the order of `fuzz/gen_corpus.FNS`) -> {"path",
+    "seconds", "built"}. Run it with `client_env()` on corpus files: it
+    exits 1 when a call returns C_KZG_ERROR or C_KZG_MALLOC."""
+    if not sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        raise RuntimeError("this Python has no shared libpython for a C program to embed")
+    if target is not None and target not in range(6):
+        raise ValueError(f"the dedicated targets are 0..5, got {target}")
+    build()
+    _, ldflags = _python_flags()
+    defines = ["-DSTANDALONE_REPLAY", "-DN_FIELD=4", "-DFIELD_ELEMENTS_PER_BLOB=4",
+               f'-DTRUSTED_SETUP_PATH="{SETUP_4}"']
+    if target is not None:
+        defines.append(f"-DFUZZ_TARGET={target}")
+    # the name carries the defines, so a checkout moved to another path builds anew
+    tag = hashlib.sha256(" ".join(defines).encode()).hexdigest()[:8]
+    out = os.path.join(BUILD_DIR, f"fuzz_capi_{'combined' if target is None else target}_{tag}")
+    return _compile(out, (FUZZ, HEADER, LIBRARY),
+                    ["-O2", "-Wall", *defines, "-I", CAPI_DIR, FUZZ, "-L", BUILD_DIR,
+                     "-llambdaworks_kzg_tpu_torch", "-Wl,-rpath," + BUILD_DIR, *ldflags])
 
 
 def client_env(env=None) -> dict:

@@ -210,6 +210,9 @@ def load_trusted_setup_from_bytes(g1_bytes, g2_bytes, use_cache: bool = True,
     n1 = len(g1_bytes)
     if n1 < 2 or n1 & (n1 - 1):
         raise SetupLoadError("g1 count must be a power of two")
+    short = [i for i, b in enumerate(g1_bytes) if len(b) != 48]
+    if short:
+        raise SetupLoadError(f"bad g1 point at index {short[0]}: bad length")
     digest = setup_digest(g1_bytes, g2_bytes)
     cache = _cache_path(digest, cache_dir or CACHE_DIR)
     if use_cache and os.path.exists(cache):

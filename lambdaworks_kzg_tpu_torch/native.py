@@ -17,6 +17,14 @@ raises `RuntimeError`; there is no quiet fallback to Python ints.
 LWKZG_NATIVE=0 turns the tier off: `available()` is then False and the
 callers take their other tier.
 
+LWKZG_NATIVE_LIB=<path>, read at the first load, loads that build of the
+same ABI instead of building one (JAX's `native.py`): a missing file or
+one that fails to load or to pass `lw_init` raises `RuntimeError`, with
+no fallback to the default build. `build(flags=ASAN_CXXFLAGS)` makes the
+sanitizer build (ASan + UBSan at -O1, the JAX `native/Makefile`'s `asan`
+flags) under its own digest name beside the -O3 one;
+`scripts/torch_native_asan.py` runs `tests/test_torch_native.py` on it.
+
 Affine points are (x, y) ints, G2 ((x0, x1), (y0, y1)), None for
 infinity; coordinates travel as 48-byte big-endian words.
 """
@@ -35,27 +43,29 @@ SOURCE_DIR = os.path.join(_PKG, "csrc", "native")
 SOURCES = ("bls12_381.cpp", "hard_exp.inc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXXFLAGS = ("-O3", "-fPIC", "-Wall", "-Wextra", "-std=c++17", "-shared")
+ASAN_CXXFLAGS = ("-O1", "-g", "-fPIC", "-Wall", "-Wextra", "-std=c++17",
+                 "-fsanitize=address,undefined", "-fno-sanitize-recover=all", "-shared")
 
 _lock = threading.Lock()
 _lib = None
 
 
-def library_path(build_dir: str = BUILD_DIR) -> str:
+def library_path(build_dir: str = BUILD_DIR, flags=CXXFLAGS) -> str:
     return B.digest_path(build_dir, "libbls12381_native",
-                         [os.path.join(SOURCE_DIR, s) for s in SOURCES], CXXFLAGS)
+                         [os.path.join(SOURCE_DIR, s) for s in SOURCES], flags)
 
 
-def build(build_dir: str = BUILD_DIR) -> dict:
-    """Compile the library if these sources have none yet in build_dir.
-    -> {"library", "seconds", "built", "log"}; RuntimeError when the
-    compiler fails or is missing."""
-    lib_path = library_path(build_dir)
+def build(build_dir: str = BUILD_DIR, flags=CXXFLAGS) -> dict:
+    """Compile the library with `flags` if these sources have none yet in
+    build_dir. -> {"library", "seconds", "built", "log"}; RuntimeError
+    when the compiler fails or is missing."""
+    lib_path = library_path(build_dir, flags)
     with B.exclusive(lib_path):
         if os.path.exists(lib_path):
             return {"library": lib_path, "seconds": 0.0, "built": False, "log": ""}
         cxx = os.environ.get("CXX") or "g++"
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [cxx, *CXXFLAGS, os.path.join(SOURCE_DIR, SOURCES[0]), "-o", tmp]
+        cmd = [cxx, *flags, os.path.join(SOURCE_DIR, SOURCES[0]), "-o", tmp]
         t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
@@ -77,7 +87,13 @@ def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build()["library"])
+            named = os.environ.get("LWKZG_NATIVE_LIB")
+            if named and not os.path.isfile(named):
+                raise RuntimeError(f"LWKZG_NATIVE_LIB names no file: {named}")
+            try:
+                lib = ctypes.CDLL(named or build()["library"])
+            except OSError as e:
+                raise RuntimeError(f"the native tier did not load: {e}") from e
             p, i, n = ctypes.c_char_p, ctypes.c_int, ctypes.c_size_t
             signatures = {
                 "lw_init": [],
@@ -91,6 +107,8 @@ def _load():
                 "lw_g1_msm": [i, p, p, p, p],
             }
             for name, argtypes in signatures.items():
+                if not hasattr(lib, name):
+                    raise RuntimeError(f"the native library {lib._name} has no {name}")
                 fn = getattr(lib, name)
                 fn.argtypes, fn.restype = argtypes, i
             rc = lib.lw_init()

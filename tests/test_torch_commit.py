@@ -250,14 +250,17 @@ sys.path.insert(0, repo)
 import lambdaworks_kzg_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
-spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(repo, "chip_smoke.py"))
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name, path in (("chip_smoke", "chip_smoke.py"),
+                   ("torch_native_asan", os.path.join("scripts", "torch_native_asan.py"))):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(repo, path))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 for name in ("ops.ntt", "ops.fp2_ops", "ops.tower_ops", "ops.g2_ops", "ops.pairing_ops",
              "utils.blob", "utils.config", "parallel", "parallel.mesh", "parallel.msm",
              "parallel.ntt", "capi_adapter", "capi", "native", "parallel.distributed",
-             "utils.profiling", "utils.build"):
+             "utils.profiling", "utils.build", "fuzz", "fuzz.fuzz_differential",
+             "fuzz.gen_corpus", "utils.yaml_vectors"):
     assert pkg.__name__ + "." + name in sys.modules, name
 print("ok")
 """

@@ -12,6 +12,13 @@ CPU device, mirroring JAX `tests/test_distributed.py`.
   0 alone), the batch's proofs, and a batch verification true and with
   two proofs swapped, byte-equal in every process to one process's
   context without a mesh;
+- the sharded NTT at n = 64, forward and inverse, with the ``data`` axis
+  across the processes, with ``points`` across them (``data=1``), with
+  ``points`` across them at two CPU devices a process (two cells each),
+  and on the points axis of the default mesh at two devices a process
+  (row 0: rank 0's cells only): every process returns the JAX package's
+  `host/fft.fr_fft` and the one-process `sharded_ntt` on a logical mesh
+  of four CPU devices;
 - `initialize()` with no coordinator is a no-op returning False, and
   `global_mesh` without a process group is `make_mesh`.
 
@@ -30,13 +37,16 @@ import pytest
 import torch
 
 from lambdaworks_kzg_tpu.host import curve as JHC
+from lambdaworks_kzg_tpu.host import fft as JFFT
 from lambdaworks_kzg_tpu_torch import EIP4844Context
 from lambdaworks_kzg_tpu_torch.models import srs
 from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend, auto_window
 from lambdaworks_kzg_tpu_torch.parallel import distributed, make_mesh
+from lambdaworks_kzg_tpu_torch.parallel.ntt import sharded_ntt_ints
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, SECRET, SEED = 16, 0xD15C0, 77
+NTT_N = 64
 
 # shared by the workers and the one-process reference below
 _COMMON = r"""
@@ -76,6 +86,11 @@ def inputs(n, seed):
     return msm_scalars, blobs
 
 
+def ntt_values(n, seed):
+    rng = random.Random(seed + 1)
+    return [rng.randrange(R) for _ in range(n)]
+
+
 def entry_points(ctx, blobs):
     cs = ctx.blob_to_kzg_commitment_batch(blobs)
     single = ctx.blob_to_kzg_commitment(blobs[2])
@@ -94,7 +109,7 @@ import sys
 torch.set_num_threads(1)
 from lambdaworks_kzg_tpu_torch.parallel import distributed
 
-coord, world, rank, n, secret, seed = sys.argv[1], *map(int, sys.argv[2:])
+coord, world, rank, n, secret, seed, ntt_n = sys.argv[1], *map(int, sys.argv[2:])
 assert distributed.initialize(coord, world, rank) is True
 assert distributed.is_initialized() and distributed.initialize() is True
 assert torch.distributed.get_backend() == "gloo"
@@ -104,6 +119,7 @@ from lambdaworks_kzg_tpu_torch.models import srs
 from lambdaworks_kzg_tpu_torch.ops import msm
 from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend, auto_window
 from lambdaworks_kzg_tpu_torch.parallel import sharded_msm
+from lambdaworks_kzg_tpu_torch.parallel.ntt import sharded_ntt_ints
 
 setup = srs.create_dev_setup(n, secret=secret)
 affine = basis_affine(setup)
@@ -125,7 +141,19 @@ assert mesh.shape == {"data": world, "points": 1}
 backend = TorchBackend(setup, "cpu", fixedbase=host_table(affine, auto_window(n)), mesh=mesh)
 out = entry_points(EIP4844Context(setup, backend=backend), blobs)
 out["msm"] = [str(v) for v in HC.to_affine(got)]
+# the NTT with each axis across the processes; with two cells a process
+# (its exchange padded to two slots), and on the default layout's points
+# axis, whose cells are all rank 0's (the others send zeros and gather)
+values = ntt_values(ntt_n, seed)
+two = ["cpu"] * 2
+meshes = (("data", "data", mesh), ("points", "points", distributed.global_mesh(data=1, points=world)),
+          ("points_two_cells", "points", distributed.global_mesh(data=1, points=2 * world, local_devices=two)),
+          ("points_rank0_row", "points", distributed.global_mesh(local_devices=two)))
+out["ntt"] = {name: [sharded_ntt_ints(m, axis, values, inverse) for inverse in (False, True)]
+              for name, axis, m in meshes}
 print("RESULT " + json.dumps(out), flush=True)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 """
 
 
@@ -153,6 +181,11 @@ def one_process():
         torch.set_num_threads(n_threads)
     want = JHC.to_affine(JHC.FP_OPS, JHC.g1_msm(msm_scalars, affine))
     out["msm"] = [str(v) for v in want]
+    values = scope["ntt_values"](NTT_N, SEED)
+    fft = [JFFT.fr_fft(values, inverse) for inverse in (False, True)]
+    for axis, mesh in (("data", make_mesh(["cpu"] * 4, data=4)), ("points", make_mesh(["cpu"] * 4, data=1))):
+        assert [sharded_ntt_ints(mesh, axis, values, inverse) for inverse in (False, True)] == fft
+    out["ntt"] = {name: fft for name in ("data", "points", "points_two_cells", "points_rank0_row")}
     return out
 
 
@@ -167,7 +200,7 @@ def test_processes_match_one_process(tmp_path, one_process, world):
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["CUDA_VISIBLE_DEVICES"] = ""
     procs = [subprocess.Popen([sys.executable, str(script), coord, str(world), str(rank), str(N),
-                               str(SECRET), str(SEED)],
+                               str(SECRET), str(SEED), str(NTT_N)],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for rank in range(world)]
     outs = []

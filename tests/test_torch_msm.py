@@ -385,3 +385,22 @@ def test_backend_msm_matches_host_oracle_and_checks_scalar_bits(basis, port_tabl
     msm.check_scalar_bits(msm.scalars_to_tensor([R - 1]), 255)
     with pytest.raises(ValueError, match="2\\^254"):
         msm.check_scalar_bits(msm.scalars_to_tensor([R - 1]), 254)
+
+
+@pytest.mark.parametrize("scalar_bits", [255, 248])
+def test_generic_msm_at_c12_on_tiled_points_matches_host_oracle(basis, scalar_bits):
+    """The generic MSM's window at 2^20 points (c = 12: 22 windows, the
+    reduce's global-scratch route on the card) at 64 points: the basis
+    (one point at infinity) tiled twice, so equal points share buckets
+    and the accumulation's doubling branch runs; scalars below
+    2^scalar_bits, with a zero. ~10 s each: the plain reduce of 8 x 4096
+    buckets takes ~5 s at any size, the plain table and accumulation
+    grow with the points."""
+    pts_aff = list(basis[0]) * 2
+    rng = random.Random(scalar_bits)
+    scalars = [rng.randrange(min(R, 1 << scalar_bits)) for _ in pts_aff]
+    scalars[5] = 0
+    points, valid = g1_ops.make_points_host(pts_aff)
+    got = msm.msm(lb.as_limb_tensor(points), torch.from_numpy(valid), msm.scalars_to_tensor(scalars),
+                  12, scalar_bits=scalar_bits)
+    assert HC.to_affine(HC.FP_OPS, got) == HC.to_affine(HC.FP_OPS, HC.g1_msm(scalars, pts_aff))

@@ -13,12 +13,19 @@ the JAX package's native tier, on the same seeded inputs; JAX
   to the thresholds to the tier, and a CUDA backend never does;
 - `verify_blob_kzg_proof` evaluates its blob on the tier, and the batch
   verification on it gives the JAX host-backend context's verdicts;
-- the library loaded lies under the port's `_build/`, and a build whose
-  compiler fails raises instead of falling back."""
+- the library loaded lies under the port's `_build/` (the one
+  LWKZG_NATIVE_LIB names, when it is set), and a build whose compiler
+  fails raises instead of falling back;
+- LWKZG_NATIVE_LIB loads the file it names, a path with no file raises,
+  and the sanitizer build has a name of its own; the opt-in `slow` test
+  runs `scripts/torch_native_asan.py`."""
 
 import copy
 import os
 import random
+import shutil
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -328,7 +335,7 @@ def test_library_is_the_ports_own_build():
     path = os.path.realpath(lib._name)
     assert path.startswith(os.path.join(os.path.realpath(PKG), "_build") + os.sep)
     assert os.path.basename(path).startswith("libbls12381_native_")
-    assert path == os.path.realpath(native.library_path())
+    assert path == os.path.realpath(os.environ.get("LWKZG_NATIVE_LIB") or native.library_path())
     assert native.build()["built"] is False
 
 
@@ -340,3 +347,36 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="did not build"):
         native.build(str(tmp_path))
     assert not [f for f in os.listdir(tmp_path) if f.endswith((".so", ".tmp"))]
+
+
+def test_native_lib_selects_the_library(tmp_path, monkeypatch):
+    copied = tmp_path / "libcopy.so"
+    shutil.copy(native.build()["library"], copied)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setenv("LWKZG_NATIVE_LIB", str(copied))
+    lib = native._load()
+    assert lib._name == str(copied) and native.available()
+    g = HC.to_affine(HC.G1_GENERATOR)
+    assert native.g1_scalar_mul_affine(g, 5) == HC.to_affine(HC.point_scalar_mul(HC.G1_GENERATOR, 5))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setenv("LWKZG_NATIVE_LIB", str(tmp_path / "missing.so"))
+    with pytest.raises(RuntimeError, match="names no file"):
+        native.available()
+    (tmp_path / "junk.so").write_bytes(b"not a library")
+    monkeypatch.setenv("LWKZG_NATIVE_LIB", str(tmp_path / "junk.so"))
+    with pytest.raises(RuntimeError, match="did not load"):
+        native._load()
+    assert native._lib is None
+
+
+def test_sanitizer_build_has_its_own_name():
+    plain, asan = native.library_path(), native.library_path(flags=native.ASAN_CXXFLAGS)
+    assert plain != asan and os.path.dirname(plain) == os.path.dirname(asan)
+    assert "-fsanitize=address,undefined" in native.ASAN_CXXFLAGS and "-O1" in native.ASAN_CXXFLAGS
+
+
+@pytest.mark.slow
+def test_native_tests_pass_under_asan():
+    script = os.path.join(os.path.dirname(PKG), "scripts", "torch_native_asan.py")
+    proc = subprocess.run([sys.executable, script], capture_output=True, text=True, timeout=1800)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
