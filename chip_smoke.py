@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the twelve kernels and the two field checks from
+  2. nvcc builds the sixteen kernels and the three field checks from
      lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
      linked into one library), and beside it g++ the native tier
      (csrc/native/bls12_381.cpp, native.py); ptxas' report, and per pairing kernel its
@@ -52,7 +52,17 @@ Phases, each printed with its seconds:
      on points with Z != 1, FE^3 also against the host pairing cubed; the
      plain versions run once per shape (scripts/pairing_profile.py counts
      their launches per check; scripts/pairing_probe.py splits the
-     kernels' time);
+     kernels' time); fr_check (fr.cuh's product, square, sum, difference,
+     negation, inverse and conversions) against the plain FR on 4096
+     elements with 0, 1, r - 1, r - 2, 2 and R mod r among them, and at
+     the blob domain (n = 4096) on 1, 6 and 64 blobs fr_to_mont,
+     fr_evaluate, fr_quotient and fr_quotient_in_domain (m = 0, 1, n - 1)
+     against FR.to_mont and FrDomain's plain versions, blob 0 also
+     against the host's evaluation and quotient, FrDomain.open_mont (the
+     first three in a row, in the kernel layout) against them one by
+     one, and fr_evaluate at roots of unity patched to the stored
+     elements; each timed (CUDA events)
+     beside its plain version's one call and its bound;
  3b. the setup conversion: testdata/trusted_setup.txt converted on the
      card into a temporary cache_dir, its lagrange, monomial and g2
      byte-equal to cache/srs_mainnet.npz, with exactly one g1_decompress,
@@ -87,6 +97,7 @@ Phases, each printed with its seconds:
      pairing_miller_loop and one pairing_final_exp per pairing check it
      makes, and no host pairing runs; each batch of n >= 2 that passes
      its input checks launches g1_decompress and g1_subgroup_mask once,
+     fr_to_mont and fr_evaluate once (its blob evaluations),
      g1_fixedbase_table, g1_bucket_accumulate and g1_bucket_reduce three
      times (one generic MSM per linear combination) and each pairing
      kernel once; seeded batches of 6 and 64 blobs, committed and proved
@@ -103,11 +114,15 @@ Phases, each printed with its seconds:
      verdicts, one Python-int pairing per check;
   9. the prove path: three seeded blobs through compute_blob_kzg_proof
      and a batch of six through compute_blob_kzg_proof_batch (twice),
-     timed with CUDA events, each call launching each MSM kernel once and
-     the batch equal to the singles; then for one blob and for six the Fr
-     evaluation and quotient and the MSM timed apart, and counted under
-     torch.profiler (launches, device busy), and the host syncs of a proof
-     and of a batch counted;
+     timed with CUDA events, each call launching each MSM kernel and each
+     of fr_to_mont, fr_evaluate and fr_quotient once and the batch equal
+     to the singles, and compute_kzg_proof at a root of unity (fr_to_mont
+     and fr_quotient_in_domain once; y the stored element, the proof
+     verified); one proof's launches under torch.profiler (twice); then
+     for one blob and for six the Fr part (fr_ms: the
+     conversion, evaluation and quotient) and the MSM timed apart, and
+     counted under torch.profiler (launches, under 100 for the Fr part;
+     device busy), and the host syncs of a proof and of a batch counted;
  10. each kernel timed with CUDA events: the MSM kernels at the path's
      shapes for one blob and for six (seeded random blobs, c = 8), and the
      accumulation on the real quotient, madd at the 2048 lanes of one
@@ -120,8 +135,9 @@ Phases, each printed with its seconds:
      2 and 4096 of the mainnet inverse FFT, g1_subgroup_mask on 4096, 128
      and 12 points, the two field checks on 4096 elements, and both
      pairing kernels at B = 2 (with phase 2's level counts and ptxas
-     figures); plain times are phase 3's at the same shapes where it ran
-     them; then utils/profiling.py's roofline table (g1_madd, g1_add,
+     figures), and the Fr kernels at phase 3's times; plain times are
+     phase 3's at the same shapes where it ran them; then
+     utils/profiling.py's roofline table (g1_madd, g1_add,
      g1_dbl chained in one CUDA graph at 8192 lanes, the plain Fp product);
  11. the multi-device tier (lambdaworks_kzg_tpu_torch/parallel) on the
      converted setup, on logical meshes over the card named four times,
@@ -151,7 +167,9 @@ Phases, each printed with its seconds:
      C_KZG_BADARGS on a null one (a vector the fixed-size ABI cannot
      express, a wrong length, must expect null), each call launching
      g1_bucket_accumulate and g1_bucket_reduce once for a commitment or a
-     proof, the pairing kernels once for a verdict, a batch of n >= 2
+     proof, and for a proof fr_to_mont and fr_evaluate and fr_quotient
+     once (fr_quotient_in_domain in their place at a root of unity), the
+     pairing kernels once for a verdict, a batch of n >= 2
      VERIFY_BATCH_LAUNCHES, and nothing for a BADARGS call (a failed
      batch: at most its decompression and subgroup check); the blst G1 and
      G2 tables' first and last entries against the setup file's points;
@@ -170,7 +188,8 @@ Phases, each printed with its seconds:
      the three sizes a CPU backend sends to the tier, natively and on the
      card: 12 decompressions (g1_decompress + g1_subgroup_mask), the three
      generic MSMs of a batch of 6 (6, 6 and 7 points), 6 blob evaluations
-     (the card's Fr path); each in turns, medians of 5, equal results;
+     (on the card one fr_to_mont and one fr_evaluate launch); each in
+     turns, medians of 5, equal results;
  14. parallel/distributed.py: `python3 chip_smoke.py --rank ...` processes
      on localhost, world size 1 (nccl), then 2 and 4 ranks on gloo
      sharing the one card; each rank initializes the group (which must
@@ -210,8 +229,9 @@ context to its last call, summed over the ranks and worlds), the generic
 MSM path (phase 15, each shape's msm_device call) and the fuzz path
 (phase 16, the differential in this process); phase
 3b checks the conversion's exact launches, phase 4 that the table build
-made one table launch and no g1_dbl launch, phases 6 and 9 that each
-call launches each MSM kernel once, phase 8 the launches of each vector
+made one table launch and no g1_dbl launch, phases 6 and 9 each call's
+launches (the MSM kernels once, and a proof's Fr kernels), and the Fr
+part of phase 9's split, phase 8 the launches of each vector
 and batch, 8b none of the pairing kernels, phases 11 and 12 each call's,
 phase 14 that the path launched each of DIST_KERNELS, phase 15 each
 of PATH_KERNELS.
@@ -243,10 +263,13 @@ VECTORS = os.path.join(HERE, "testdata", "consensus", "blob_to_kzg_commitment", 
 sys.path.insert(0, HERE)
 try:  # the H100's peak rates and the IMADs of an Fp product and a point op
     from lambdaworks_kzg_tpu_torch.utils.profiling import (FP_OPS, HBM_BYTES_PER_S, IMAD_PER_FP_MUL,
-                                                           IMAD_PER_FP_SQR, IMAD_PER_S, card_line)
+                                                           IMAD_PER_FP_SQR, IMAD_PER_FR_MUL,
+                                                           IMAD_PER_FR_REDC, IMAD_PER_FR_SQR,
+                                                           IMAD_PER_S, card_line)
 except ImportError as e:
     sys.exit(f"chip_smoke: {PKG}/ must sit beside this script ({e})")
 FP_BYTES = 48
+FR_BYTES = 32
 
 
 def op_imads(op: str) -> int:
@@ -272,10 +295,10 @@ def chain_ops(e: int, k: int) -> tuple:
     return muls, sqrs
 
 
-def pow_imads(e: int) -> int:
-    """IMADs of a^e by the cheapest sliding window of 1 to 8 bits."""
-    return min(m * IMAD_PER_FP_MUL + s * IMAD_PER_FP_SQR
-               for m, s in (chain_ops(e, k) for k in range(1, 9)))
+def pow_imads(e: int, mul: int = IMAD_PER_FP_MUL, sqr: int = IMAD_PER_FP_SQR) -> int:
+    """IMADs of a^e by the cheapest sliding window of 1 to 8 bits, at a
+    product's and a squaring's IMADs (Fp's unless given)."""
+    return min(m * mul + s * sqr for m, s in (chain_ops(e, k) for k in range(1, 9)))
 
 
 def inv_imads() -> int:
@@ -284,6 +307,60 @@ def inv_imads() -> int:
     from lambdaworks_kzg_tpu_torch.constants import P
 
     return pow_imads(P - 2)
+
+
+def fr_inv_imads() -> int:
+    """IMADs of a^(r - 2) in Fr at its cheapest window. fr::inv runs a
+    fixed 4-bit window, 252 squarings and 73 products."""
+    from lambdaworks_kzg_tpu_torch.constants import R
+
+    return pow_imads(R - 2, IMAD_PER_FR_MUL, IMAD_PER_FR_SQR)
+
+
+def fr_kernel_work(name: str, n: int, blobs: int) -> tuple:
+    """(bytes, IMADs) an Fr kernel needs at least for `blobs` blobs over the
+    domain of n: each input read once and each output written once (the
+    roots once for all blobs), and per blob the fewest products the
+    function takes, whichever schedule the kernel runs:
+
+    - fr_evaluate: y = (z^n - 1) / n (z sum_i e_i / (z - w_i) - sum_i e_i),
+      as w / (z - w) = z / (z - w) - 1; a tree of fraction sums
+      a / b + c / d = (a d + c b) / (b d) over the n terms takes 3 (n - 1)
+      products, then one inversion and 4 products (its quotient, z, z^n - 1
+      and 1 / n);
+    - fr_quotient: Montgomery's trick over the n denominators, 3 (n - 1)
+      products and one inversion, then n products (e_i - y) / (w_i - z),
+      which come out plain with R^-1 folded into the one inversion (one
+      product);
+    - fr_quotient_in_domain: the quotient's, and n more for
+      q_m = -(1 / z) sum_{i != m} q_i w_i on the q_i already made;
+    - fr_to_mont: one product an element;
+    - fr_check on n lanes: two products (a b, to_mont), a squaring, an
+      inversion and a reduction (from_mont) a lane.
+
+    The inversion is `fr_inv_imads`."""
+    elems, roots = blobs * n * FR_BYTES, n * FR_BYTES
+    inv = fr_inv_imads()
+    quotient = blobs * ((3 * (n - 1) + n + 1) * IMAD_PER_FR_MUL + inv)
+    if name == "fr_to_mont":
+        return 2 * elems, blobs * n * IMAD_PER_FR_MUL
+    if name == "fr_evaluate":
+        return (elems + roots + 3 * blobs * FR_BYTES + FR_BYTES,
+                blobs * ((3 * (n - 1) + 4) * IMAD_PER_FR_MUL + inv))
+    if name == "fr_quotient":
+        return 2 * elems + roots + 2 * blobs * FR_BYTES, quotient
+    if name == "fr_quotient_in_domain":
+        return 2 * elems + roots + blobs * (FR_BYTES + 4), quotient + blobs * n * IMAD_PER_FR_MUL
+    if name == "fr_check":
+        return 10 * n * FR_BYTES, n * (2 * IMAD_PER_FR_MUL + IMAD_PER_FR_SQR + IMAD_PER_FR_REDC + inv)
+    raise ValueError(name)
+
+
+def bound(nbytes: int, imads: int) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes over its memory rate and the IMADs over its multiply rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def decompress_imads(n: int) -> int:
@@ -431,7 +508,15 @@ CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
 EDGE_LANES = (1, 12, 31, 33, 128)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
-PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce")
+# a batch's Fr part: one conversion to Montgomery form, one evaluation,
+# one quotient; a proof at a root of unity: the conversion and the
+# in-domain quotient; a batch verification's blob evaluations
+FR_PROOF_LAUNCHES = {"fr_to_mont": 1, "fr_evaluate": 1, "fr_quotient": 1}
+FR_ROOT_LAUNCHES = {"fr_to_mont": 1, "fr_quotient_in_domain": 1}
+FR_EVAL_LAUNCHES = {"fr_to_mont": 1, "fr_evaluate": 1}
+FR_KERNELS = ("fr_to_mont", "fr_evaluate", "fr_quotient", "fr_quotient_in_domain")
+FR_BLOBS = (1, 6, 64)  # phase 3's batches at the blob domain: a proof, a block, a batch verification
+PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", *FR_KERNELS)
 MESH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table", "g1_add")
 # one conversion of the mainnet setup (n = 4096): one decompression, one
 # subgroup check, 12 FFT stages of one launch each, and [1/n]
@@ -441,10 +526,11 @@ FFT_STAGE_LENGTHS = (2, 64, 4096)  # checked in phase 3: first, a middle and las
 # one pairing check of the device tier: one launch of each pairing kernel
 PAIRING_LAUNCHES = {"pairing_miller_loop": 1, "pairing_final_exp": 1}
 # one verify_blob_kzg_proof_batch of n >= 2 blobs whose inputs pass the
-# checks, on a card: one batched decompression and subgroup check, three
-# generic MSMs, one pairing check
+# checks, on a card: one batched decompression and subgroup check, the
+# blob evaluations, three generic MSMs, one pairing check
 VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fixedbase_table": 3,
-                         "g1_bucket_accumulate": 3, "g1_bucket_reduce": 3, **PAIRING_LAUNCHES}
+                         "g1_bucket_accumulate": 3, "g1_bucket_reduce": 3, **FR_EVAL_LAUNCHES,
+                         **PAIRING_LAUNCHES}
 # the same batch on the host pairing tier: no pairing kernel
 HOST_TIER = {name: -n for name, n in PAIRING_LAUNCHES.items()}
 NTT_N = 4096  # the blob domain
@@ -479,7 +565,8 @@ CAPI_VECTOR_COUNT = 208
 CAPI_SIZES = {"blob": 131072, "blobs": 131072, "z": 32, "y": 32, "commitment": 48,
               "commitments": 48, "proof": 48, "proofs": 48}
 CAPI_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce",
-                "pairing_miller_loop", "pairing_final_exp", "g1_decompress", "g1_subgroup_mask")
+                "pairing_miller_loop", "pairing_final_exp", "g1_decompress", "g1_subgroup_mask",
+                *FR_KERNELS)
 MSM_LAUNCHES = {"g1_bucket_accumulate": 1, "g1_bucket_reduce": 1}
 C_KZG_OK, C_KZG_BADARGS = 0, 1
 CAPI_REPS = 5  # timed calls per entry point, through the ABI and on a Python context
@@ -488,7 +575,8 @@ NATIVE_REPS = 5  # phase 13's calls per way, in turns
 # ranks on one card), the kernels every world's ranks launch in all
 DIST_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 DIST_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce", "g1_add",
-                "g1_decompress", "g1_subgroup_mask", "pairing_miller_loop", "pairing_final_exp")
+                "g1_decompress", "g1_subgroup_mask", "pairing_miller_loop", "pairing_final_exp",
+                "fr_to_mont", "fr_evaluate")
 DIST_TIMEOUT_S = 240
 # phase 15: the generic MSM at the JAX package's bench shapes one card runs
 # (n, window bits, scalar bits): bench.py's msm_2e20(_packed248) and
@@ -751,24 +839,20 @@ def run_vector_subset(ctx, counts: dict) -> int:
     return checks
 
 
-def timed_call(fn, *args):
+def timed_call(fn, *args, want=MSM_LAUNCHES):
     """fn(*args) between two CUDA events -> (result, ms); raises unless the
-    call launched each MSM kernel exactly once."""
+    call launched exactly `want` (each MSM kernel once, and a proof's Fr
+    kernels), nothing else."""
     import torch
 
-    from lambdaworks_kzg_tpu_torch.ops import kernels
-
-    msm_kernels = (kernels.bucket_accumulate, kernels.bucket_reduce)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    before = [k.launches for k in msm_kernels]
+    before = launch_counts()
     start.record()
     out = fn(*args)
     end.record()
     torch.cuda.synchronize()
-    per_call = [k.launches - b for k, b in zip(msm_kernels, before)]
-    if per_call != [1, 1]:
-        raise AssertionError(f"one call launched (accumulate, reduce) {per_call}, not once each")
+    expect_launches("one call", before, want)
     return out, start.elapsed_time(end)
 
 
@@ -794,6 +878,17 @@ def device_work(fn) -> dict:
     return out if out["kernels"] else None
 
 
+def measured_device_work(fn, what: str, tries: int = 3) -> dict:
+    """device_work(fn) until the profiler records device work, at most
+    `tries` runs (a process's first short profiled windows have been seen
+    to record none); raises where it never does."""
+    for _ in range(tries):
+        out = device_work(fn)
+        if out:
+            return out
+    raise AssertionError(f"the profiler recorded no device work for {what} in {tries} runs")
+
+
 def host_syncs(fn) -> int:
     """How many times fn() makes the host wait for the card: the
     synchronizing calls PyTorch's sync debug mode reports (transfers to
@@ -814,36 +909,42 @@ def host_syncs(fn) -> int:
 
 
 def prove_split(backend, blobs, zs) -> dict:
-    """One batch's evaluation and quotient (PyTorch ops on the card), then
+    """One batch's Fr part as TorchBackend.open_scalars runs it
+    (`FrDomain.open_mont`: z's transfer, the conversion to Montgomery
+    form, the evaluation and the quotient, one launch each of fr_to_mont,
+    fr_evaluate and fr_quotient, checked), then
     its MSM with the proofs' transfer to the host, each between CUDA
-    events, and each once more under the profiler for its launches."""
+    events, and each once more under the profiler for its launches (the
+    Fr part's are always measured, retried as `measured_device_work`
+    does, and must stay under 100)."""
     import torch
-
-    from lambdaworks_kzg_tpu_torch.ops.field_ops import FR
 
     domain = backend.domain
     scalars = backend.blob_scalars(blobs)
-    z_m, zn1_m = domain.z_consts(zs)
 
     def fr():
-        evals_m = FR.to_mont(scalars)
-        return domain.quotient_mont(evals_m, domain.evaluate_mont(evals_m, z_m, zn1_m), z_m)
+        return domain.open_mont(scalars, zs)[0]
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     torch.cuda.synchronize()
+    before = launch_counts()
     ev[0].record()
     q = fr()
     ev[1].record()
+    expect_launches(f"the Fr part of {len(blobs)} proofs", before, FR_PROOF_LAUNCHES)
     backend.commit_scalars(q)
     ev[2].record()
     torch.cuda.synchronize()
-    return {
+    out = {
         "blobs": len(blobs),
         "fr_ms": ev[0].elapsed_time(ev[1]),
         "msm_ms": ev[1].elapsed_time(ev[2]),
-        "fr_device": device_work(fr),
+        "fr_device": measured_device_work(fr, f"the Fr part of {len(blobs)} proofs"),
         "msm_device": device_work(lambda: backend.commit_scalars(q)),
     }
+    if out["fr_device"]["kernels"] >= 100:
+        raise AssertionError(f"the Fr part of {len(blobs)} proofs made {out['fr_device']} launches")
+    return out
 
 
 def synthetic_table(points, n_rows: int, c: int, n_blobs: int, seed: int):
@@ -1362,6 +1463,101 @@ def check_pairing_kernels(dev, max_err: dict) -> dict:
     return out
 
 
+def check_fr_kernels(dev, max_err: dict) -> dict:
+    """The Fr kernels against their plain versions on the card, limb for
+    limb: fr_check against the plain FR on NTT_N elements (all pairs of 0,
+    1, r - 1, r - 2, 2, R mod r, and seeded pairs); at the blob domain
+    (n = NTT_N) for each of FR_BLOBS blobs of seeded elements below r,
+    fr_to_mont against FR.to_mont, fr_evaluate (z outside the domain),
+    fr_quotient and fr_quotient_in_domain (m = 0, 1, n - 1 in turn) through
+    FrDomain against its *_plain versions, blob 0's y and q against the
+    host's, and evaluate_blobs_plain at roots (fr_evaluate finishes there,
+    and the lanes take the stored elements). Each kernel timed on its
+    kernel-layout inputs (CUDA events behind a spin, 20 launches), its
+    plain version once -> {kernel name: {"b<B>" or "m<M>": {"ms",
+    "plain_ms", "bound_ms", "bound_by", ...}}}."""
+    import numpy as np
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host import fft
+    from lambdaworks_kzg_tpu_torch.ops import fr_poly, kernels, limbs as lb
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FR
+
+    def check(name: str, what: str, got16, want16) -> None:
+        max_err[name] = max(max_err[name], same(f"{name} {what}", got16, want16))
+
+    n = NTT_N
+    out = {name: {} for name in FR_KERNELS + ("fr_check",)}
+    rng = random.Random(12)
+    edge = [0, 1, R - 1, R - 2, 2, (1 << 256) % R]
+    pairs = [(x, y) for x in edge for y in edge]
+    pairs += [(rng.randrange(R), rng.randrange(R)) for _ in range(n - len(pairs))]
+    a16, b16 = (lb.as_limb_tensor(lb.ints_to_limbs(v, 16), dev) for v in zip(*pairs))
+    a32, b32 = lb.to_u32_layout(a16), lb.to_u32_layout(b16)
+    got = lb.to_u16_layout(kernels.fr_check(a32, b32))
+    want, plain_ms = events_ms(lambda: (FR.mul(a16, b16), FR.sqr(a16), FR.add(a16, b16), FR.sub(a16, b16),
+                                        FR.neg(a16), FR.inv(a16), FR.to_mont(a16), FR.from_mont(a16)))
+    for k, (op, w) in enumerate(zip(("mul", "sqr", "add", "sub", "neg", "inv", "to_mont", "from_mont"),
+                                    want)):
+        check("fr_check", f"M={n} {op}", got[k], w)
+    out["fr_check"][f"m{n}"] = {"lanes": n, "ms": time_ms(lambda: kernels.fr_check(a32, b32), reps=20),
+                                "plain_ms": plain_ms, **bound(*fr_kernel_work("fr_check", n, 1))}
+    log(f"  fr_check M={n}: mul, sqr, add, sub, neg, inv, to_mont and from_mont equal the plain FR; "
+        f"{out['fr_check'][f'm{n}']}")
+
+    d = fr_poly.FrDomain(n, dev)
+    nrng = np.random.default_rng(14)
+    for blobs in FR_BLOBS:
+        limbs = nrng.integers(0, 1 << 16, size=(blobs, 16, n), dtype=np.int64)
+        limbs[:, 15] = nrng.integers(0, 0x73ED, size=(blobs, n))  # below r
+        plain = torch.from_numpy(limbs).to(dev)
+        zs = [rng.randrange(R) for _ in range(blobs)]
+        z_m, zn1_m = d.z_consts(zs)
+        ms = [(0, 1, n - 1)[b % 3] for b in range(blobs)]
+        onehot = torch.stack([torch.arange(n, device=dev) == m for m in ms])
+        z_inv = torch.stack([d.mont([pow(d.roots_brp_ints[m], R - 2, R)]) for m in ms])
+        evals_m = d.to_mont(plain)
+        want, t_mont = events_ms(lambda: FR.to_mont(plain))
+        check("fr_to_mont", f"B={blobs}", evals_m, want)
+        y_m = d.evaluate_mont(evals_m, z_m, zn1_m)
+        want, t_eval = events_ms(lambda: d.evaluate_mont_plain(evals_m, z_m, zn1_m))
+        check("fr_evaluate", f"B={blobs}", y_m, want)
+        q = d.quotient_mont(evals_m, y_m, z_m)
+        want, t_quot = events_ms(lambda: d.quotient_mont_plain(evals_m, y_m, z_m))
+        check("fr_quotient", f"B={blobs}", q, want)
+        q_in = d.quotient_in_domain_mont(evals_m, ms, z_inv)
+        want, t_in = events_ms(lambda: d.quotient_in_domain_mont_plain(evals_m, onehot, z_inv))
+        check("fr_quotient_in_domain", f"B={blobs} m={sorted(set(ms))}", q_in, want)
+        q_open, y_open = d.open_mont(plain, zs)  # the three in a row, in the kernel layout
+        if not (torch.equal(q_open, q) and torch.equal(y_open, y_m)):
+            raise AssertionError(f"B={blobs}: open_mont differs from its kernels one by one")
+        evals0 = lb.limbs_to_ints(plain[0])
+        y0 = fft.barycentric_evaluate(evals0, zs[0], n)
+        if FR.from_mont_host(y_m[0]) != [y0] or lb.limbs_to_ints(q[0]) != fft.quotient(evals0, zs[0], y0, n):
+            raise AssertionError(f"B={blobs}: blob 0's y or quotient differs from the host's")
+        at_roots = d.evaluate_blobs_plain(plain, [d.roots_brp_ints[m] for m in ms])
+        if at_roots != [int(lb.limbs_to_ints(plain[b, :, m : m + 1])[0]) for b, m in enumerate(ms)]:
+            raise AssertionError(f"B={blobs}: evaluations at roots differ from the stored elements")
+        p32, e32 = lb.to_u32_layout(plain), lb.to_u32_layout(evals_m)
+        z32, zn132, y32 = (lb.to_u32_layout(t) for t in (z_m, zn1_m, y_m))
+        zi32 = lb.to_u32_layout(z_inv)
+        for name, fn, plain_ms in (
+                ("fr_to_mont", lambda: kernels.fr_to_mont(p32), t_mont),
+                ("fr_evaluate", lambda: kernels.fr_evaluate(e32, z32, zn132, d.roots_k, d.n_inv_k), t_eval),
+                ("fr_quotient", lambda: kernels.fr_quotient(e32, y32, z32, d.roots_k), t_quot),
+                ("fr_quotient_in_domain", lambda: kernels.fr_quotient_in_domain(e32, ms, zi32, d.roots_k),
+                 t_in)):
+            shape = {"blobs": blobs, "n": n, "ms": time_ms(fn, reps=20), "plain_ms": plain_ms,
+                     **bound(*fr_kernel_work(name, n, blobs))}
+            out[name][f"b{blobs}"] = shape
+            log(f"  {name} n={n} B={blobs}: equal to plain, limb for limb; kernel {shape['ms']:.4f} ms, "
+                f"plain {plain_ms:.1f} ms, bound {shape['bound_ms']:.6f} ms ({shape['bound_by']})")
+        log(f"  B={blobs}: blob 0's y and quotient equal the host's; at the roots m = {sorted(set(ms))} "
+            "the evaluations take the stored elements")
+    return out
+
+
 def check_ntt(dev) -> tuple:
     """The NTT at the blob domain on the card: forward and inverse equal
     host/fft.fr_fft, the round trip, the coefficient bridge of a seeded
@@ -1526,7 +1722,7 @@ def mesh_verify_launches(mesh, n_blobs: int) -> dict:
     checks, on a mesh: its decompression, subgroup check and pairing check
     on the lead device, and three generic MSMs (n, n and n + 1 points),
     sharded above max(16, 2 P) points (TorchBackend.msm)."""
-    want = {"g1_decompress": 1, "g1_subgroup_mask": 1, **PAIRING_LAUNCHES}
+    want = {"g1_decompress": 1, "g1_subgroup_mask": 1, **FR_EVAL_LAUNCHES, **PAIRING_LAUNCHES}
     for k in (n_blobs, n_blobs, n_blobs + 1):
         sharded = k > max(16, 2 * mesh.shape["points"])
         for name, n in mesh_generic_launches(mesh, k, sharded).items():
@@ -1557,7 +1753,8 @@ def check_mesh(setup, dev, commit_set, prove_set, verify_batches) -> dict:
     committed table; the 10 commitment vectors; batches of 6 and of 5
     blobs (5 does not divide over 2 rows) equal phase 6's commitments and
     a batch of 6 proofs phase 9's, each call in exactly
-    `mesh_batch_launches`; a generic sharded MSM of a blob over the 4096
+    `mesh_batch_launches` (a proof batch also FR_PROOF_LAUNCHES on the
+    lead device); a generic sharded MSM of a blob over the 4096
     Lagrange points equals its commitment by points, windows and auto;
     the 23 verify_blob_kzg_proof_batch vectors; seeded batches of 6 and 64
     verified true and false, each in `mesh_verify_launches`. Then the
@@ -1639,7 +1836,7 @@ def check_mesh(setup, dev, commit_set, prove_set, verify_batches) -> dict:
                 raise AssertionError(f"{label}: sharded_msm by {shard} differs from the commitment")
         before = launch_counts()
         proofs, ms = events_ms(lambda: ctx.compute_blob_kzg_proof_batch(prove_blobs, prove_cs))
-        expect_launches(f"{label}: a batch of 6 proofs", before, per_batch)
+        expect_launches(f"{label}: a batch of 6 proofs", before, {**per_batch, **FR_PROOF_LAUNCHES})
         if proofs != prove_want:
             raise AssertionError(f"{label}: a batch of 6 proofs unlike phase 9")
         res["prove_batch6_ms"] = ms
@@ -1745,16 +1942,20 @@ def capi_args(fn: str, inp: dict):
     return tuple(inp[a] for a in names)
 
 
-def capi_launches(fn: str, ret: int, n_blobs: int):
+def capi_launches(fn: str, ret: int, n_blobs: int, z_in_domain: bool = False):
     """The launches one C call must make: the MSM kernels once for a
-    commitment or a proof, the pairing kernels once for a verdict, a batch
-    of n >= 2 VERIFY_BATCH_LAUNCHES, nothing for a call that fails its
-    input checks; None for a failed batch (at most one g1_decompress and
-    one g1_subgroup_mask, which run before its blob checks)."""
+    commitment, and for a proof beside them FR_PROOF_LAUNCHES
+    (FR_ROOT_LAUNCHES where z is a root of unity), the pairing kernels once
+    for a verdict, a batch of n >= 2 VERIFY_BATCH_LAUNCHES, nothing for a
+    call that fails its input checks; None for a failed batch (at most one
+    g1_decompress and one g1_subgroup_mask, which run before its blob
+    checks)."""
     if ret != C_KZG_OK:
         return None if fn == "verify_blob_kzg_proof_batch" else {}
-    if not fn.startswith("verify"):
+    if fn == "blob_to_kzg_commitment":
         return MSM_LAUNCHES
+    if not fn.startswith("verify"):
+        return {**MSM_LAUNCHES, **(FR_ROOT_LAUNCHES if z_in_domain else FR_PROOF_LAUNCHES)}
     if fn == "verify_blob_kzg_proof_batch" and n_blobs != 1:
         return VERIFY_BATCH_LAUNCHES if n_blobs else {}
     return PAIRING_LAUNCHES
@@ -1765,8 +1966,10 @@ def run_capi_vectors(lib, settings) -> dict:
     output byte-equal to the vector's and C_KZG_BADARGS for a null one,
     each call in its `capi_launches`; a vector the fixed-size ABI cannot
     express must expect null. -> {fn: {vectors, inexpressible, s}}."""
+    from lambdaworks_kzg_tpu_torch.host import fft
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
 
+    roots = set(fft.fr_roots_of_unity(NTT_N))
     out, total = {}, 0
     for fn in CAPI_FNS:
         names = sorted(os.listdir(os.path.join(CONSENSUS, fn, "small")))
@@ -1782,7 +1985,8 @@ def run_capi_vectors(lib, settings) -> dict:
             before = launch_counts()
             ret, got = capi_call(lib, settings, fn, args)
             n_blobs = len(args[0]) if fn == "verify_blob_kzg_proof_batch" else 1
-            want = capi_launches(fn, ret, n_blobs)
+            in_domain = fn == "compute_kzg_proof" and int.from_bytes(args[1], "little") in roots
+            want = capi_launches(fn, ret, n_blobs, in_domain)
             if want is None:
                 delta = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
                 if any(n > 1 or k not in ("g1_decompress", "g1_subgroup_mask") for k, n in delta.items()):
@@ -2066,13 +2270,13 @@ def native_phase(ctx, blobs, commitments, proofs, card: str) -> dict:
         "card": lambda: host_ms(lambda: [HC.to_affine(ctx.backend.msm(sc, pts)) for sc, pts in msms]),
     }, NATIVE_REPS)
     roots = ctx.backend.domain.roots_brp_le
-    _, out["evaluate_6"] = in_turns({
+    _, out["evaluate_6"] = in_turns({  # the card's: one fr_to_mont and one fr_evaluate launch
         "native": lambda: host_ms(lambda: [native.blob_eval(b, roots, n, z) for b, z in zip(blobs, zs)]),
         "card": lambda: host_ms(lambda: ctx.backend.evaluate_blobs(blobs, zs)),
     }, NATIVE_REPS)
     for key, what in (("decompress_12", "12 decompressions (+ subgroup checks)"),
                       ("msm_6_6_7", "the three generic MSMs of a batch of 6 (6, 6, 7 points)"),
-                      ("evaluate_6", "6 blob evaluations")):
+                      ("evaluate_6", "6 blob evaluations (fr_to_mont + fr_evaluate on the card)")):
         log(f"  {what}: native {out[key]['native']['median_ms']:.3f} ms, card "
             f"{out[key]['card']['median_ms']:.3f} ms (medians of {NATIVE_REPS}, equal results)")
     return out
@@ -2429,7 +2633,7 @@ def run() -> None:
     setup = load_mainnet_setup()
     points = lb.as_limb_tensor(setup.lagrange_points, dev)
     points_valid = torch.from_numpy(setup.lagrange_valid.copy()).to(dev)
-    max_err = {k.name: 0 for k in kernels.ALL + (kernels.sqr_check, kernels.coop_check)}
+    max_err = {k.name: 0 for k in kernels.ALL + (kernels.sqr_check, kernels.coop_check, kernels.fr_check)}
     with Phase("3 kernels vs plain"):
         check_sqr(dev, 4096, seed=5)
         max_err["fp_coop_check"] = check_coop(dev, 4096, seed=6)
@@ -2460,6 +2664,7 @@ def run() -> None:
         q_order, q_bstart = check_real_quotient(setup, table16, table_valid, max_err)
         batch_plain_ms = check_batch_kernels(setup, dev, max_err)
         pairing_checked = check_pairing_kernels(dev, max_err)
+        fr_checked = check_fr_kernels(dev, max_err)
 
     kernels.reset_counts()  # the conversion path starts here
     with Phase("3b setup conversion"):
@@ -2677,33 +2882,52 @@ def run() -> None:
         rng = np.random.default_rng(4845)
         blobs = random_blobs(rng, 6)
         commitments = ctx.blob_to_kzg_commitment_batch(blobs)
+        proof_launches = {**MSM_LAUNCHES, **FR_PROOF_LAUNCHES}
+        root = ctx.backend.domain.roots_brp_ints[1]
         kernels.reset_counts()  # the prove path starts here
-        runs = [timed_call(ctx.compute_blob_kzg_proof, b, c) for b, c in zip(blobs[:3], commitments[:3])]
+        runs = [timed_call(ctx.compute_blob_kzg_proof, b, c, want=proof_launches)
+                for b, c in zip(blobs[:3], commitments[:3])]
         singles = [r[0] for r in runs]
         results["prove_ms_single"] = [r[1] for r in runs]
-        runs = [timed_call(ctx.compute_blob_kzg_proof_batch, blobs, commitments) for _ in range(2)]
+        runs = [timed_call(ctx.compute_blob_kzg_proof_batch, blobs, commitments, want=proof_launches)
+                for _ in range(2)]
         batch = runs[0][0]
         results["prove_ms_per_proof_batch6"] = [r[1] / len(blobs) for r in runs]
+        # a proof at a root of unity: the in-domain quotient
+        (root_proof, root_y), results["prove_ms_at_root"] = timed_call(
+            ctx.compute_kzg_proof, blobs[0], root.to_bytes(32, "little"),
+            want={**MSM_LAUNCHES, **FR_ROOT_LAUNCHES})
         prove_launches = launch_counts()  # the prove path ends here
         log(f"  compute_blob_kzg_proof {results['prove_ms_single']} ms per proof, "
-            f"batch of 6 {results['prove_ms_per_proof_batch6']} ms per proof; launches "
-            f"{prove_launches}; each proof and each batch launched each MSM kernel once")
+            f"batch of 6 {results['prove_ms_per_proof_batch6']} ms per proof, compute_kzg_proof at a "
+            f"root {results['prove_ms_at_root']:.3f} ms; launches {prove_launches}; each proof and "
+            f"each batch launched {proof_launches}, the proof at a root {FR_ROOT_LAUNCHES} and the "
+            f"MSM kernels ({card})")
+        if root_y != blobs[0][32:64] or not ctx.verify_kzg_proof(commitments[0], root.to_bytes(32, "little"),
+                                                                 root_y, root_proof):
+            raise AssertionError("the proof at a root of unity does not verify, or its y is not the "
+                                 "stored element")
         if singles != batch[:3] or runs[1][0] != batch or len(set(batch)) != len(batch):
             raise AssertionError("batch and single proofs disagree")
         missing = [name for name in PROVE_KERNELS if prove_launches[name] == 0]
         if missing or prove_launches["g1_fixedbase_table"] != 0:
             raise AssertionError(f"the prove path's launches are wrong: {prove_launches}")
+        # one whole proof under the profiler, twice: a process's first short
+        # profiled windows have been seen to record no device work
+        results["proof_device"] = [device_work(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0]))
+                                   for _ in range(2)]
+        log(f"  one compute_blob_kzg_proof under the profiler, twice: {results['proof_device']}")
         zs = [H.compute_challenge(b, c) for b, c in zip(blobs, commitments)]
         split = [prove_split(ctx.backend, blobs[:k], zs[:k]) for k in (1, 6)]
         results["prove_split"] = split
         for sp in split:
             per = sp["blobs"]
-            fr_dev, msm_dev = sp["fr_device"] or {}, sp["msm_device"] or {}
-            log(f"  B={per}: Fr evaluation + quotient {sp['fr_ms']:.2f} ms "
-                f"({sp['fr_ms'] / per:.2f} per proof; {fr_dev.get('kernels', 'not measured')} "
-                f"launches, device busy {fr_dev.get('busy_ms', float('nan')):.3f} ms), "
-                f"MSM + result {sp['msm_ms']:.3f} ms ({msm_dev.get('kernels', 'not measured')} "
-                f"launches, device busy {msm_dev.get('busy_ms', float('nan')):.3f} ms)")
+            fr_dev, msm_dev = sp["fr_device"], sp["msm_device"] or {}
+            log(f"  B={per}: fr_ms {sp['fr_ms']:.3f} (Montgomery form, evaluation and quotient; "
+                f"{sp['fr_ms'] / per:.3f} per proof; {fr_dev['kernels']} launches, "
+                f"{FR_PROOF_LAUNCHES} of them Fr kernels, device busy {fr_dev['busy_ms']:.3f} ms), msm_ms {sp['msm_ms']:.3f} (MSM + "
+                f"result; {msm_dev.get('kernels', 'not measured')} launches, device busy "
+                f"{msm_dev.get('busy_ms', float('nan')):.3f} ms) ({card})")
         syncs = {"single": host_syncs(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0])),
                  "batch6": host_syncs(lambda: ctx.compute_blob_kzg_proof_batch(blobs, commitments))}
         results["prove_host_syncs"] = syncs
@@ -2864,10 +3088,6 @@ def run() -> None:
             lb.ints_to_limbs([rng_f.randrange(P) for _ in range(n)], 24), dev)) for _ in range(2))
         n_valid = int(valid.sum())
 
-        def bound(nbytes: int, imads: int) -> dict:
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
-            return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
         def timed(fn, reps: int) -> float:
             return sum(time_ms(fn, reps=reps, warm=2) for _ in range(2)) / 2
 
@@ -2977,6 +3197,18 @@ def run() -> None:
         entry_for(kernels.final_exp, "pairing.cu", timed(lambda: kernels.final_exp(f32), 20),
                   plain["final_exp_plain_ms"], (2 * 12 + 6 * 2 + 12) * FP_BYTES + 1,
                   final_exp_imads(2), 2)
+
+        # the Fr kernels at the blob domain, timed in phase 3 on 1, 6 and 64
+        # blobs (the entry's own numbers are B = 1's, a single proof's), and
+        # fr_check on 4096 elements
+        for name in FR_KERNELS + ("fr_check",):
+            shapes = fr_checked[name]
+            first = shapes["m4096" if name == "fr_check" else "b1"]
+            entries.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/fr_poly.cu",
+                            "replaces": getattr(kernels, name).replaces, **counted(name),
+                            "max_abs_err": max_err[name],
+                            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                            "library_ms": None, "n": NTT_N, "shapes": shapes})
 
         # the roofline table of utils/profiling.py: g1_madd, g1_add and
         # g1_dbl chained in one CUDA graph at 8192 lanes, and the plain Fp

@@ -187,30 +187,27 @@ class TorchBackend:
 
     def open_scalars(self, scalars: torch.Tensor, zs) -> list:
         """[B, 16, n] plain limbs on the device, host zs -> B (host
-        Jacobian proof, y): one batched evaluation, one batched quotient,
-        one MSM of the quotients and one wait for the device, which the
-        proofs' transfer makes after everything is queued. A batch with a
-        z in the domain goes blob by blob (JAX `open_blobs`)."""
+        Jacobian proof, y): one batched Montgomery conversion, evaluation
+        and quotient (a kernel launch each on a card), one MSM of the
+        quotients and one wait for the device, which the proofs' transfer
+        makes after everything is queued; y leaves Montgomery form on the
+        host. A batch with a z in the domain goes blob by blob (JAX
+        `open_blobs`)."""
         zs = [z % R for z in zs]
         idx = [self.domain.root_index.get(z) for z in zs]
         if any(i is not None for i in idx):
             if len(zs) > 1:
                 return [self.open_scalars(scalars[b : b + 1], [z])[0] for b, z in enumerate(zs)]
             return [self._open_in_domain(scalars[0], zs[0], idx[0])]
-        z_m, zn1_m = self.domain.z_consts(zs)  # transfers before any work is queued
-        evals_m = FR.to_mont(scalars)
-        y_m = self.domain.evaluate_mont(evals_m, z_m, zn1_m)
-        q = self.domain.quotient_mont(evals_m, y_m, z_m)
-        y = FR.from_mont(y_m)[..., 0].T  # [16, B]
+        q, y_m = self.domain.open_mont(scalars, zs)  # z's transfer comes before any work
         proofs = self.commit_scalars(q)
-        return list(zip(proofs, lb.limbs_to_ints(y)))
+        return list(zip(proofs, FR.from_mont_host(y_m[..., 0].T)))
 
     def _open_in_domain(self, plain: torch.Tensor, z: int, idx: int):
         """(proof, y) for z = w_idx from plain limbs [16, n]: y is the
         stored element (JAX `open_blob`)."""
         z_inv = self.domain.mont([pow(z, R - 2, R)])
-        onehot = torch.arange(self.n, device=self.device) == idx
-        q = self.domain.quotient_in_domain_mont(FR.to_mont(plain), onehot, z_inv)
+        q = self.domain.quotient_in_domain_mont(self.domain.to_mont(plain), idx, z_inv)
         proof = self.commit_scalars(q)
         return proof, lb.limbs_to_ints(plain[:, idx : idx + 1])[0]
 

@@ -22,6 +22,13 @@ stages and once after them.
 `pairing_miller_loop` and `pairing_final_exp` are the pairing tier's two
 steps (`ops/pairing_ops.py`), public layout in and out.
 
+`fr_to_mont`, `fr_evaluate`, `fr_quotient` and `fr_quotient_in_domain`
+run the Fr layer's kernels on CUDA tensors only, public layout in and
+out, with any leading batch dimensions flattened into the kernels' blob
+axis; `fr_open` runs a batch's first three in a row on one conversion of
+the evaluations into the kernel layout. `ops/fr_poly.FrDomain` routes a
+CUDA tensor here and keeps the plain versions for the CPU.
+
 `resolve_device` turns a device argument into a `torch.device` and
 raises where CUDA is asked for and absent: the entry points run on the
 card unless the caller asks for the CPU.
@@ -158,3 +165,63 @@ def pairing_final_exp(f16):
         fe, ok = kernels.final_exp(lb.to_u32_layout(f16))
         return lb.to_u16_layout(fe), ok
     return pairing_ops.final_exp_check(f16)
+
+
+# -- the Fr layer's kernels (CUDA tensors), public layout in and out -------
+
+
+def _fr_rows(x16, lead) -> torch.Tensor:
+    """Fr limbs [..., 16, k] broadcast to lead + (16, k) -> the kernel
+    layout [B, 8, k], B = prod(lead)."""
+    x16 = x16.expand(tuple(lead) + tuple(x16.shape[-2:]))
+    return lb.to_u32_layout(x16).reshape(-1, kernels.FR_NL, x16.shape[-1])
+
+
+def fr_to_mont(plain16):
+    """Plain Fr limbs [..., 16, n] on a card -> Montgomery [..., 16, n]."""
+    out = kernels.fr_to_mont(_fr_rows(plain16, plain16.shape[:-2]))
+    return lb.to_u16_layout(out).reshape(plain16.shape)
+
+
+def fr_evaluate(evals16, z16, zn1_16, roots, n_inv):
+    """Montgomery evaluations [..., 16, n], z and z^n - 1 [..., 16, 1] on a
+    card, the domain's roots [8, n] and 1/n [8, 1] in the kernel layout ->
+    y [..., 16, 1]."""
+    lead = torch.broadcast_shapes(evals16.shape[:-2], z16.shape[:-2], zn1_16.shape[:-2])
+    y = kernels.fr_evaluate(_fr_rows(evals16, lead), _fr_rows(z16, lead), _fr_rows(zn1_16, lead),
+                            roots, n_inv)
+    return lb.to_u16_layout(y).reshape(tuple(lead) + (16, 1))
+
+
+def fr_quotient(evals16, y16, z16, roots):
+    """Montgomery evaluations [..., 16, n], y and z [..., 16, 1] on a card,
+    roots [8, n] -> PLAIN q [..., 16, n]."""
+    lead = torch.broadcast_shapes(evals16.shape[:-2], y16.shape[:-2], z16.shape[:-2])
+    n = evals16.shape[-1]
+    q = kernels.fr_quotient(_fr_rows(evals16, lead), _fr_rows(y16, lead), _fr_rows(z16, lead), roots)
+    return lb.to_u16_layout(q).reshape(tuple(lead) + (16, n))
+
+
+def fr_quotient_in_domain(evals16, m, z_inv16, roots):
+    """Montgomery evaluations [..., 16, n] on a card, the index m of
+    z = w_m as a host int or host ints of the leading shape, 1/z
+    [..., 16, 1], roots [8, n] -> PLAIN q [..., 16, n]."""
+    n = evals16.shape[-1]
+    ms = torch.as_tensor(m)
+    lead = torch.broadcast_shapes(evals16.shape[:-2], ms.shape, z_inv16.shape[:-2])
+    q = kernels.fr_quotient_in_domain(_fr_rows(evals16, lead), ms.expand(lead).reshape(-1).tolist(),
+                                      _fr_rows(z_inv16, lead), roots)
+    return lb.to_u16_layout(q).reshape(tuple(lead) + (16, n))
+
+
+def fr_open(plain16, zz32, roots, n_inv, quotient: bool = True):
+    """Plain evaluations [B, 16, n] on a card and zz32 = (z, z^n - 1) in
+    the kernel layout [2, B, 8, 1], z outside the domain -> (PLAIN q
+    [B, 16, n], or None where quotient is False, and Montgomery y
+    [B, 16, 1]): fr_to_mont, fr_evaluate and fr_quotient with the
+    evaluations kept in the kernel layout between them, one layout
+    conversion in and one out for each result."""
+    evals = kernels.fr_to_mont(lb.to_u32_layout(plain16))
+    y = kernels.fr_evaluate(evals, zz32[0], zz32[1], roots, n_inv)
+    q = lb.to_u16_layout(kernels.fr_quotient(evals, y, zz32[0], roots)) if quotient else None
+    return q, lb.to_u16_layout(y)

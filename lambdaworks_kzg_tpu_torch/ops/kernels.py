@@ -1,5 +1,6 @@
 """The Hopper kernels (`csrc/g1.cu`, `csrc/msm.cu`, `csrc/table.cu`,
-`csrc/g1_batch.cu`, `csrc/pairing.cu`), their build and their wrappers.
+`csrc/g1_batch.cu`, `csrc/pairing.cu`, `csrc/fr_poly.cu`), their build and
+their wrappers.
 
 `g1_madd`, `g1_add` and `g1_dbl` (g1.cu) replace the TPU kernels `madd`,
 `add` and `dbl` of `lambdaworks_kzg_tpu/ops/pallas_g1_v2.py` (and the
@@ -28,10 +29,20 @@ pair), then the pairs' product, the final exponentiation (cubed) and its
 (`pairing_levels.programs`, built once and copied to the device once);
 their plain versions are `pairing_ops.miller_loop_jac` and
 `pairing_ops.final_exp_check`.
+`fr_evaluate`, `fr_quotient` and `fr_quotient_in_domain` (fr_poly.cu, on
+the Fr field of `fr.cuh`) run the three programs the JAX package jits once
+per domain size (`lambdaworks_kzg_tpu/ops/fr_poly.py` `_eval_kernel`,
+`_quotient_kernel`, `_quotient_in_domain_kernel`), each in one launch per
+batch of blobs, a block per blob; `fr_to_mont` puts a batch's evaluations
+into Montgomery form before them. Their plain versions are
+`FrDomain.evaluate_mont_plain`, `quotient_mont_plain`,
+`quotient_in_domain_mont_plain` (`ops/fr_poly.py`) and `FR.to_mont`.
 `fp_sqr_check` (g1.cu) returns the field's square and product a * a, to
-hold one against the other, and `fp_coop_check` (g1_batch.cu) the
+hold one against the other, `fp_coop_check` (g1_batch.cu) the
 cooperative field's product, square, sum, difference, zero test and
-equality beside fp.cuh's product and square.
+equality beside fp.cuh's product and square, and `fr_check` (fr_poly.cu)
+fr.cuh's product, square, sum, difference, negation, inverse and
+conversions.
 The notes at the top of the sources say what bounds each kernel on the
 card.
 
@@ -54,7 +65,10 @@ the batched G1 kernels take x as [12, M], scalars as [8, M] u32 words
 (or [8, 1], one scalar for every lane) and return bool[M] masks; the FFT
 stage takes its n points [3, 12, n] in natural order and its twiddles
 [8, n/2]; the pairing kernels take G1 Jacobian [3, 12, B], G2 Jacobian
-[3, 2, 12, B] and Miller values [12, 12, B] (`tower_ops.flatten12`).
+[3, 2, 12, B] and Miller values [12, 12, B] (`tower_ops.flatten12`); the
+Fr kernels take Montgomery evaluations [B, 8, n], one value per blob
+[B, 8, 1], the domain's roots [8, n] and 1/n [8, 1], the in-domain index
+as B host ints, and return y [B, 8, 1] or the plain quotients [B, 8, n].
 They allocate the output with `torch.empty`, launch on the current
 stream, raise when the launch fails, and count their launches.
 """
@@ -76,11 +90,12 @@ from . import limbs as lb, pairing_levels, tower_ops
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("g1.cu", "msm.cu", "table.cu", "g1_batch.cu", "pairing.cu")
-HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh", "levels.cuh")
+SOURCES = ("g1.cu", "msm.cu", "table.cu", "g1_batch.cu", "pairing.cu", "fr_poly.cu")
+HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh", "levels.cuh", "fr.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NL = 12  # 32-bit limbs per Fp element in the kernel layout
+FR_NL = 8  # 32-bit limbs per Fr element
 MAX_C = 12  # window bits the MSM and table kernels take (auto_window picks 4, 8, 12)
 MAX_GROUPS = 32  # lane groups g1_bucket_reduce sums in its last block
 # g1_bucket_reduce keeps a block's 3 * 2^(c-1) points of 144 bytes in
@@ -176,6 +191,11 @@ def _load():
             lib.lwkzg_pairing_miller_loop.argtypes = [vp, vp, vp, ci, u64, vp, ci, ci, vp]
             lib.lwkzg_pairing_final_exp.argtypes = [vp, vp, vp, vp, ci, u64, u64, vp, ci, ci, vp]
             lib.lwkzg_pairing_smem.argtypes = [ci, ci, vp]
+            lib.lwkzg_fr_evaluate.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+            lib.lwkzg_fr_quotient.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+            lib.lwkzg_fr_quotient_in_domain.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+            lib.lwkzg_fr_to_mont.argtypes = [vp, vp, ci, ci, vp]
+            lib.lwkzg_fr_check.argtypes = [vp, vp, vp, ci, vp]
             fns = {
                 "madd": lib.lwkzg_g1_madd, "add": lib.lwkzg_g1_add, "dbl": lib.lwkzg_g1_dbl,
                 "bucket_accumulate": lib.lwkzg_g1_bucket_accumulate,
@@ -190,6 +210,11 @@ def _load():
                 "miller_loop": lib.lwkzg_pairing_miller_loop,
                 "final_exp": lib.lwkzg_pairing_final_exp,
                 "pairing_smem": lib.lwkzg_pairing_smem,
+                "fr_evaluate": lib.lwkzg_fr_evaluate,
+                "fr_quotient": lib.lwkzg_fr_quotient,
+                "fr_quotient_in_domain": lib.lwkzg_fr_quotient_in_domain,
+                "fr_to_mont": lib.lwkzg_fr_to_mont,
+                "fr_check": lib.lwkzg_fr_check,
             }
             for fn in fns.values():
                 fn.restype = ci
@@ -510,6 +535,100 @@ def _final_exp(k: _Kernel, f: torch.Tensor):
     return out, ok
 
 
+def _check_domain(evals: torch.Tensor, roots: torch.Tensor) -> tuple:
+    """-> (B, n) of Montgomery evaluations [B, 8, n] over roots [8, n] on
+    one device, n a power of two."""
+    if evals.dim() != 3:
+        raise ValueError(f"evals must be [B, {FR_NL}, n], got {tuple(evals.shape)}")
+    b, n = evals.shape[0], evals.shape[-1]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"the domain size must be a power of two, got {n}")
+    _check(evals, "evals", (b, FR_NL, n), evals.device)
+    _check(roots, "roots", (FR_NL, n), evals.device)
+    return b, n
+
+
+def _fr_evaluate(k: _Kernel, evals: torch.Tensor, z: torch.Tensor, zn1: torch.Tensor,
+                 roots: torch.Tensor, n_inv: torch.Tensor):
+    """evals [B, 8, n], z and z^n - 1 [B, 8, 1], roots [8, n], 1/n [8, 1],
+    all Montgomery -> y [B, 8, 1]: (z^n - 1) / n * sum_i e_i w_i / (z - w_i)
+    (a z in the domain gives a meaningless y)."""
+    b, n = _check_domain(evals, roots)
+    dev = evals.device
+    _check(z, "z", (b, FR_NL, 1), dev)
+    _check(zn1, "zn1", (b, FR_NL, 1), dev)
+    _check(n_inv, "n_inv", (FR_NL, 1), dev)
+    out = torch.empty((b, FR_NL, 1), dtype=torch.int32, device=dev)
+    if b:
+        scratch = torch.empty_like(evals)  # each thread's prefix products
+        _run("fr_evaluate", evals, evals.data_ptr(), z.data_ptr(), zn1.data_ptr(), roots.data_ptr(),
+             n_inv.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, n)
+        k.launches += 1
+    return out
+
+
+def _fr_quotient(k: _Kernel, evals: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                 roots: torch.Tensor):
+    """evals [B, 8, n], y and z [B, 8, 1], roots [8, n], Montgomery, z
+    outside the domain -> PLAIN q [B, 8, n], q_i = (e_i - y) / (w_i - z)."""
+    b, n = _check_domain(evals, roots)
+    _check(y, "y", (b, FR_NL, 1), evals.device)
+    _check(z, "z", (b, FR_NL, 1), evals.device)
+    out = torch.empty_like(evals)
+    if b:
+        _run("fr_quotient", evals, evals.data_ptr(), y.data_ptr(), z.data_ptr(), roots.data_ptr(),
+             out.data_ptr(), b, n)
+        k.launches += 1
+    return out
+
+
+def _fr_quotient_in_domain(k: _Kernel, evals: torch.Tensor, m, z_inv: torch.Tensor,
+                           roots: torch.Tensor):
+    """evals [B, 8, n], the index m of z = w_m per blob as B host ints,
+    1/z [B, 8, 1], roots [8, n], Montgomery -> PLAIN q [B, 8, n] with
+    y = e_m: q_i = (e_i - y) / (w_i - z) for i != m and
+    q_m = sum_{i != m} (e_i - y) w_i / (z (z - w_i)). Raises unless each m
+    is in [0, n)."""
+    b, n = _check_domain(evals, roots)
+    m = [int(i) for i in m]
+    if len(m) != b or any(not 0 <= i < n for i in m):
+        raise ValueError(f"m must be {b} indices in [0, {n}), got {m}")
+    _check(z_inv, "z_inv", (b, FR_NL, 1), evals.device)
+    out = torch.empty_like(evals)
+    if b:
+        m_dev = torch.tensor(m, dtype=torch.int32).to(evals.device)
+        _run("fr_quotient_in_domain", evals, evals.data_ptr(), m_dev.data_ptr(), z_inv.data_ptr(),
+             roots.data_ptr(), out.data_ptr(), b, n)
+        k.launches += 1
+    return out
+
+
+def _fr_to_mont(k: _Kernel, a: torch.Tensor):
+    """a [B, 8, n] plain values below r -> their Montgomery form, a R mod r."""
+    if a.dim() != 3:
+        raise ValueError(f"a must be [B, {FR_NL}, n], got {tuple(a.shape)}")
+    b, n = a.shape[0], a.shape[-1]
+    _check(a, "a", (b, FR_NL, n), a.device)
+    out = torch.empty_like(a)
+    if b * n:
+        _run("fr_to_mont", a, a.data_ptr(), out.data_ptr(), b, n)
+        k.launches += 1
+    return out
+
+
+def _fr_check(k: _Kernel, a: torch.Tensor, b: torch.Tensor):
+    """a, b [8, M] values below r -> [8, 8, M]: fr.cuh's mul(a, b), sqr(a),
+    add(a, b), sub(a, b), neg(a), inv(a), to_mont(a), from_mont(a)."""
+    m = a.shape[-1]
+    _check(a, "a", (FR_NL, m), a.device)
+    _check(b, "b", (FR_NL, m), a.device)
+    out = torch.empty((8, FR_NL, m), dtype=torch.int32, device=a.device)
+    if m:
+        _run("fr_check", a, a.data_ptr(), b.data_ptr(), out.data_ptr(), m)
+        k.launches += 1
+    return out
+
+
 _V2 = "lambdaworks_kzg_tpu/ops/pallas_g1_v2.py"
 madd = _Kernel("g1_madd", f"{_V2}:353", _madd)
 add = _Kernel("g1_add", f"{_V2}:376", _add)
@@ -536,12 +655,22 @@ fft_stage = _Kernel("g1_fft_stage", "lambdaworks_kzg_tpu/ops/g1_batch.py:270", _
 _PAIRING = "lambdaworks_kzg_tpu/ops/pairing_ops.py"
 miller_loop = _Kernel("pairing_miller_loop", f"{_PAIRING}:176", _miller_loop)
 final_exp = _Kernel("pairing_final_exp", f"{_PAIRING}:243", _final_exp)
+# the Fr layer's jitted XLA programs (lambdaworks_kzg_tpu/ops/fr_poly.py),
+# and the XLA FR.to_mont before them (its open path, ops/backend.py:397)
+_FR = "lambdaworks_kzg_tpu/ops/fr_poly.py"
+fr_evaluate = _Kernel("fr_evaluate", f"{_FR}:66", _fr_evaluate)
+fr_quotient = _Kernel("fr_quotient", f"{_FR}:82", _fr_quotient)
+fr_quotient_in_domain = _Kernel("fr_quotient_in_domain", f"{_FR}:94", _fr_quotient_in_domain)
+fr_to_mont = _Kernel("fr_to_mont", "lambdaworks_kzg_tpu/ops/field_ops.py:97", _fr_to_mont)
 ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce, fixedbase_table, decompress, scalar_mul,
-       subgroup_mask, fft_stage, miller_loop, final_exp)
+       subgroup_mask, fft_stage, miller_loop, final_exp, fr_to_mont, fr_evaluate, fr_quotient,
+       fr_quotient_in_domain)
 # a check of the field's square, off every path (the TPU kernels' _sqr_acc)
 sqr_check = _Kernel("fp_sqr_check", "lambdaworks_kzg_tpu/ops/pallas_g1.py:142", _sqr_check)
 # a check of the cooperative field, off every path (the TPU kernels' _KernelFp)
 coop_check = _Kernel("fp_coop_check", f"{_V2}:166", _coop_check)
+# a check of the Fr field, off every path (the XLA FR of the Fr programs)
+fr_check = _Kernel("fr_check", "lambdaworks_kzg_tpu/ops/field_ops.py:164", _fr_check)
 
 
 def reset_counts() -> None:

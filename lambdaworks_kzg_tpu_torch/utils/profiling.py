@@ -33,6 +33,14 @@ IMAD_PER_S = 67e12 / 2 / 2
 # m; a squaring shares its 66 cross products, so a a takes 78 wide ones.
 IMAD_PER_FP_MUL = 2 * (144 + 144) + 12
 IMAD_PER_FP_SQR = 2 * (78 + 144) + 12
+# The same for an Fr product (8 x 32-bit limbs, csrc/fr.cuh): 64 wide
+# products for a b, 64 for the reduction, 8 low products for m; a
+# squaring's 28 shared cross products and 8 squares make 36.
+IMAD_PER_FR_MUL = 2 * (64 + 64) + 8
+IMAD_PER_FR_SQR = 2 * (36 + 64) + 8
+# A reduction alone (a R^-1, out of Montgomery form): the 64 wide products
+# and 8 low ones of the reduction, without a b's.
+IMAD_PER_FR_REDC = 2 * 64 + 8
 # (products, squarings) of one point op on finite, non-doubling operands.
 # A doubling is counted as dbl-2009-l with Z3 = 2 Y Z (2 products, 5
 # squarings), the fewest IMADs for it; the kernels compute the same Z3 as

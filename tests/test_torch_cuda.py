@@ -50,6 +50,17 @@ conversion of testdata/trusted_setup.txt, byte-equal to
 cache/srs_mainnet.npz, with one g1_decompress, one g1_subgroup_mask, 12
 g1_fft_stage, one g1_scalar_mul and no g1_add launches.
 
+The Fr layer (csrc/fr_poly.cu on csrc/fr.cuh): fr_check's product,
+square, sum, difference, negation, inverse and conversions equal the
+plain FR on edge and random elements; fr_to_mont, fr_evaluate,
+fr_quotient and fr_quotient_in_domain (m = 0, 1, n - 1) equal the plain
+versions at n = 4, 32 and 4096 and 1 to 6 blobs, one launch each, and
+FrDomain.open_mont (the first three in a row) equals them; the in-domain
+wrapper refuses an index outside [0, n); on the mainnet context a proof batch launches fr_to_mont, fr_evaluate and
+fr_quotient once, a proof at a root of unity fr_quotient_in_domain once
+(its MSM equal to the host quotient's), a batch verification fr_evaluate
+once.
+
 The multi-device tier on a logical (2, 2) mesh of the one card: a batch
 of three blobs commits as the unsharded context does, in four launches
 of each MSM kernel and two of g1_add (the fold).
@@ -73,6 +84,7 @@ warmup() launches the kernels of each entry point."""
 import os
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -183,6 +195,115 @@ def test_fp_sqr_equals_mul_on_card():
     torch.cuda.synchronize()
     assert torch.equal(sq, mm)
     assert torch.equal(lb.to_u16_layout(sq), FP.sqr(lb.to_u16_layout(a)))
+
+
+def test_fr_check_matches_plain_field_on_card():
+    """fr.cuh's product, square, sum, difference, negation, inverse and both
+    conversions equal the plain FR on 0, 1, r - 1, r - 2, 2, R mod r and
+    random elements (200 lanes: a block and part of another)."""
+    rng = random.Random(31)
+    edge = [0, 1, R - 1, R - 2, 2, (1 << 256) % R]
+    pairs = [(x, y) for x in edge for y in edge]
+    pairs += [(rng.randrange(R), rng.randrange(R)) for _ in range(200 - len(pairs))]
+    a16, b16 = (lb.as_limb_tensor(lb.ints_to_limbs(v, 16), "cuda") for v in zip(*pairs))
+    before = kernels.fr_check.launches
+    out = lb.to_u16_layout(kernels.fr_check(lb.to_u32_layout(a16), lb.to_u32_layout(b16)))
+    torch.cuda.synchronize()
+    assert kernels.fr_check.launches == before + 1
+    want = (FR.mul(a16, b16), FR.sqr(a16), FR.add(a16, b16), FR.sub(a16, b16), FR.neg(a16),
+            FR.inv(a16), FR.to_mont(a16), FR.from_mont(a16))
+    for k, w in enumerate(want):
+        assert torch.equal(out[k], w), k
+
+
+@pytest.mark.parametrize("n,blobs", [(4, 1), (32, 3), (4096, 1), (4096, 6)])
+def test_fr_kernels_match_plain_on_card(n, blobs):
+    """fr_to_mont, fr_evaluate, fr_quotient and fr_quotient_in_domain,
+    through FrDomain on the card, equal the plain versions on the same
+    tensors, one launch each; the in-domain index m runs over 0, 1 and
+    n - 1, open_mont equals the three one by one, and fr_evaluate at a
+    root finishes (its lane is patched by the caller)."""
+    rng = random.Random(n + blobs)
+    d = fr_poly.FrDomain(n, "cuda")
+    plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs([rng.randrange(R) for _ in range(n)], 16)
+                                        for _ in range(blobs)]), "cuda")
+    zs = [rng.randrange(R) for _ in range(blobs)]
+    z_m, zn1_m = d.z_consts(zs)
+    watched = (kernels.fr_to_mont, kernels.fr_evaluate, kernels.fr_quotient,
+               kernels.fr_quotient_in_domain)
+    before = [k.launches for k in watched]
+    evals_m = d.to_mont(plain)
+    y_m = d.evaluate_mont(evals_m, z_m, zn1_m)
+    q = d.quotient_mont(evals_m, y_m, z_m)
+    ms = [(0, 1, n - 1)[b % 3] for b in range(blobs)]
+    onehot = torch.stack([torch.arange(n, device="cuda") == m for m in ms])
+    z_inv = torch.stack([d.mont([pow(d.roots_brp_ints[m], R - 2, R)]) for m in ms])
+    q_in = d.quotient_in_domain_mont(evals_m, ms, z_inv)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(watched, before)] == [1, 1, 1, 1]
+    q_open, y_open = d.open_mont(plain, zs)
+    assert torch.equal(q_open, q) and torch.equal(y_open, y_m)
+    assert torch.equal(evals_m, FR.to_mont(plain))
+    assert torch.equal(y_m, d.evaluate_mont_plain(evals_m, z_m, zn1_m))
+    assert torch.equal(q, d.quotient_mont_plain(evals_m, y_m, z_m))
+    assert torch.equal(q_in, d.quotient_in_domain_mont_plain(evals_m, onehot, z_inv))
+    for b in range(blobs):
+        evals = lb.limbs_to_ints(plain[b])
+        assert FR.from_mont_host(y_m[b]) == [fft.barycentric_evaluate(evals, zs[b], n)]
+    roots_z = [d.roots_brp_ints[m] for m in ms]
+    assert d.evaluate_blobs_plain(plain, roots_z) == [lb.limbs_to_ints(plain[b])[m]
+                                                      for b, m in enumerate(ms)]
+
+
+def test_fr_quotient_in_domain_rejects_a_bad_index():
+    """The in-domain wrapper raises, before any launch, unless it gets one
+    index in [0, n) per blob."""
+    d = fr_poly.FrDomain(32, "cuda")
+    evals = torch.zeros((2, kernels.FR_NL, 32), dtype=torch.int32, device="cuda")
+    z_inv = torch.zeros((2, kernels.FR_NL, 1), dtype=torch.int32, device="cuda")
+    before = kernels.fr_quotient_in_domain.launches
+    for bad in ([0, 32], [-1, 0], [0]):
+        with pytest.raises(ValueError):
+            kernels.fr_quotient_in_domain(evals, bad, z_inv, d.roots_k)
+    assert kernels.fr_quotient_in_domain.launches == before
+
+
+def test_fr_domain_on_card_takes_the_kernels():
+    """On the mainnet context: a proof batch makes one fr_to_mont, one
+    fr_evaluate and one fr_quotient launch, a proof at a root of unity
+    one fr_to_mont and one fr_quotient_in_domain launch and equals the
+    host quotient's MSM, and a batch verification one fr_to_mont and one
+    fr_evaluate launch."""
+    setup = srs.load_mainnet_setup()
+    ctx = EIP4844Context(setup, backend=TorchBackend(setup, "cuda",
+                                                     fixedbase=convert.fixedbase_from_npz(FIXEDBASE, "cpu")))
+    watched = (kernels.fr_to_mont, kernels.fr_evaluate, kernels.fr_quotient,
+               kernels.fr_quotient_in_domain)
+    rng = random.Random(37)
+    blobs = [_dense_blob(rng) for _ in range(3)]
+    cs = ctx.blob_to_kzg_commitment_batch(blobs)
+    before = [k.launches for k in watched]
+    ps = ctx.compute_blob_kzg_proof_batch(blobs, cs)
+    assert [k.launches - b for k, b in zip(watched, before)] == [1, 1, 1, 0]
+    roots = ctx.backend.domain.roots_brp_ints
+    before = [k.launches for k in watched]
+    proof, y = ctx.compute_kzg_proof(blobs[0], roots[1].to_bytes(32, "little"))
+    assert [k.launches - b for k, b in zip(watched, before)] == [1, 0, 0, 1]
+    evals = [int.from_bytes(blobs[0][32 * i : 32 * i + 32], "little") for i in range(4096)]
+    assert int.from_bytes(y, "little") == evals[1]
+    # the quotient at z = w_1 in Python ints: (e_i - y) / (w_i - z) for i
+    # != 1, and q_1 = sum_{i != 1} (e_i - y) w_i / (z (z - w_i))
+    z = roots[1]
+    q_host = [(e - evals[1]) * pow(w - z, R - 2, R) % R if i != 1 else 0
+              for i, (e, w) in enumerate(zip(evals, roots))]
+    q_host[1] = sum((e - evals[1]) * w * pow(z * (z - w), R - 2, R)
+                    for i, (e, w) in enumerate(zip(evals, roots)) if i != 1) % R
+    xs, ys = (FP.from_mont_host(setup.lagrange_points[k]) for k in range(2))
+    basis = [(x, yy) if v else None for x, yy, v in zip(xs, ys, setup.lagrange_valid)]
+    assert HC.compress_g1(HC.g1_msm(q_host, basis)) == proof
+    before = [k.launches for k in watched]
+    assert ctx.verify_blob_kzg_proof_batch(blobs, cs, ps) is True
+    assert [k.launches - b for k, b in zip(watched, before)] == [1, 1, 0, 0]
 
 
 @pytest.mark.parametrize("c", [3, 4, 6, 12])
