@@ -55,14 +55,16 @@ Phases, each printed with its seconds:
      kernels' time); fr_check (fr.cuh's product, square, sum, difference,
      negation, inverse and conversions) against the plain FR on 4096
      elements with 0, 1, r - 1, r - 2, 2 and R mod r among them, and at
-     the blob domain (n = 4096) on 1, 6 and 64 blobs fr_to_mont,
-     fr_evaluate, fr_quotient and fr_quotient_in_domain (m = 0, 1, n - 1)
-     against FR.to_mont and FrDomain's plain versions, blob 0 also
-     against the host's evaluation and quotient, FrDomain.open_mont (the
-     first three in a row, in the kernel layout) against them one by
-     one, and fr_evaluate at roots of unity patched to the stored
-     elements; each timed (CUDA events)
-     beside its plain version's one call and its bound;
+     the blob domain (n = 4096) on 1, 6 and 64 blobs fr_to_mont and
+     fr_quotient_in_domain (m = 0, 1, n - 1) against FR.to_mont and
+     FrDomain's plain version on Montgomery evaluations, fr_evaluate and
+     fr_quotient on the plain ones and one z table as FrDomain.open_mont
+     runs them (against its CPU route's plain versions, on the card; the
+     table, which the kernels only read, equal to the host's after them),
+     blob 0 also against the host's evaluation and quotient, fr_evaluate
+     at roots of unity equal to the stored elements; each timed (CUDA
+     events, on the main path's inputs) beside its plain version's one
+     call and its bound;
  3b. the setup conversion: testdata/trusted_setup.txt converted on the
      card into a temporary cache_dir, its lagrange, monomial and g2
      byte-equal to cache/srs_mainnet.npz, with exactly one g1_decompress,
@@ -97,7 +99,7 @@ Phases, each printed with its seconds:
      pairing_miller_loop and one pairing_final_exp per pairing check it
      makes, and no host pairing runs; each batch of n >= 2 that passes
      its input checks launches g1_decompress and g1_subgroup_mask once,
-     fr_to_mont and fr_evaluate once (its blob evaluations),
+     fr_evaluate once (its blob evaluations),
      g1_fixedbase_table, g1_bucket_accumulate and g1_bucket_reduce three
      times (one generic MSM per linear combination) and each pairing
      kernel once; seeded batches of 6 and 64 blobs, committed and proved
@@ -115,14 +117,16 @@ Phases, each printed with its seconds:
   9. the prove path: three seeded blobs through compute_blob_kzg_proof
      and a batch of six through compute_blob_kzg_proof_batch (twice),
      timed with CUDA events, each call launching each MSM kernel and each
-     of fr_to_mont, fr_evaluate and fr_quotient once and the batch equal
+     of fr_evaluate and fr_quotient once and the batch equal
      to the singles, and compute_kzg_proof at a root of unity (fr_to_mont
      and fr_quotient_in_domain once; y the stored element, the proof
-     verified); one proof's launches under torch.profiler (twice); then
-     for one blob and for six the Fr part (fr_ms: the
-     conversion, evaluation and quotient) and the MSM timed apart, and
-     counted under torch.profiler (launches, under 100 for the Fr part;
-     device busy), and the host syncs of a proof and of a batch counted;
+     verified); one proof's launches under torch.profiler; then
+     for one blob and for six the Fr part (fr_ms: the z table's
+     transfer, the evaluation and the quotient) and the MSM timed apart,
+     and counted under torch.profiler after a warm-up step (launches;
+     the Fr part's must hold both Fr kernels and the copy and be at most
+     FR_PART_MAX; device busy), and the host syncs of a proof and of a
+     batch counted;
  10. each kernel timed with CUDA events: the MSM kernels at the path's
      shapes for one blob and for six (seeded random blobs, c = 8), and the
      accumulation on the real quotient, madd at the 2048 lanes of one
@@ -167,8 +171,9 @@ Phases, each printed with its seconds:
      C_KZG_BADARGS on a null one (a vector the fixed-size ABI cannot
      express, a wrong length, must expect null), each call launching
      g1_bucket_accumulate and g1_bucket_reduce once for a commitment or a
-     proof, and for a proof fr_to_mont and fr_evaluate and fr_quotient
-     once (fr_quotient_in_domain in their place at a root of unity), the
+     proof, and for a proof fr_evaluate and fr_quotient once
+     (fr_to_mont and fr_quotient_in_domain in their place at a root of
+     unity), the
      pairing kernels once for a verdict, a batch of n >= 2
      VERIFY_BATCH_LAUNCHES, and nothing for a BADARGS call (a failed
      batch: at most its decompression and subgroup check); the blst G1 and
@@ -188,7 +193,7 @@ Phases, each printed with its seconds:
      the three sizes a CPU backend sends to the tier, natively and on the
      card: 12 decompressions (g1_decompress + g1_subgroup_mask), the three
      generic MSMs of a batch of 6 (6, 6 and 7 points), 6 blob evaluations
-     (on the card one fr_to_mont and one fr_evaluate launch); each in
+     (on the card one fr_evaluate launch); each in
      turns, medians of 5, equal results;
  14. parallel/distributed.py: `python3 chip_smoke.py --rank ...` processes
      on localhost, world size 1 (nccl), then 2 and 4 ranks on gloo
@@ -319,19 +324,24 @@ def fr_inv_imads() -> int:
 
 def fr_kernel_work(name: str, n: int, blobs: int) -> tuple:
     """(bytes, IMADs) an Fr kernel needs at least for `blobs` blobs over the
-    domain of n: each input read once and each output written once (the
-    roots once for all blobs), and per blob the fewest products the
-    function takes, whichever schedule the kernel runs:
+    domain of n = 2^L: each input read once and each output written once,
+    an element 32 bytes, whatever layout the kernel reads (the roots once
+    for all blobs; fr_evaluate's and fr_quotient's z tables of L + 1
+    values a blob), and per blob the fewest products the function takes,
+    whichever schedule the kernel runs. The product of an aligned chunk
+    of m bit-reversed roots' denominators is z^m - w_g in closed form, from
+    the L - 1 squarings z^2 .. z^(n/2) and z^n:
 
-    - fr_evaluate: y = (z^n - 1) / n (z sum_i e_i / (z - w_i) - sum_i e_i),
-      as w / (z - w) = z / (z - w) - 1; a tree of fraction sums
-      a / b + c / d = (a d + c b) / (b d) over the n terms takes 3 (n - 1)
-      products, then one inversion and 4 products (its quotient, z, z^n - 1
-      and 1 / n);
-    - fr_quotient: Montgomery's trick over the n denominators, 3 (n - 1)
-      products and one inversion, then n products (e_i - y) / (w_i - z),
-      which come out plain with R^-1 folded into the one inversion (one
-      product);
+    - fr_evaluate: y = (z N - (z^n - 1) sum_i e_i) / n with
+      N = sum_i e_i prod_{j != i} (z - w_j) (as w = z - (z - w)), N by a
+      tree of fraction sums whose denominators are known: 2 (n - 1)
+      products, then 3 (z N, (z^n - 1) sum e, 1 / n), and L squarings; no
+      inversion;
+    - fr_quotient: the inversion of z^n - 1 (on the host for the kernel),
+      then 1 / (z - w_i) down a tree whose node's is its parent's times
+      its sibling's denominator, 2 (n - 1) products, and n products
+      (e_i - y) / (w_i - z), plain with R^-1 folded into the inversion;
+      L squarings;
     - fr_quotient_in_domain: the quotient's, and n more for
       q_m = -(1 / z) sum_{i != m} q_i w_i on the q_i already made;
     - fr_to_mont: one product an element;
@@ -339,16 +349,18 @@ def fr_kernel_work(name: str, n: int, blobs: int) -> tuple:
       inversion and a reduction (from_mont) a lane.
 
     The inversion is `fr_inv_imads`."""
+    levels = n.bit_length() - 1
     elems, roots = blobs * n * FR_BYTES, n * FR_BYTES
+    table, ys = blobs * (levels + 1) * FR_BYTES, blobs * FR_BYTES
     inv = fr_inv_imads()
-    quotient = blobs * ((3 * (n - 1) + n + 1) * IMAD_PER_FR_MUL + inv)
+    sqrs = levels * IMAD_PER_FR_SQR
+    quotient = blobs * ((3 * n - 2) * IMAD_PER_FR_MUL + sqrs + inv)
     if name == "fr_to_mont":
         return 2 * elems, blobs * n * IMAD_PER_FR_MUL
     if name == "fr_evaluate":
-        return (elems + roots + 3 * blobs * FR_BYTES + FR_BYTES,
-                blobs * ((3 * (n - 1) + 4) * IMAD_PER_FR_MUL + inv))
+        return elems + roots + table + ys + FR_BYTES, blobs * ((2 * n + 1) * IMAD_PER_FR_MUL + sqrs)
     if name == "fr_quotient":
-        return 2 * elems + roots + 2 * blobs * FR_BYTES, quotient
+        return 2 * elems + roots + table + ys, quotient
     if name == "fr_quotient_in_domain":
         return 2 * elems + roots + blobs * (FR_BYTES + 4), quotient + blobs * n * IMAD_PER_FR_MUL
     if name == "fr_check":
@@ -508,12 +520,13 @@ CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
 EDGE_LANES = (1, 12, 31, 33, 128)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
-# a batch's Fr part: one conversion to Montgomery form, one evaluation,
-# one quotient; a proof at a root of unity: the conversion and the
+# a batch's Fr part: one evaluation and one quotient on the plain limbs;
+# a proof at a root of unity: a conversion to Montgomery form and the
 # in-domain quotient; a batch verification's blob evaluations
-FR_PROOF_LAUNCHES = {"fr_to_mont": 1, "fr_evaluate": 1, "fr_quotient": 1}
+FR_PROOF_LAUNCHES = {"fr_evaluate": 1, "fr_quotient": 1}
 FR_ROOT_LAUNCHES = {"fr_to_mont": 1, "fr_quotient_in_domain": 1}
-FR_EVAL_LAUNCHES = {"fr_to_mont": 1, "fr_evaluate": 1}
+FR_EVAL_LAUNCHES = {"fr_evaluate": 1}
+FR_PART_MAX = 6  # device operations of a batch's Fr part under the profiler
 FR_KERNELS = ("fr_to_mont", "fr_evaluate", "fr_quotient", "fr_quotient_in_domain")
 FR_BLOBS = (1, 6, 64)  # phase 3's batches at the blob domain: a proof, a block, a batch verification
 PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", *FR_KERNELS)
@@ -576,7 +589,7 @@ NATIVE_REPS = 5  # phase 13's calls per way, in turns
 DIST_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 DIST_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce", "g1_add",
                 "g1_decompress", "g1_subgroup_mask", "pairing_miller_loop", "pairing_final_exp",
-                "fr_to_mont", "fr_evaluate")
+                "fr_evaluate")
 DIST_TIMEOUT_S = 240
 # phase 15: the generic MSM at the JAX package's bench shapes one card runs
 # (n, window bits, scalar bits): bench.py's msm_2e20(_packed248) and
@@ -698,20 +711,16 @@ def check_real_quotient(setup, table16, table_valid, max_err: dict):
     from lambdaworks_kzg_tpu_torch.constants import R
     from lambdaworks_kzg_tpu_torch.host import curve as HC, fft
     from lambdaworks_kzg_tpu_torch.ops import codec, dispatch, fr_poly, limbs as lb, msm
-    from lambdaworks_kzg_tpu_torch.ops.field_ops import FR
 
     dev, n = table16.device, setup.n
     rng = random.Random(7)
     blob, z = dense_blob(rng), rng.randrange(R)
     evals = [int.from_bytes(blob[32 * i : 32 * i + 32], "little") for i in range(n)]
     domain = fr_poly.FrDomain(n, dev)
-    z_m, zn1_m = domain.z_consts([z])
-    evals_m = FR.to_mont(lb.as_limb_tensor(codec.blob_to_limbs(blob, n), dev)[None])
-    y_m = domain.evaluate_mont(evals_m, z_m, zn1_m)
-    q = domain.quotient_mont(evals_m, y_m, z_m)  # [1, 16, n] plain
+    q, y_dev = domain.open_mont(lb.as_limb_tensor(codec.blob_to_limbs(blob, n), dev)[None], [z])
     y = fft.barycentric_evaluate(evals, z, n)
     q_host = fft.quotient(evals, z, y, n)
-    if FR.from_mont_host(y_m[0]) != [y] or lb.limbs_to_ints(q[0]) != q_host:
+    if lb.limbs_to_ints(y_dev[0]) != [y] or lb.limbs_to_ints(q[0]) != q_host:
         raise AssertionError("the card's evaluation or quotient differs from the host's")
     order, bstart = scalar_members(table_valid, q, C_MAIN)
     top = int(msm.window_digits(q, C_MAIN)[0, -1].max())
@@ -857,36 +866,34 @@ def timed_call(fn, *args, want=MSM_LAUNCHES):
 
 
 def device_work(fn) -> dict:
-    """fn() under torch.profiler -> {"kernels": launches, "copies": copies
-    and memsets, "busy_ms": their device time}, or None where the
-    profiler saw no device work."""
+    """fn() under torch.profiler, recorded on its second call: the first
+    is the schedule's warm-up step, which readies the card's tracing (a
+    cold window has been seen to miss its first kernel and copy) ->
+    {"kernels": launches, "copies": copies and memsets, "busy_ms": their
+    device time, "names": the kernels' names}, or None where the profiler
+    saw no device work."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {"kernels": 0, "copies": 0, "busy_ms": 0.0}
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {"kernels": 0, "copies": 0, "busy_ms": 0.0, "names": []}
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
-        out["copies" if ev.key.startswith(("Memcpy", "Memset")) else "kernels"] += ev.count
+        copy = ev.key.startswith(("Memcpy", "Memset"))
+        out["copies" if copy else "kernels"] += ev.count
         out["busy_ms"] += us / 1e3
+        if not copy:
+            out["names"].append(ev.key)
     return out if out["kernels"] else None
-
-
-def measured_device_work(fn, what: str, tries: int = 3) -> dict:
-    """device_work(fn) until the profiler records device work, at most
-    `tries` runs (a process's first short profiled windows have been seen
-    to record none); raises where it never does."""
-    for _ in range(tries):
-        out = device_work(fn)
-        if out:
-            return out
-    raise AssertionError(f"the profiler recorded no device work for {what} in {tries} runs")
 
 
 def host_syncs(fn) -> int:
@@ -910,13 +917,13 @@ def host_syncs(fn) -> int:
 
 def prove_split(backend, blobs, zs) -> dict:
     """One batch's Fr part as TorchBackend.open_scalars runs it
-    (`FrDomain.open_mont`: z's transfer, the conversion to Montgomery
-    form, the evaluation and the quotient, one launch each of fr_to_mont,
-    fr_evaluate and fr_quotient, checked), then
-    its MSM with the proofs' transfer to the host, each between CUDA
-    events, and each once more under the profiler for its launches (the
-    Fr part's are always measured, retried as `measured_device_work`
-    does, and must stay under 100)."""
+    (`FrDomain.open_mont`: the z table's transfer, the evaluation and the
+    quotient on the plain limbs, one launch each of fr_evaluate and
+    fr_quotient, checked), then its MSM with the proofs' transfer to the
+    host, each between CUDA events, and each once more under the profiler
+    for its launches: the Fr part's record must hold both kernels of
+    FR_PROOF_LAUNCHES and the table's copy, and at most FR_PART_MAX
+    launches."""
     import torch
 
     domain = backend.domain
@@ -939,11 +946,14 @@ def prove_split(backend, blobs, zs) -> dict:
         "blobs": len(blobs),
         "fr_ms": ev[0].elapsed_time(ev[1]),
         "msm_ms": ev[1].elapsed_time(ev[2]),
-        "fr_device": measured_device_work(fr, f"the Fr part of {len(blobs)} proofs"),
+        "fr_device": device_work(fr),
         "msm_device": device_work(lambda: backend.commit_scalars(q)),
     }
-    if out["fr_device"]["kernels"] >= 100:
-        raise AssertionError(f"the Fr part of {len(blobs)} proofs made {out['fr_device']} launches")
+    fr_dev = out["fr_device"] or {"kernels": 0, "copies": 0, "names": []}
+    seen = [name for name in FR_PROOF_LAUNCHES if any(name in key for key in fr_dev["names"])]
+    if seen != list(FR_PROOF_LAUNCHES) or fr_dev["copies"] < 1 or fr_dev["kernels"] > FR_PART_MAX:
+        raise AssertionError(f"the profiler's record of the Fr part of {len(blobs)} proofs lacks a kernel "
+                             f"or the copy, or holds more than {FR_PART_MAX} launches: {fr_dev}")
     return out
 
 
@@ -1369,16 +1379,18 @@ def check_batch_kernels(setup, dev, max_err: dict) -> dict:
             "fft_stage": fft_plain_ms}
 
 
-def ptxas_report(log_text: str, kernel: str) -> dict:
+def ptxas_report(log_text: str, kernel: str, calls: bool = False) -> dict:
     """ptxas' registers, stack frame and spills of the entry function whose
-    name holds `kernel`, from the build log."""
+    name holds `kernel`, from the build log, and with `calls` the mangled
+    names of the functions it calls (ptxas lists their properties after
+    the entry's)."""
     import re
 
-    out, inside = {}, False
+    out, state = {}, None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            inside = kernel in line
-        elif inside:
+            state = "entry" if kernel in line else None
+        elif state == "entry":
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m:
@@ -1386,7 +1398,13 @@ def ptxas_report(log_text: str, kernel: str) -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 out["registers"] = int(m[1])
-                inside = False
+                state = "callees" if calls else None
+                if calls:
+                    out["calls"] = []
+        elif state == "callees":
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                out["calls"].append(m[1])
     return out
 
 
@@ -1468,12 +1486,17 @@ def check_fr_kernels(dev, max_err: dict) -> dict:
     limb: fr_check against the plain FR on NTT_N elements (all pairs of 0,
     1, r - 1, r - 2, 2, R mod r, and seeded pairs); at the blob domain
     (n = NTT_N) for each of FR_BLOBS blobs of seeded elements below r,
-    fr_to_mont against FR.to_mont, fr_evaluate (z outside the domain),
-    fr_quotient and fr_quotient_in_domain (m = 0, 1, n - 1 in turn) through
-    FrDomain against its *_plain versions, blob 0's y and q against the
-    host's, and evaluate_blobs_plain at roots (fr_evaluate finishes there,
-    and the lanes take the stored elements). Each kernel timed on its
-    kernel-layout inputs (CUDA events behind a spin, 20 launches), its
+    fr_to_mont against FR.to_mont and fr_quotient_in_domain (m = 0, 1,
+    n - 1 in turn) through FrDomain on Montgomery evaluations against its
+    plain version; fr_evaluate (z outside the domain) and fr_quotient on
+    the plain limbs and one z table, as FrDomain.open_mont runs them,
+    against the plain versions of that route (FR.to_mont, then
+    evaluate_mont_plain with y out of Montgomery form, and
+    quotient_mont_plain), the table after them equal to the host's,
+    open_mont against the two; blob 0's y and q against the host's;
+    fr_evaluate at roots of unity equal to the stored elements, and
+    evaluate_blobs_plain there. Each kernel timed on the
+    main path's inputs (CUDA events behind a spin, 20 launches), its
     plain version once -> {kernel name: {"b<B>" or "m<M>": {"ms",
     "plain_ms", "bound_ms", "bound_by", ...}}}."""
     import numpy as np
@@ -1520,32 +1543,37 @@ def check_fr_kernels(dev, max_err: dict) -> dict:
         evals_m = d.to_mont(plain)
         want, t_mont = events_ms(lambda: FR.to_mont(plain))
         check("fr_to_mont", f"B={blobs}", evals_m, want)
-        y_m = d.evaluate_mont(evals_m, z_m, zn1_m)
-        want, t_eval = events_ms(lambda: d.evaluate_mont_plain(evals_m, z_m, zn1_m))
-        check("fr_evaluate", f"B={blobs}", y_m, want)
-        q = d.quotient_mont(evals_m, y_m, z_m)
-        want, t_quot = events_ms(lambda: d.quotient_mont_plain(evals_m, y_m, z_m))
-        check("fr_quotient", f"B={blobs}", q, want)
         q_in = d.quotient_in_domain_mont(evals_m, ms, z_inv)
         want, t_in = events_ms(lambda: d.quotient_in_domain_mont_plain(evals_m, onehot, z_inv))
         check("fr_quotient_in_domain", f"B={blobs} m={sorted(set(ms))}", q_in, want)
-        q_open, y_open = d.open_mont(plain, zs)  # the three in a row, in the kernel layout
-        if not (torch.equal(q_open, q) and torch.equal(y_open, y_m)):
+        # the main path's inputs: the plain limbs and one table
+        table = d.z_table(zs)
+        y = kernels.fr_evaluate(plain, table, d.roots_k, d.n_inv_k)
+        want_y, t_eval = events_ms(lambda: FR.from_mont(d.evaluate_mont_plain(FR.to_mont(plain), z_m, zn1_m)))
+        check("fr_evaluate", f"B={blobs}", y, want_y)
+        q = kernels.fr_quotient(plain, y, table, d.roots_k)
+        want_q, t_quot = events_ms(lambda: d.quotient_mont_plain(FR.to_mont(plain), FR.to_mont(y), z_m))
+        check("fr_quotient", f"B={blobs}", q, want_q)
+        if not torch.equal(table.cpu(), torch.from_numpy(d.z_table_host(zs))):
+            raise AssertionError(f"B={blobs}: the z table differs from the host's after the kernels")
+        q_open, y_open = d.open_mont(plain, zs)
+        if not (torch.equal(q_open, q) and torch.equal(y_open, y)):
             raise AssertionError(f"B={blobs}: open_mont differs from its kernels one by one")
         evals0 = lb.limbs_to_ints(plain[0])
         y0 = fft.barycentric_evaluate(evals0, zs[0], n)
-        if FR.from_mont_host(y_m[0]) != [y0] or lb.limbs_to_ints(q[0]) != fft.quotient(evals0, zs[0], y0, n):
+        if lb.limbs_to_ints(y[0]) != [y0] or lb.limbs_to_ints(q[0]) != fft.quotient(evals0, zs[0], y0, n):
             raise AssertionError(f"B={blobs}: blob 0's y or quotient differs from the host's")
-        at_roots = d.evaluate_blobs_plain(plain, [d.roots_brp_ints[m] for m in ms])
-        if at_roots != [int(lb.limbs_to_ints(plain[b, :, m : m + 1])[0]) for b, m in enumerate(ms)]:
+        stored = [int(lb.limbs_to_ints(plain[b, :, m : m + 1])[0]) for b, m in enumerate(ms)]
+        at_roots = kernels.fr_evaluate(plain, d.z_table([d.roots_brp_ints[m] for m in ms]), d.roots_k,
+                                       d.n_inv_k)
+        if (lb.limbs_to_ints(at_roots[..., 0].T) != stored
+                or d.evaluate_blobs_plain(plain, [d.roots_brp_ints[m] for m in ms]) != stored):
             raise AssertionError(f"B={blobs}: evaluations at roots differ from the stored elements")
-        p32, e32 = lb.to_u32_layout(plain), lb.to_u32_layout(evals_m)
-        z32, zn132, y32 = (lb.to_u32_layout(t) for t in (z_m, zn1_m, y_m))
-        zi32 = lb.to_u32_layout(z_inv)
+        p32, e32, zi32 = lb.to_u32_layout(plain), lb.to_u32_layout(evals_m), lb.to_u32_layout(z_inv)
         for name, fn, plain_ms in (
                 ("fr_to_mont", lambda: kernels.fr_to_mont(p32), t_mont),
-                ("fr_evaluate", lambda: kernels.fr_evaluate(e32, z32, zn132, d.roots_k, d.n_inv_k), t_eval),
-                ("fr_quotient", lambda: kernels.fr_quotient(e32, y32, z32, d.roots_k), t_quot),
+                ("fr_evaluate", lambda: kernels.fr_evaluate(plain, table, d.roots_k, d.n_inv_k), t_eval),
+                ("fr_quotient", lambda: kernels.fr_quotient(plain, y, table, d.roots_k), t_quot),
                 ("fr_quotient_in_domain", lambda: kernels.fr_quotient_in_domain(e32, ms, zi32, d.roots_k),
                  t_in)):
             shape = {"blobs": blobs, "n": n, "ms": time_ms(fn, reps=20), "plain_ms": plain_ms,
@@ -1554,7 +1582,7 @@ def check_fr_kernels(dev, max_err: dict) -> dict:
             log(f"  {name} n={n} B={blobs}: equal to plain, limb for limb; kernel {shape['ms']:.4f} ms, "
                 f"plain {plain_ms:.1f} ms, bound {shape['bound_ms']:.6f} ms ({shape['bound_by']})")
         log(f"  B={blobs}: blob 0's y and quotient equal the host's; at the roots m = {sorted(set(ms))} "
-            "the evaluations take the stored elements")
+            "fr_evaluate gives the stored elements; the table equals the host's after the kernels")
     return out
 
 
@@ -2270,13 +2298,13 @@ def native_phase(ctx, blobs, commitments, proofs, card: str) -> dict:
         "card": lambda: host_ms(lambda: [HC.to_affine(ctx.backend.msm(sc, pts)) for sc, pts in msms]),
     }, NATIVE_REPS)
     roots = ctx.backend.domain.roots_brp_le
-    _, out["evaluate_6"] = in_turns({  # the card's: one fr_to_mont and one fr_evaluate launch
+    _, out["evaluate_6"] = in_turns({  # the card's: one fr_evaluate launch
         "native": lambda: host_ms(lambda: [native.blob_eval(b, roots, n, z) for b, z in zip(blobs, zs)]),
         "card": lambda: host_ms(lambda: ctx.backend.evaluate_blobs(blobs, zs)),
     }, NATIVE_REPS)
     for key, what in (("decompress_12", "12 decompressions (+ subgroup checks)"),
                       ("msm_6_6_7", "the three generic MSMs of a batch of 6 (6, 6, 7 points)"),
-                      ("evaluate_6", "6 blob evaluations (fr_to_mont + fr_evaluate on the card)")):
+                      ("evaluate_6", "6 blob evaluations (fr_evaluate on the card)")):
         log(f"  {what}: native {out[key]['native']['median_ms']:.3f} ms, card "
             f"{out[key]['card']['median_ms']:.3f} ms (medians of {NATIVE_REPS}, equal results)")
     return out
@@ -2629,6 +2657,13 @@ def run() -> None:
         for name in pairing_report:
             pairing_report[name]["ptxas"] = ptxas_report(info["log"], name + "_kernel")
             log(f"  {name}: {pairing_report[name]}")
+        fr_report = {name: ptxas_report(info["log"], name + "_kernel", calls=True)
+                     for name in ("fr_evaluate_cluster", "fr_evaluate", "fr_quotient")}
+        for name, rep in fr_report.items():  # no Fermat chain on the card for these two
+            log(f"  {name}: ptxas {rep}")
+            if "registers" not in rep or any("fr3inv" in c for c in rep["calls"]):
+                raise AssertionError(f"{name}: ptxas reports a call of fr::inv or no entry: {rep}")
+        results["fr_ptxas"] = fr_report
 
     setup = load_mainnet_setup()
     points = lb.as_limb_tensor(setup.lagrange_points, dev)
@@ -2912,19 +2947,16 @@ def run() -> None:
         missing = [name for name in PROVE_KERNELS if prove_launches[name] == 0]
         if missing or prove_launches["g1_fixedbase_table"] != 0:
             raise AssertionError(f"the prove path's launches are wrong: {prove_launches}")
-        # one whole proof under the profiler, twice: a process's first short
-        # profiled windows have been seen to record no device work
-        results["proof_device"] = [device_work(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0]))
-                                   for _ in range(2)]
-        log(f"  one compute_blob_kzg_proof under the profiler, twice: {results['proof_device']}")
+        results["proof_device"] = device_work(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0]))
+        log(f"  one compute_blob_kzg_proof under the profiler: {results['proof_device']}")
         zs = [H.compute_challenge(b, c) for b, c in zip(blobs, commitments)]
         split = [prove_split(ctx.backend, blobs[:k], zs[:k]) for k in (1, 6)]
         results["prove_split"] = split
         for sp in split:
             per = sp["blobs"]
             fr_dev, msm_dev = sp["fr_device"], sp["msm_device"] or {}
-            log(f"  B={per}: fr_ms {sp['fr_ms']:.3f} (Montgomery form, evaluation and quotient; "
-                f"{sp['fr_ms'] / per:.3f} per proof; {fr_dev['kernels']} launches, "
+            log(f"  B={per}: fr_ms {sp['fr_ms']:.3f} (z table, evaluation and quotient; "
+                f"{sp['fr_ms'] / per:.3f} per proof; {fr_dev['kernels']} launches and {fr_dev['copies']} copies, "
                 f"{FR_PROOF_LAUNCHES} of them Fr kernels, device busy {fr_dev['busy_ms']:.3f} ms), msm_ms {sp['msm_ms']:.3f} (MSM + "
                 f"result; {msm_dev.get('kernels', 'not measured')} launches, device busy "
                 f"{msm_dev.get('busy_ms', float('nan')):.3f} ms) ({card})")

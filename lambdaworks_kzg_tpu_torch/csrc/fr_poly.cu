@@ -7,7 +7,7 @@
 //   fr_evaluate           <- FrDomain._eval_kernel (:66)
 //       y = (z^n - 1) / n * sum_i e_i w_i / (z - w_i)
 //   fr_quotient           <- FrDomain._quotient_kernel (:82)
-//       q_i = (e_i - y) / (w_i - z), out of Montgomery form
+//       q_i = (e_i - y) / (w_i - z), plain
 //   fr_quotient_in_domain <- FrDomain._quotient_in_domain_kernel (:94)
 //       z = w_m: q_i as above for i != m, and
 //       q_m = sum_{i != m} (e_i - y) w_i / (z (z - w_i)), y = e_m
@@ -17,40 +17,74 @@
 // negation, inverse and both conversions, to hold fr.cuh against the
 // plain field (ops/field_ops.py FR) on the card.
 //
-// Layout: limbs-first u32 arrays, Montgomery form with R = 2^256: the
-// evaluations [B, 8, n] (limb k of blob b's element i at (b 8 + k) n + i),
-// the roots w_i in bit-reversed order [8, n], one value per blob [B, 8, 1]
-// (z, z^n - 1, y, 1/z) and 1/n [8, 1]; the in-domain index m as int32[B].
-// The quotients come out PLAIN [B, 8, n], the form the fixed-base MSM
-// takes its digits from.
+// Layout. fr_evaluate and fr_quotient take the plain evaluations as the
+// public layout, int64 radix-2^16 limbs [B, 16, n] (limb j of blob b's
+// element i at (b 16 + j) n + i), and give the plain y [B, 16, 1] and
+// quotients [B, 16, n] in it, so no conversion of layout or form runs
+// around them (a Montgomery product of a plain value by a Montgomery one
+// is plain). Beside them, limbs-first u32 arrays in
+// Montgomery form with R = 2^256: the roots w_i in bit-reversed order
+// [8, n], 1/n [8, 1], and a table of each blob's z [B, 8, L + 1], L =
+// log2 n, all of it made on the host and only read here: column l < L
+// z^(2^l), column L the quotient's K = 1 / (z^n - 1) (0 where z^n = 1),
+// so that plain evaluations and y give plain quotients. fr_quotient_in_domain
+// and fr_to_mont keep u32 arrays [B, 8, n] (one value per blob [B, 8, 1],
+// the in-domain index m as int32[B]).
 //
-// Design: one block of T = min(n, 256) threads per blob, thread t owning
-// the elements i = t + k T (k < n / T; neighbouring threads on
-// neighbouring addresses). The denominators are inverted by Montgomery's
-// trick on two levels: each thread runs the prefix products of its own
-// elements (kept in global scratch, the quotient's output for the
-// quotients), the block builds a product tree of the T partial products
-// in shared memory, one thread inverts the root by Fermat (fr::inv), the
-// tree walks back down to each thread's partial inverse, and each thread
-// walks its elements back, one inverse each. Then the terms, and for the
-// evaluation and q_m a block sum in shared memory. Every result is
-// canonical, so neither the tree's order nor the sum's needs to follow
-// JAX's: the outputs equal the plain PyTorch versions
-// (ops/fr_poly.py) bit for bit. At a z inside the domain fr_evaluate's
-// root product is 0, its inverse 0, and the launch ends with a
-// meaningless y, which the caller replaces with the stored element;
-// fr_quotient_in_domain sets the zero denominator at m to one for the
-// inversion and its inverse to zero, as ops/fr_poly.py does.
+// Design of fr_evaluate and fr_quotient: no inversion on the card. The
+// domain's n roots of unity in bit-reversed order fall into aligned chunks:
+// the chunk of index g at size m = 2^l is the coset c H_m, so the product
+// of its denominators is Prod (z - w_i) = z^m - c^m, and c^m = w_g, the
+// root stored at index g. Every node of a binary tree over the elements
+// thus knows its denominator in closed form, one subtraction from the
+// power z^(2^l) of its level.
+//   fr_evaluate: y = (1/n) N, N = sum_i e_i w_i Prod_{j != i} (z - w_j), the
+//   numerator of the fraction sum sum_i e_i w_i / (z - w_i) over
+//   Prod_j (z - w_j) = z^n - 1 (at z = w_m, N = n e_m and y = e_m exactly).
+//   Up the tree a node's numerator is N_left D_right + N_right D_left: two
+//   independent products, taken by two threads.
+//   fr_quotient: q_i = (y - e_i) / (z - w_i), and 1 / (z - w_i) = K Prod of
+//   the denominators of the chunks that are siblings of i's on its path to
+//   the root, K = 1 / (z^n - 1) from the host. Down the tree a node's
+//   1 / (its denominator) is its parent's times its sibling's denominator:
+//   one product.
+// A blob runs on G blocks of T = min(n, 256) threads, k = n / (G T)
+// consecutive elements a thread: G = 8 from n = 2048 on (n = 4096: 8
+// blocks, 2 elements a thread), else 1. A thread folds its k elements by
+// their paths inside its chunk (log2 k products each); the block runs the
+// tree over its T threads in shared memory. fr_evaluate's G blocks are one
+// thread block cluster (its size fixed at compile time, so the launch is
+// a plain one that the profiler sees), and the first block reads the
+// others' numerators from their shared memory (distributed shared memory)
+// for the last log2 G levels; fr_quotient's blocks need nothing of each
+// other: a block's 1 / (its denominator) is K times its log2 G siblings'
+// denominators. Each block reads the powers z^(2^l) from the table into
+// shared memory first, so neither kernel squares and neither depends on
+// the other having run.
+// Every result is canonical, so the order of the products does not
+// matter: the outputs equal the plain PyTorch versions (ops/fr_poly.py)
+// bit for bit.
 //
-// What bounds it: a blob of n = 4096 moves 256 KB (evaluations in,
-// quotient out; the roots are shared) and needs ~6 n products (one
-// forward, two back, two or three for the terms) and one inversion, ~7 M
-// IMADs: the card's bound is ~0.4 us a blob, by operations. The launch is
-// bound instead by its chains: one thread's Fermat inversion (252
-// squarings and 73 products, dependent) and each thread's n / T = 16
-// elements of dependent products on either side of it, on one SM per
-// blob. A later design can spread a blob over more blocks and a
-// cooperative field (ROADMAP queue B item 0).
+// fr_quotient_in_domain keeps its first design: one block of T = min(n,
+// 256) threads per blob, Montgomery's trick on two levels (each thread's
+// prefix products, a shared tree of the T partials, one Fermat inversion
+// by one thread, fr::inv, back down), the zero denominator at m set to one
+// for the inversion and its inverse to zero, as ops/fr_poly.py does.
+//
+// What bounds them: the functions need, a blob of n = 4096, its n values
+// in (128 KB as 32-byte elements; the public limbs the kernels read hold
+// each in 128 bytes, 512 KB) and, for the quotient, n out; fr_evaluate
+// 2 n + 1 products, ~2.2 M IMADs, fr_quotient 3 n - 2 and one inversion,
+// ~3.3 M: by operations ~0.13 us and ~0.2 us a blob on the card. The
+// launch is bound instead by its chain: fr_evaluate a thread's 2 elements
+// (2 dependent products), then 8 levels in the block and 3 in the
+// cluster, one product and two barriers each, and the product by 1/n;
+// fr_quotient 3 products for the block's root, 8 levels down and 2
+// products a thread -- ~15 dependent products of ~1,300 cycles each.
+// fr_quotient_in_domain is bound by its Fermat chain (252 squarings, 73
+// products) and each thread's 16 elements on one SM (ROADMAP queue B
+// item 0).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,11 +92,21 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using fr::Fr;
 
 constexpr int kMaxThreads = 256;  // threads a blob's block; the tree's leaves
+constexpr int kCluster = 8;  // fr_evaluate's and fr_quotient's blocks a blob from n = 2048 on
+constexpr int kMaxLevels = 31;    // log2 n
 
 inline int threads_for(int n) { return n < kMaxThreads ? n : kMaxThreads; }
+
+inline int log2_of(int x) {  // x a power of two
+  int l = 0;
+  while ((1 << l) < x) ++l;
+  return l;
+}
 
 // The inverses of the block's n denominators denom(i) (none zero; a zero
 // gives zero inverses) by Montgomery's trick on two levels, handed to
@@ -120,47 +164,144 @@ __device__ void block_sum(Fr part, Fr* node) {
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-    fr_evaluate_kernel(const uint32_t* __restrict__ evals, const uint32_t* __restrict__ z,
-                       const uint32_t* __restrict__ zn1, const uint32_t* __restrict__ roots,
-                       const uint32_t* __restrict__ n_inv, uint32_t* scratch,
-                       uint32_t* __restrict__ out, int n) {
-  __shared__ Fr node[2 * kMaxThreads];
-  __shared__ Fr inv[2 * kMaxThreads];
-  const int b = blockIdx.x;
-  const uint32_t* e = evals + (size_t)b * fr::NL * n;
-  const Fr zb = fr::load(z + b * fr::NL, 1, 0);
-  Fr part = fr::zero();
-  batch_inverse(
-      n, scratch + (size_t)b * fr::NL * n, node, inv,
-      [&](int i) { return fr::sub(zb, fr::load(roots, n, i)); },
-      [&](int i, const Fr& inv_i) {
-        const Fr term = fr::mul(fr::mul(fr::load(e, n, i), fr::load(roots, n, i)), inv_i);
-        part = fr::add(part, term);
-      });
-  block_sum(part, node);
-  if (threadIdx.x == 0) {
-    const Fr y = fr::mul(fr::mul(node[0], fr::load(zn1 + b * fr::NL, 1, 0)), fr::load(n_inv, 1, 0));
-    fr::store(out + b * fr::NL, 1, 0, y);
+// Element i of a blob's [16, n] int64 radix-2^16 limbs (the public
+// layout) as eight words, and back.
+__device__ __forceinline__ Fr load16(const int64_t* __restrict__ base, int n, int i) {
+  Fr a;
+#pragma unroll
+  for (int k = 0; k < fr::NL; ++k)
+    a.v[k] = (uint32_t)base[(size_t)(2 * k) * n + i] |
+             ((uint32_t)base[(size_t)(2 * k + 1) * n + i] << 16);
+  return a;
+}
+
+__device__ __forceinline__ void store16(int64_t* __restrict__ base, int n, int i, const Fr& a) {
+#pragma unroll
+  for (int k = 0; k < fr::NL; ++k) {
+    base[(size_t)(2 * k) * n + i] = a.v[k] & 0xffffu;
+    base[(size_t)(2 * k + 1) * n + i] = a.v[k] >> 16;
   }
 }
 
+// acc times the product of (z - w_j) over the j != i of i's aligned chunk
+// of 2^levels elements: per level l below, the chunk that is the sibling
+// of i's at size 2^l, whose product is pw[l] - w_((i >> l) ^ 1), pw[l] =
+// z^(2^l).
+__device__ Fr chunk_complement(Fr acc, int i, int levels, const Fr* pw,
+                               const uint32_t* __restrict__ roots, int n) {
+  for (int l = 0; l < levels; ++l) acc = fr::mul(acc, fr::sub(pw[l], fr::load(roots, n, (i >> l) ^ 1)));
+  return acc;
+}
+
+// The fraction tree up: num[0 .. count) are the numerators of count
+// consecutive chunks at size 2^level, the first of them of index first
+// (even); on return num[0] is the numerator of their union. A node's is
+// N_left D_right + N_right D_left with D_left = z^(2^level) - c and
+// D_right = z^(2^level) + c, c = w_(its left child's index) (the right
+// child's root is -c), thread u of 2 h taking one of the two products of
+// node u / 2; pw[l] = z^(2^l).
+__device__ void fraction_up(Fr* num, Fr* prod, const Fr* pw, int count, int level, int first,
+                            const uint32_t* __restrict__ roots, int n) {
+  const int t = threadIdx.x;
+  for (int h = count >> 1; h >= 1; h >>= 1, ++level, first >>= 1) {
+    if (t < 2 * h) {
+      const Fr c = fr::load(roots, n, first + (t & ~1));
+      prod[t] = fr::mul(num[t], (t & 1) ? fr::sub(pw[level], c) : fr::add(pw[level], c));
+    }
+    __syncthreads();
+    if (t < h) num[t] = fr::add(prod[2 * t], prod[2 * t + 1]);
+    __syncthreads();
+  }
+}
+
+// A blob of n on a cluster of G blocks of T threads, 2^lk elements a
+// thread (the launcher's split); block rank r owns the elements
+// [r T 2^lk, (r + 1) T 2^lk).
+template <int G>
+__device__ void evaluate_blob(const int64_t* __restrict__ evals, const uint32_t* __restrict__ table,
+                              const uint32_t* __restrict__ roots, const uint32_t* __restrict__ n_inv,
+                              int64_t* __restrict__ out, int n, int lk) {
+  __shared__ Fr num[kMaxThreads], prod[kMaxThreads], pw[kMaxLevels];
+  const int T = blockDim.x, t = threadIdx.x, lt = 31 - __clz(T), lg = 31 - __clz(G);
+  const int rank = blockIdx.x % G, b = blockIdx.x / G;
+  const int L = lk + lt + lg, W = L + 1;
+  const uint32_t* tab = table + (size_t)b * fr::NL * W;
+  const int64_t* e = evals + (size_t)b * 2 * fr::NL * n;
+  if (t < L) pw[t] = fr::load(tab, W, t);
+  __syncthreads();
+  Fr part = fr::zero();
+  for (int r = 0; r < (1 << lk); ++r) {
+    const int i = ((rank * T + t) << lk) + r;
+    const Fr leaf = fr::mul(load16(e, n, i), fr::load(roots, n, i));
+    part = fr::add(part, chunk_complement(leaf, i, lk, pw, roots, n));
+  }
+  num[t] = part;
+  __syncthreads();
+  fraction_up(num, prod, pw, T, lk, rank * T, roots, n);
+  if constexpr (G > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every block's numerator is in its num[0]
+    if (rank == 0 && t < G) num[t] = *cluster.map_shared_rank(num, t);
+    cluster.sync();  // read: the other blocks may leave
+    if (rank) return;
+    fraction_up(num, prod, pw, G, lk + lt, 0, roots, n);
+  }
+  if (t == 0) store16(out + (size_t)b * 2 * fr::NL, 1, 0, fr::mul(num[0], fr::load(n_inv, 1, 0)));
+}
+
 __global__ void __launch_bounds__(kMaxThreads)
-    fr_quotient_kernel(const uint32_t* __restrict__ evals, const uint32_t* __restrict__ y,
-                       const uint32_t* __restrict__ z, const uint32_t* __restrict__ roots,
-                       uint32_t* out, int n) {
-  __shared__ Fr node[2 * kMaxThreads];
-  __shared__ Fr inv[2 * kMaxThreads];
-  const int b = blockIdx.x;
-  const uint32_t* e = evals + (size_t)b * fr::NL * n;
-  uint32_t* q = out + (size_t)b * fr::NL * n;  // also the prefix products
-  const Fr yb = fr::load(y + b * fr::NL, 1, 0);
-  const Fr zb = fr::load(z + b * fr::NL, 1, 0);
-  batch_inverse(
-      n, q, node, inv, [&](int i) { return fr::sub(fr::load(roots, n, i), zb); },
-      [&](int i, const Fr& inv_i) {
-        fr::store(q, n, i, fr::from_mont(fr::mul(fr::sub(fr::load(e, n, i), yb), inv_i)));
-      });
+    fr_evaluate_kernel(const int64_t* __restrict__ evals, const uint32_t* __restrict__ table,
+                       const uint32_t* __restrict__ roots, const uint32_t* __restrict__ n_inv,
+                       int64_t* __restrict__ out, int n, int lk) {
+  evaluate_blob<1>(evals, table, roots, n_inv, out, n, lk);
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxThreads)
+    fr_evaluate_cluster_kernel(const int64_t* __restrict__ evals, const uint32_t* __restrict__ table,
+                               const uint32_t* __restrict__ roots,
+                               const uint32_t* __restrict__ n_inv, int64_t* __restrict__ out, int n,
+                               int lk) {
+  evaluate_blob<kCluster>(evals, table, roots, n_inv, out, n, lk);
+}
+
+// The same split, each block on its own.
+__global__ void __launch_bounds__(kMaxThreads)
+    fr_quotient_kernel(const int64_t* __restrict__ evals, const int64_t* __restrict__ y,
+                       const uint32_t* __restrict__ table, const uint32_t* __restrict__ roots,
+                       int64_t* __restrict__ out, int n, int lk, int lg) {
+  // comp[v]: 1 / (the denominator of the block tree's node v), a heap of
+  // T leaves (node v's children 2v, 2v + 1)
+  __shared__ Fr comp[2 * kMaxThreads], pw[kMaxLevels];
+  const int T = blockDim.x, t = threadIdx.x, lt = 31 - __clz(T);
+  const int rank = blockIdx.x & ((1 << lg) - 1), b = blockIdx.x >> lg;
+  const int lb = lk + lt, L = lb + lg, W = L + 1;
+  const uint32_t* tab = table + (size_t)b * fr::NL * W;
+  if (t < L) pw[t] = fr::load(tab, W, t);
+  __syncthreads();
+  if (t == 0) {  // K times the denominators of the block's siblings above it
+    Fr c = fr::load(tab, W, L);
+    for (int l = lb; l < L; ++l)
+      c = fr::mul(c, fr::sub(pw[l], fr::load(roots, n, (rank >> (l - lb)) ^ 1)));
+    comp[1] = c;
+  }
+  __syncthreads();
+  // children 2h .. 4h - 1 at size 2^level; child 2h + u is the chunk
+  // rank 2h + u, its sibling rank 2h + (u ^ 1)
+  for (int h = 1, level = lb - 1; h < T; h <<= 1, --level) {
+    if (t < 2 * h)
+      comp[2 * h + t] = fr::mul(comp[h + (t >> 1)],
+                                fr::sub(pw[level], fr::load(roots, n, rank * 2 * h + (t ^ 1))));
+    __syncthreads();
+  }
+  const Fr mine = comp[T + t];  // 1 / (the product over this thread's elements)
+  const Fr yb = load16(y + (size_t)b * 2 * fr::NL, 1, 0);
+  const int64_t* e = evals + (size_t)b * 2 * fr::NL * n;
+  int64_t* q = out + (size_t)b * 2 * fr::NL * n;
+  for (int r = 0; r < (1 << lk); ++r) {
+    const int i = ((rank * T + t) << lk) + r;
+    const Fr inv_i = chunk_complement(mine, i, lk, pw, roots, n);  // 1 / (z - w_i)
+    store16(q, n, i, fr::mul(fr::sub(yb, load16(e, n, i)), inv_i));
+  }
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -223,27 +364,47 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 inline int blocks_for(long lanes) { return (int)((lanes + kMaxThreads - 1) / kMaxThreads); }
 
+// fr_evaluate and fr_quotient: a blob of n (a power of two, at least 2) on
+// G blocks of T = min(n, 256) threads, G = 8 from n = 2048 on and 1 below,
+// 2^lk = n / (G T) elements a thread.
+struct Split {
+  int T, G, lk, lg;
+};
+
+inline Split split_for(int n) {
+  Split s;
+  s.T = threads_for(n);
+  s.G = n >= kCluster * kMaxThreads ? kCluster : 1;
+  s.lg = log2_of(s.G);
+  s.lk = log2_of(n) - log2_of(s.T) - s.lg;
+  return s;
+}
+
 }  // namespace
 
-// Launchers: raw device pointers, the blob count B (one block each) and
-// the domain size n (a power of two), or the lane count, and a
-// cudaStream_t. Each returns cudaGetLastError() after its launch (0 on
-// success).
+// Launchers: raw device pointers, the blob count B and the domain size n
+// (a power of two), or the lane count, and a cudaStream_t. Each returns
+// cudaGetLastError() after its launch (0 on success).
 
-extern "C" int lwkzg_fr_evaluate(const void* evals, const void* z, const void* zn1,
-                                 const void* roots, const void* n_inv, void* scratch, void* out,
-                                 int B, int n, void* stream) {
-  fr_evaluate_kernel<<<B, threads_for(n), 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)evals, (const uint32_t*)z, (const uint32_t*)zn1, (const uint32_t*)roots,
-      (const uint32_t*)n_inv, (uint32_t*)scratch, (uint32_t*)out, n);
+extern "C" int lwkzg_fr_evaluate(const void* evals, const void* table, const void* roots,
+                                 const void* n_inv, void* out, int B, int n, void* stream) {
+  const Split s = split_for(n);
+  const auto e = (const int64_t*)evals;
+  const auto tab = (const uint32_t*)table, r = (const uint32_t*)roots, ni = (const uint32_t*)n_inv;
+  if (s.G == kCluster)
+    fr_evaluate_cluster_kernel<<<B * s.G, s.T, 0, (cudaStream_t)stream>>>(e, tab, r, ni,
+                                                                         (int64_t*)out, n, s.lk);
+  else
+    fr_evaluate_kernel<<<B, s.T, 0, (cudaStream_t)stream>>>(e, tab, r, ni, (int64_t*)out, n, s.lk);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lwkzg_fr_quotient(const void* evals, const void* y, const void* z,
+extern "C" int lwkzg_fr_quotient(const void* evals, const void* y, const void* table,
                                  const void* roots, void* out, int B, int n, void* stream) {
-  fr_quotient_kernel<<<B, threads_for(n), 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)evals, (const uint32_t*)y, (const uint32_t*)z, (const uint32_t*)roots,
-      (uint32_t*)out, n);
+  const Split s = split_for(n);
+  fr_quotient_kernel<<<B * s.G, s.T, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)evals, (const int64_t*)y, (const uint32_t*)table, (const uint32_t*)roots,
+      (int64_t*)out, n, s.lk, s.lg);
   return (int)cudaGetLastError();
 }
 

@@ -41,7 +41,6 @@ from ..parallel import msm as pmsm
 from . import codec, dispatch, fr_poly, g1_batch, g1_ops, msm
 from .dispatch import resolve_device
 from . import limbs as lb
-from .field_ops import FR
 from .msm import GROUPS
 
 
@@ -160,14 +159,11 @@ class TorchBackend:
 
     def quotient(self, evals, z: int, y: int) -> list:
         """Fr ints of q(x) = (p(x) - y) / (x - z) on the domain."""
-        q = self.domain.quotient_plain_from_mont(self.domain.mont(list(evals)), z, y)
-        return lb.limbs_to_ints(q)
+        return lb.limbs_to_ints(self.domain.quotient(self.domain.limbs(list(evals)), z, y))
 
     def open(self, evals, z: int):
         """Evaluation-form Fr ints -> (host Jacobian proof, y = p(z))."""
-        y = self.evaluate(evals, z)
-        q = self.domain.quotient_plain_from_mont(self.domain.mont(list(evals)), z, y)
-        return self.commit_scalars(q), y
+        return self.open_scalars(self.domain.limbs(list(evals))[None], [z])[0]
 
     def evaluate_scalars(self, scalars: torch.Tensor, zs) -> list:
         """[B, 16, n] plain limbs on the device, host zs -> B ints, in one
@@ -187,11 +183,11 @@ class TorchBackend:
 
     def open_scalars(self, scalars: torch.Tensor, zs) -> list:
         """[B, 16, n] plain limbs on the device, host zs -> B (host
-        Jacobian proof, y): one batched Montgomery conversion, evaluation
-        and quotient (a kernel launch each on a card), one MSM of the
-        quotients and one wait for the device, which the proofs' transfer
-        makes after everything is queued; y leaves Montgomery form on the
-        host. A batch with a z in the domain goes blob by blob (JAX
+        Jacobian proof, y): one batched evaluation and quotient on the
+        plain limbs (a kernel launch each on a card; y and q come out
+        plain), one MSM of the quotients and one wait for the device,
+        which the proofs' transfer makes after everything is queued. A
+        batch with a z in the domain goes blob by blob (JAX
         `open_blobs`)."""
         zs = [z % R for z in zs]
         idx = [self.domain.root_index.get(z) for z in zs]
@@ -199,16 +195,14 @@ class TorchBackend:
             if len(zs) > 1:
                 return [self.open_scalars(scalars[b : b + 1], [z])[0] for b, z in enumerate(zs)]
             return [self._open_in_domain(scalars[0], zs[0], idx[0])]
-        q, y_m = self.domain.open_mont(scalars, zs)  # z's transfer comes before any work
+        q, y = self.domain.open_mont(scalars, zs)  # z's transfer comes before any work
         proofs = self.commit_scalars(q)
-        return list(zip(proofs, FR.from_mont_host(y_m[..., 0].T)))
+        return list(zip(proofs, lb.limbs_to_ints(y[..., 0].T)))
 
     def _open_in_domain(self, plain: torch.Tensor, z: int, idx: int):
         """(proof, y) for z = w_idx from plain limbs [16, n]: y is the
         stored element (JAX `open_blob`)."""
-        z_inv = self.domain.mont([pow(z, R - 2, R)])
-        q = self.domain.quotient_in_domain_mont(self.domain.to_mont(plain), idx, z_inv)
-        proof = self.commit_scalars(q)
+        proof = self.commit_scalars(self.domain.quotient(plain, z, None))
         return proof, lb.limbs_to_ints(plain[:, idx : idx + 1])[0]
 
     def open_blobs(self, blobs, zs) -> list:

@@ -23,11 +23,15 @@ stages and once after them.
 steps (`ops/pairing_ops.py`), public layout in and out.
 
 `fr_to_mont`, `fr_evaluate`, `fr_quotient` and `fr_quotient_in_domain`
-run the Fr layer's kernels on CUDA tensors only, public layout in and
-out, with any leading batch dimensions flattened into the kernels' blob
-axis; `fr_open` runs a batch's first three in a row on one conversion of
-the evaluations into the kernel layout. `ops/fr_poly.FrDomain` routes a
-CUDA tensor here and keeps the plain versions for the CPU.
+run the Fr layer's kernels on CUDA tensors only, with any leading batch
+dimensions flattened into the kernels' blob axis: `fr_to_mont` and
+`fr_quotient_in_domain` public layout in and out around the kernel
+layout, `fr_evaluate` and `fr_quotient` on the plain public limbs as
+they are (their kernels read and write that layout), each z a row of
+`FrDomain.z_table`; `fr_open` runs a batch's evaluation and quotient,
+two launches and no conversion.
+`ops/fr_poly.FrDomain` routes a CUDA tensor here and keeps the plain
+versions for the CPU.
 
 `resolve_device` turns a device argument into a `torch.device` and
 raises where CUDA is asked for and absent: the entry points run on the
@@ -183,23 +187,23 @@ def fr_to_mont(plain16):
     return lb.to_u16_layout(out).reshape(plain16.shape)
 
 
-def fr_evaluate(evals16, z16, zn1_16, roots, n_inv):
-    """Montgomery evaluations [..., 16, n], z and z^n - 1 [..., 16, 1] on a
-    card, the domain's roots [8, n] and 1/n [8, 1] in the kernel layout ->
-    y [..., 16, 1]."""
-    lead = torch.broadcast_shapes(evals16.shape[:-2], z16.shape[:-2], zn1_16.shape[:-2])
-    y = kernels.fr_evaluate(_fr_rows(evals16, lead), _fr_rows(z16, lead), _fr_rows(zn1_16, lead),
-                            roots, n_inv)
-    return lb.to_u16_layout(y).reshape(tuple(lead) + (16, 1))
+def fr_evaluate(evals16, table, roots, n_inv):
+    """Plain evaluations [..., 16, n] on a card, the z table of their
+    B = prod(...) blobs [B, 8, levels + 1] (`FrDomain.z_table`), the
+    domain's roots [8, n] and 1/n [8, 1] in the kernel layout -> PLAIN y
+    [..., 16, 1]."""
+    lead, n = evals16.shape[:-2], evals16.shape[-1]
+    y = kernels.fr_evaluate(evals16.reshape(-1, 16, n).contiguous(), table, roots, n_inv)
+    return y.reshape(tuple(lead) + (16, 1))
 
 
-def fr_quotient(evals16, y16, z16, roots):
-    """Montgomery evaluations [..., 16, n], y and z [..., 16, 1] on a card,
-    roots [8, n] -> PLAIN q [..., 16, n]."""
-    lead = torch.broadcast_shapes(evals16.shape[:-2], y16.shape[:-2], z16.shape[:-2])
-    n = evals16.shape[-1]
-    q = kernels.fr_quotient(_fr_rows(evals16, lead), _fr_rows(y16, lead), _fr_rows(z16, lead), roots)
-    return lb.to_u16_layout(q).reshape(tuple(lead) + (16, n))
+def fr_quotient(evals16, y16, table, roots):
+    """Plain evaluations [..., 16, n] and y [..., 16, 1] on a card, the z
+    table of their blobs, roots [8, n] -> PLAIN q [..., 16, n]."""
+    lead, n = evals16.shape[:-2], evals16.shape[-1]
+    q = kernels.fr_quotient(evals16.reshape(-1, 16, n).contiguous(),
+                            y16.reshape(-1, 16, 1).contiguous(), table, roots)
+    return q.reshape(tuple(lead) + (16, n))
 
 
 def fr_quotient_in_domain(evals16, m, z_inv16, roots):
@@ -214,14 +218,12 @@ def fr_quotient_in_domain(evals16, m, z_inv16, roots):
     return lb.to_u16_layout(q).reshape(tuple(lead) + (16, n))
 
 
-def fr_open(plain16, zz32, roots, n_inv, quotient: bool = True):
-    """Plain evaluations [B, 16, n] on a card and zz32 = (z, z^n - 1) in
-    the kernel layout [2, B, 8, 1], z outside the domain -> (PLAIN q
-    [B, 16, n], or None where quotient is False, and Montgomery y
-    [B, 16, 1]): fr_to_mont, fr_evaluate and fr_quotient with the
-    evaluations kept in the kernel layout between them, one layout
-    conversion in and one out for each result."""
-    evals = kernels.fr_to_mont(lb.to_u32_layout(plain16))
-    y = kernels.fr_evaluate(evals, zz32[0], zz32[1], roots, n_inv)
-    q = lb.to_u16_layout(kernels.fr_quotient(evals, y, zz32[0], roots)) if quotient else None
-    return q, lb.to_u16_layout(y)
+def fr_open(plain16, table, roots, n_inv, quotient: bool = True):
+    """Plain evaluations [B, 16, n] on a card and their z table
+    (`FrDomain.z_table`), z outside the domain -> (PLAIN q [B, 16, n], or
+    None where quotient is False, and PLAIN y [B, 16, 1]): fr_evaluate,
+    then fr_quotient on the same limbs, table and y."""
+    plain16 = plain16.contiguous()  # as blob_scalars makes them: no copy
+    y = kernels.fr_evaluate(plain16, table, roots, n_inv)
+    q = kernels.fr_quotient(plain16, y, table, roots) if quotient else None
+    return q, y

@@ -33,8 +33,10 @@ their plain versions are `pairing_ops.miller_loop_jac` and
 the Fr field of `fr.cuh`) run the three programs the JAX package jits once
 per domain size (`lambdaworks_kzg_tpu/ops/fr_poly.py` `_eval_kernel`,
 `_quotient_kernel`, `_quotient_in_domain_kernel`), each in one launch per
-batch of blobs, a block per blob; `fr_to_mont` puts a batch's evaluations
-into Montgomery form before them. Their plain versions are
+batch of blobs: the first two on up to 8 blocks a blob (a thread block
+cluster for the evaluation), with no inversion on the card, the third
+on a block a blob; `fr_to_mont` puts evaluations into Montgomery form
+for the third. Their plain versions are
 `FrDomain.evaluate_mont_plain`, `quotient_mont_plain`,
 `quotient_in_domain_mont_plain` (`ops/fr_poly.py`) and `FR.to_mont`.
 `fp_sqr_check` (g1.cu) returns the field's square and product a * a, to
@@ -66,9 +68,12 @@ the batched G1 kernels take x as [12, M], scalars as [8, M] u32 words
 stage takes its n points [3, 12, n] in natural order and its twiddles
 [8, n/2]; the pairing kernels take G1 Jacobian [3, 12, B], G2 Jacobian
 [3, 2, 12, B] and Miller values [12, 12, B] (`tower_ops.flatten12`); the
-Fr kernels take Montgomery evaluations [B, 8, n], one value per blob
-[B, 8, 1], the domain's roots [8, n] and 1/n [8, 1], the in-domain index
-as B host ints, and return y [B, 8, 1] or the plain quotients [B, 8, n].
+Fr kernels take the domain's roots [8, n] and 1/n [8, 1]; `fr_evaluate`
+and `fr_quotient` the plain evaluations as public int64 limbs [B, 16, n]
+and a table of each z [B, 8, log2 n + 1], and return the plain y
+[B, 16, 1] or quotients [B, 16, n]; `fr_quotient_in_domain` Montgomery evaluations
+[B, 8, n], 1/z [B, 8, 1] and the in-domain index as B host ints, and
+returns the plain quotients [B, 8, n].
 They allocate the output with `torch.empty`, launch on the current
 stream, raise when the launch fails, and count their launches.
 """
@@ -191,7 +196,7 @@ def _load():
             lib.lwkzg_pairing_miller_loop.argtypes = [vp, vp, vp, ci, u64, vp, ci, ci, vp]
             lib.lwkzg_pairing_final_exp.argtypes = [vp, vp, vp, vp, ci, u64, u64, vp, ci, ci, vp]
             lib.lwkzg_pairing_smem.argtypes = [ci, ci, vp]
-            lib.lwkzg_fr_evaluate.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+            lib.lwkzg_fr_evaluate.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
             lib.lwkzg_fr_quotient.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
             lib.lwkzg_fr_quotient_in_domain.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
             lib.lwkzg_fr_to_mont.argtypes = [vp, vp, ci, ci, vp]
@@ -535,48 +540,50 @@ def _final_exp(k: _Kernel, f: torch.Tensor):
     return out, ok
 
 
-def _check_domain(evals: torch.Tensor, roots: torch.Tensor) -> tuple:
-    """-> (B, n) of Montgomery evaluations [B, 8, n] over roots [8, n] on
-    one device, n a power of two."""
+def _check_domain(evals: torch.Tensor, roots: torch.Tensor, limbs: int = FR_NL) -> tuple:
+    """-> (B, n) of evaluations [B, limbs, n] over roots [8, n] on one
+    device, n a power of two: int32 words (8 limbs) or int64 public limbs
+    (16, n at least 2)."""
     if evals.dim() != 3:
-        raise ValueError(f"evals must be [B, {FR_NL}, n], got {tuple(evals.shape)}")
+        raise ValueError(f"evals must be [B, {limbs}, n], got {tuple(evals.shape)}")
     b, n = evals.shape[0], evals.shape[-1]
-    if n < 1 or n & (n - 1):
+    if n < (1 if limbs == FR_NL else 2) or n & (n - 1):
         raise ValueError(f"the domain size must be a power of two, got {n}")
-    _check(evals, "evals", (b, FR_NL, n), evals.device)
+    _check(evals, "evals", (b, limbs, n), evals.device, torch.int32 if limbs == FR_NL else torch.int64)
     _check(roots, "roots", (FR_NL, n), evals.device)
     return b, n
 
 
-def _fr_evaluate(k: _Kernel, evals: torch.Tensor, z: torch.Tensor, zn1: torch.Tensor,
-                 roots: torch.Tensor, n_inv: torch.Tensor):
-    """evals [B, 8, n], z and z^n - 1 [B, 8, 1], roots [8, n], 1/n [8, 1],
-    all Montgomery -> y [B, 8, 1]: (z^n - 1) / n * sum_i e_i w_i / (z - w_i)
-    (a z in the domain gives a meaningless y)."""
-    b, n = _check_domain(evals, roots)
+def _fr_evaluate(k: _Kernel, evals: torch.Tensor, table: torch.Tensor, roots: torch.Tensor,
+                 n_inv: torch.Tensor):
+    """evals [B, 16, n] plain public int64 limbs, each z's table
+    [B, 8, log2 n + 1] (`FrDomain.z_table`: z^(2^l) in column l), roots
+    [8, n], 1/n [8, 1] -> plain y [B, 16, 1]: (z^n - 1) / n *
+    sum_i e_i w_i / (z - w_i), the stored element e_m at z = w_m."""
+    b, n = _check_domain(evals, roots, 16)
     dev = evals.device
-    _check(z, "z", (b, FR_NL, 1), dev)
-    _check(zn1, "zn1", (b, FR_NL, 1), dev)
+    _check(table, "table", (b, FR_NL, n.bit_length()), dev)
     _check(n_inv, "n_inv", (FR_NL, 1), dev)
-    out = torch.empty((b, FR_NL, 1), dtype=torch.int32, device=dev)
+    out = torch.empty((b, 16, 1), dtype=torch.int64, device=dev)
     if b:
-        scratch = torch.empty_like(evals)  # each thread's prefix products
-        _run("fr_evaluate", evals, evals.data_ptr(), z.data_ptr(), zn1.data_ptr(), roots.data_ptr(),
-             n_inv.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, n)
+        _run("fr_evaluate", evals, evals.data_ptr(), table.data_ptr(), roots.data_ptr(),
+             n_inv.data_ptr(), out.data_ptr(), b, n)
         k.launches += 1
     return out
 
 
-def _fr_quotient(k: _Kernel, evals: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+def _fr_quotient(k: _Kernel, evals: torch.Tensor, y: torch.Tensor, table: torch.Tensor,
                  roots: torch.Tensor):
-    """evals [B, 8, n], y and z [B, 8, 1], roots [8, n], Montgomery, z
-    outside the domain -> PLAIN q [B, 8, n], q_i = (e_i - y) / (w_i - z)."""
-    b, n = _check_domain(evals, roots)
-    _check(y, "y", (b, FR_NL, 1), evals.device)
-    _check(z, "z", (b, FR_NL, 1), evals.device)
+    """evals [B, 16, n] and y [B, 16, 1] plain public int64 limbs, each
+    z's table [B, 8, log2 n + 1] (`FrDomain.z_table`: z^(2^l) in column l,
+    K = 1 / (z^n - 1) in the last), roots [8, n], z outside the domain ->
+    PLAIN q [B, 16, n], q_i = (e_i - y) / (w_i - z)."""
+    b, n = _check_domain(evals, roots, 16)
+    _check(y, "y", (b, 16, 1), evals.device, torch.int64)
+    _check(table, "table", (b, FR_NL, n.bit_length()), evals.device)
     out = torch.empty_like(evals)
     if b:
-        _run("fr_quotient", evals, evals.data_ptr(), y.data_ptr(), z.data_ptr(), roots.data_ptr(),
+        _run("fr_quotient", evals, evals.data_ptr(), y.data_ptr(), table.data_ptr(), roots.data_ptr(),
              out.data_ptr(), b, n)
         k.launches += 1
     return out

@@ -50,8 +50,9 @@ def int_to_limbs(value: int, num_limbs: int) -> np.ndarray:
 
 
 def as_limb_tensor(arr, device="cpu") -> torch.Tensor:
-    """numpy radix-2^16 limbs (any unsigned dtype) -> int64 tensor."""
-    return torch.from_numpy(np.asarray(arr).astype(np.int64)).to(device)
+    """numpy radix-2^16 limbs (any unsigned dtype) -> contiguous int64
+    tensor (one copy on the host, whatever the array's strides)."""
+    return torch.from_numpy(np.asarray(arr).astype(np.int64, order="C")).to(device)
 
 
 def shift_up(x: torch.Tensor, k: int = 1) -> torch.Tensor:

@@ -54,12 +54,15 @@ The Fr layer (csrc/fr_poly.cu on csrc/fr.cuh): fr_check's product,
 square, sum, difference, negation, inverse and conversions equal the
 plain FR on edge and random elements; fr_to_mont, fr_evaluate,
 fr_quotient and fr_quotient_in_domain (m = 0, 1, n - 1) equal the plain
-versions at n = 4, 32 and 4096 and 1 to 6 blobs, one launch each, and
-FrDomain.open_mont (the first three in a row) equals them; the in-domain
-wrapper refuses an index outside [0, n); on the mainnet context a proof batch launches fr_to_mont, fr_evaluate and
-fr_quotient once, a proof at a root of unity fr_quotient_in_domain once
-(its MSM equal to the host quotient's), a batch verification fr_evaluate
-once.
+versions at n = 4, 32 and 4096 and 1 to 64 blobs, one launch each,
+fr_evaluate and fr_quotient on the plain limbs and the host's table as
+FrDomain.open_mont runs them (the quotient also before any evaluation;
+the table unchanged after them);
+fr_evaluate at z = w_m gives e_m; the in-domain wrapper refuses an index
+outside [0, n); on the mainnet context a proof batch launches fr_evaluate
+and fr_quotient once and no other Fr kernel, a proof at a root of unity
+fr_to_mont and fr_quotient_in_domain once (its MSM equal to the host
+quotient's), a batch verification fr_evaluate once.
 
 The multi-device tier on a logical (2, 2) mesh of the one card: a batch
 of three blobs commits as the unsharded context does, in four launches
@@ -216,13 +219,15 @@ def test_fr_check_matches_plain_field_on_card():
         assert torch.equal(out[k], w), k
 
 
-@pytest.mark.parametrize("n,blobs", [(4, 1), (32, 3), (4096, 1), (4096, 6)])
+@pytest.mark.parametrize("n,blobs", [(4, 1), (32, 3), (4096, 1), (4096, 6), (4096, 64)])
 def test_fr_kernels_match_plain_on_card(n, blobs):
     """fr_to_mont, fr_evaluate, fr_quotient and fr_quotient_in_domain,
     through FrDomain on the card, equal the plain versions on the same
-    tensors, one launch each; the in-domain index m runs over 0, 1 and
-    n - 1, open_mont equals the three one by one, and fr_evaluate at a
-    root finishes (its lane is patched by the caller)."""
+    tensors, one launch each: the in-domain index m runs over 0, 1 and
+    n - 1; open_mont (fr_evaluate and fr_quotient on the plain limbs)
+    equals the plain versions' y out of Montgomery form and quotient.
+    fr_quotient on a fresh table before any evaluation gives the same
+    quotients, and neither kernel changes the host's table."""
     rng = random.Random(n + blobs)
     d = fr_poly.FrDomain(n, "cuda")
     plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs([rng.randrange(R) for _ in range(n)], 16)
@@ -233,26 +238,45 @@ def test_fr_kernels_match_plain_on_card(n, blobs):
                kernels.fr_quotient_in_domain)
     before = [k.launches for k in watched]
     evals_m = d.to_mont(plain)
-    y_m = d.evaluate_mont(evals_m, z_m, zn1_m)
-    q = d.quotient_mont(evals_m, y_m, z_m)
+    q_open, y_open = d.open_mont(plain, zs)
     ms = [(0, 1, n - 1)[b % 3] for b in range(blobs)]
     onehot = torch.stack([torch.arange(n, device="cuda") == m for m in ms])
     z_inv = torch.stack([d.mont([pow(d.roots_brp_ints[m], R - 2, R)]) for m in ms])
     q_in = d.quotient_in_domain_mont(evals_m, ms, z_inv)
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(watched, before)] == [1, 1, 1, 1]
-    q_open, y_open = d.open_mont(plain, zs)
-    assert torch.equal(q_open, q) and torch.equal(y_open, y_m)
     assert torch.equal(evals_m, FR.to_mont(plain))
-    assert torch.equal(y_m, d.evaluate_mont_plain(evals_m, z_m, zn1_m))
-    assert torch.equal(q, d.quotient_mont_plain(evals_m, y_m, z_m))
+    y_m = d.evaluate_mont_plain(evals_m, z_m, zn1_m)
+    assert torch.equal(y_open, FR.from_mont(y_m))
+    assert torch.equal(q_open, d.quotient_mont_plain(evals_m, y_m, z_m))
     assert torch.equal(q_in, d.quotient_in_domain_mont_plain(evals_m, onehot, z_inv))
+    table = d.z_table(zs)
+    assert torch.equal(kernels.fr_quotient(plain, y_open, table, d.roots_k), q_open)
+    assert torch.equal(kernels.fr_evaluate(plain, table, d.roots_k, d.n_inv_k), y_open)
+    assert torch.equal(table.cpu(), torch.from_numpy(d.z_table_host(zs)))
     for b in range(blobs):
         evals = lb.limbs_to_ints(plain[b])
-        assert FR.from_mont_host(y_m[b]) == [fft.barycentric_evaluate(evals, zs[b], n)]
+        assert lb.limbs_to_ints(y_open[b]) == [fft.barycentric_evaluate(evals, zs[b], n)]
     roots_z = [d.roots_brp_ints[m] for m in ms]
     assert d.evaluate_blobs_plain(plain, roots_z) == [lb.limbs_to_ints(plain[b])[m]
                                                       for b, m in enumerate(ms)]
+
+
+@pytest.mark.parametrize("n", [4, 32, 4096])
+def test_fr_evaluate_at_a_root_gives_the_stored_element(n):
+    """fr_evaluate runs no inversion: at z = w_m its numerator is n e_m, so
+    y is the blob's stored element, at every m of a sample (all of them
+    for n <= 32), also through FrDomain.evaluate."""
+    rng = random.Random(3 * n)
+    d = fr_poly.FrDomain(n, "cuda")
+    ms = list(range(n)) if n <= 32 else [0, 1, 2, 2047, 2048, 4095] + rng.sample(range(n), 10)
+    values = [[rng.randrange(R) for _ in range(n)] for _ in ms]
+    plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs(v, 16) for v in values]), "cuda")
+    roots_z = [d.roots_brp_ints[m] for m in ms]
+    y = kernels.fr_evaluate(plain, d.z_table(roots_z), d.roots_k, d.n_inv_k)
+    assert lb.limbs_to_ints(y[..., 0].T) == [v[m] for v, m in zip(values, ms)]
+    outside = rng.randrange(R)
+    assert d.evaluate(values[0], outside) == fft.barycentric_evaluate(values[0], outside, n)
 
 
 def test_fr_quotient_in_domain_rejects_a_bad_index():
@@ -269,11 +293,10 @@ def test_fr_quotient_in_domain_rejects_a_bad_index():
 
 
 def test_fr_domain_on_card_takes_the_kernels():
-    """On the mainnet context: a proof batch makes one fr_to_mont, one
-    fr_evaluate and one fr_quotient launch, a proof at a root of unity
-    one fr_to_mont and one fr_quotient_in_domain launch and equals the
-    host quotient's MSM, and a batch verification one fr_to_mont and one
-    fr_evaluate launch."""
+    """On the mainnet context: a proof batch makes one fr_evaluate and one
+    fr_quotient launch and no fr_to_mont, a proof at a root of unity one
+    fr_to_mont and one fr_quotient_in_domain launch and equals the host
+    quotient's MSM, and a batch verification one fr_evaluate launch."""
     setup = srs.load_mainnet_setup()
     ctx = EIP4844Context(setup, backend=TorchBackend(setup, "cuda",
                                                      fixedbase=convert.fixedbase_from_npz(FIXEDBASE, "cpu")))
@@ -284,7 +307,7 @@ def test_fr_domain_on_card_takes_the_kernels():
     cs = ctx.blob_to_kzg_commitment_batch(blobs)
     before = [k.launches for k in watched]
     ps = ctx.compute_blob_kzg_proof_batch(blobs, cs)
-    assert [k.launches - b for k, b in zip(watched, before)] == [1, 1, 1, 0]
+    assert [k.launches - b for k, b in zip(watched, before)] == [0, 1, 1, 0]
     roots = ctx.backend.domain.roots_brp_ints
     before = [k.launches for k in watched]
     proof, y = ctx.compute_kzg_proof(blobs[0], roots[1].to_bytes(32, "little"))
@@ -303,7 +326,7 @@ def test_fr_domain_on_card_takes_the_kernels():
     assert HC.compress_g1(HC.g1_msm(q_host, basis)) == proof
     before = [k.launches for k in watched]
     assert ctx.verify_blob_kzg_proof_batch(blobs, cs, ps) is True
-    assert [k.launches - b for k, b in zip(watched, before)] == [1, 1, 0, 0]
+    assert [k.launches - b for k, b in zip(watched, before)] == [0, 1, 0, 0]
 
 
 @pytest.mark.parametrize("c", [3, 4, 6, 12])
@@ -388,12 +411,9 @@ def test_msm_kernels_match_plain_on_a_real_quotient():
     rng = random.Random(11)
     blob, z = _dense_blob(rng), rng.randrange(R)
     domain = fr_poly.FrDomain(4096, "cuda")
-    z_m, zn1_m = domain.z_consts([z])
-    evals_m = FR.to_mont(lb.as_limb_tensor(codec.blob_to_limbs(blob, 4096), "cuda")[None])
-    y_m = domain.evaluate_mont(evals_m, z_m, zn1_m)
-    q = domain.quotient_mont(evals_m, y_m, z_m)
+    q, y_dev = domain.open_mont(lb.as_limb_tensor(codec.blob_to_limbs(blob, 4096), "cuda")[None], [z])
     y, q_host = _host_quotient(blob, z)
-    assert FR.from_mont_host(y_m[0]) == [y]
+    assert lb.limbs_to_ints(y_dev[0]) == [y]
     assert lb.limbs_to_ints(q[0]) == q_host
     digits = msm.fixedbase_digits(q, 8)
     assert int(msm.window_digits(q, 8)[0, -1].max()) > 0x40  # the top window is live

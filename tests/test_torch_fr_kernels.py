@@ -14,6 +14,18 @@
 - `ops/dispatch.py`'s Fr routes flatten the leading batch dimensions and
   pass each blob's in-domain index: held here against the plain versions
   with stand-ins for the kernels that compute in the kernel layout.
+- What `fr_evaluate` and `fr_quotient` rest on, at n = 4, 32 and 4096 over
+  the domain's roots: the product of the n denominators is z^n - 1, that
+  of an aligned chunk of m bit-reversed roots z^m - w_g, the fraction sum
+  gives the barycentric y (and e_m at z = w_m), and the host's table
+  holds the powers z^(2^l) and K = 1 / (z^n - 1) in Montgomery form, with
+  its sign. A Python-int rendering of each kernel's schedule (its block
+  and thread split, the fraction tree up, the tree of inverses down, both
+  on the host's table, which they only read) equals the plain versions
+  at n = 4 and 32 on several splits and at n = 4096 on the kernels' own;
+  it stands in for the kernels in the dispatch routes' tests, so
+  `FrDomain.open_mont`'s card route runs here end to end, and the
+  quotient's route runs with no evaluation before it.
 - `chip_smoke.py` counts the kernels' work for their bounds from
   `utils/profiling.py`'s Fr product and squaring.
 
@@ -123,8 +135,8 @@ def test_plain_in_domain_quotient_at_every_root(case):
 
 def test_evaluations_in_and_out_of_the_domain_match_jax(case):
     """The host-facing calls on a CPU domain: evaluate_blobs_plain (a z at
-    a root takes the stored element), evaluate and
-    quotient_plain_from_mont at a root and outside."""
+    a root takes the stored element), evaluate, and quotient on plain
+    limbs at a root and outside."""
     domain, host, blobs, evals_m, zs = case
     plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs(b, 16) for b in blobs]))
     mixed = [zs[0], domain.roots_brp_ints[7], zs[2]]
@@ -133,8 +145,9 @@ def test_evaluations_in_and_out_of_the_domain_match_jax(case):
     assert domain.evaluate(blobs[1], mixed[1]) == blobs[1][7]
     for z in mixed[:2]:
         y = JFFT.barycentric_evaluate(blobs[0], z, domain.n)
-        got = lb.limbs_to_ints(domain.quotient_plain_from_mont(evals_m[0], z, y))
+        got = lb.limbs_to_ints(domain.quotient(plain[0], z, y))
         assert got == host.quotient(blobs[0], z, y)
+    assert domain.evaluate(blobs[0], zs[0]) == want[0]
 
 
 @pytest.mark.parametrize("lead", [(), (5,), (2, 3)])
@@ -169,15 +182,19 @@ def test_cpu_domain_never_reaches_the_kernels(monkeypatch, case):
         monkeypatch.setattr(kernels, name, refuse)
     plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs(b, 16) for b in blobs]))
     assert torch.equal(domain.to_mont(plain), evals_m)
-    z_m, zn1_m = domain.z_consts(zs)
-    y_m = domain.evaluate_mont(evals_m, z_m, zn1_m)
-    domain.quotient_mont(evals_m, y_m, z_m)
     z_inv = domain.mont([pow(domain.roots_brp_ints[3], R - 2, R)])
     assert torch.equal(domain.quotient_in_domain_mont(evals_m[0], 3, z_inv),
                        domain.quotient_in_domain_mont_plain(evals_m[0], torch.arange(domain.n) == 3, z_inv))
-    q, y_m = domain.open_mont(plain, zs)
-    assert torch.equal(y_m, domain.evaluate_mont(evals_m, z_m, zn1_m))
-    assert torch.equal(q, domain.quotient_mont(evals_m, y_m, z_m))
+    q, y = domain.open_mont(plain, zs)
+    z_m, zn1_m = domain.z_consts(zs)
+    y_m = domain.evaluate_mont_plain(evals_m, z_m, zn1_m)
+    assert torch.equal(y, FR.from_mont(y_m))
+    assert torch.equal(q, domain.quotient_mont_plain(evals_m, y_m, z_m))
+    y0 = domain.evaluate(blobs[0], zs[0])
+    assert [y0] == lb.limbs_to_ints(y[0])
+    assert torch.equal(domain.quotient(plain[0], zs[0], y0), q[0])
+    assert torch.equal(domain.quotient(plain[0], domain.roots_brp_ints[3], None),
+                       domain.quotient_in_domain_mont(evals_m[0], 3, z_inv))
     domain.evaluate_blobs_plain(plain, zs)
     assert domain.roots_k is None and domain.n_inv_k is None
 
@@ -196,12 +213,272 @@ def _stand_in(plain_fn, domain):
     return kernel
 
 
+# -- the schedules of fr_evaluate and fr_quotient, in Python ints -----------
+
+R_INV = pow(1 << 256, -1, R)
+
+
+def _mmul(a: int, b: int) -> int:
+    """fr::mul on ints: the Montgomery product a b / R mod r."""
+    return a * b * R_INV % R
+
+
+def _log2(x: int) -> int:
+    return x.bit_length() - 1
+
+
+def _kernel_split(n: int) -> tuple:
+    """(T, G) as the launchers in csrc/fr_poly.cu choose them: T = min(n,
+    256) threads a block, G = 8 blocks a blob from n = 2048 on, else 1."""
+    return min(n, 256), 8 if n >= 2048 else 1
+
+
+def _words_to_ints(words) -> list:
+    """[8, W] u32 words (int32 bit patterns) -> W ints."""
+    w = np.asarray(words).astype(np.int64) & 0xFFFFFFFF
+    return [sum(int(w[k, c]) << (32 * k) for k in range(8)) for c in range(w.shape[1])]
+
+
+def _chunk_complement(acc, i, levels, pw, roots):
+    """As csrc/fr_poly.cu chunk_complement: acc times pw[l] - w_((i >> l) ^ 1)
+    for l < levels, pw[l] = z^(2^l)."""
+    for level in range(levels):
+        acc = _mmul(acc, (pw[level] - roots[(i >> level) ^ 1]) % R)
+    return acc
+
+
+def _fraction_up(num, pw, count, level, first, roots):
+    """As fraction_up: the numerators num[0 .. count) of the chunks first,
+    first + 1, ... at size 2^level -> their union's."""
+    h = count // 2
+    while h >= 1:
+        prod = []
+        for u in range(2 * h):
+            c = roots[first + (u & ~1)]
+            prod.append(_mmul(num[u], (pw[level] - c) % R if u & 1 else (pw[level] + c) % R))
+        num[:h] = [(prod[2 * t] + prod[2 * t + 1]) % R for t in range(h)]
+        h, level, first = h // 2, level + 1, first >> 1
+    return num[0]
+
+
+def render_evaluate(e, tab, roots, n_inv, n, threads, blocks):
+    """fr_evaluate's schedule on one blob: e the n plain evaluations, tab
+    its table's L + 1 ints (read only), roots and n_inv Montgomery ints,
+    `blocks` blocks of `threads` threads -> y."""
+    lg, lt = _log2(blocks), _log2(threads)
+    lk = _log2(n) - lt - lg
+    pw, tops = tab[: lk + lt + lg], []
+    for rank in range(blocks):
+        num = []
+        for t in range(threads):
+            part = 0
+            for r in range(1 << lk):
+                i = ((rank * threads + t) << lk) + r
+                part = (part + _chunk_complement(_mmul(e[i], roots[i]), i, lk, pw, roots)) % R
+            num.append(part)
+        tops.append(_fraction_up(num, pw, threads, lk, rank * threads, roots))
+    # the first block of the cluster goes on
+    return _mmul(_fraction_up(tops, pw, blocks, lk + lt, 0, roots), n_inv)
+
+
+def render_quotient(e, y, tab, roots, n, threads, blocks):
+    """fr_quotient's schedule on one blob: e and y plain, the table (read
+    only) -> the n plain quotients."""
+    lg, lt = _log2(blocks), _log2(threads)
+    lk = _log2(n) - lt - lg
+    lb_, L = lk + lt, lk + lt + lg
+    pw, q = tab[:L], [None] * n
+    for rank in range(blocks):
+        c = tab[L]
+        for level in range(lb_, L):
+            c = _mmul(c, (pw[level] - roots[(rank >> (level - lb_)) ^ 1]) % R)
+        comp = [None, c] + [None] * (2 * threads)
+        h, level = 1, lb_ - 1
+        while h < threads:
+            for t in range(2 * h):
+                comp[2 * h + t] = _mmul(comp[h + (t >> 1)],
+                                        (pw[level] - roots[rank * 2 * h + (t ^ 1)]) % R)
+            h, level = 2 * h, level - 1
+        for t in range(threads):
+            for r in range(1 << lk):
+                i = ((rank * threads + t) << lk) + r
+                inv_i = _chunk_complement(comp[threads + t], i, lk, pw, roots)
+                q[i] = _mmul((y - e[i]) % R, inv_i)
+    return q
+
+
+def _render_kernels(domain):
+    """Stand-ins for kernels.fr_evaluate and kernels.fr_quotient on CPU
+    tensors: the renderings at the kernels' split, with the wrappers'
+    shapes."""
+    roots = _words_to_ints(lb.to_u32_layout(domain.roots_brp))
+    n_inv = _words_to_ints(lb.to_u32_layout(domain.n_inv))[0]
+    n = domain.n
+    calls = []
+
+    def evaluate(evals, table, roots_k, n_inv_k):
+        calls.append(("fr_evaluate", evals, table))
+        assert evals.dtype == torch.int64 and evals.shape[1:] == (16, n)
+        assert table.dtype == torch.int32 and table.shape == (evals.shape[0], 8, domain.levels + 1)
+        assert torch.equal(roots_k, lb.to_u32_layout(domain.roots_brp))
+        ys = [render_evaluate(lb.limbs_to_ints(evals[b]), _words_to_ints(table[b]), roots, n_inv, n,
+                              *_kernel_split(n)) for b in range(evals.shape[0])]
+        return lb.as_limb_tensor(lb.ints_to_limbs(ys, 16)).T.reshape(-1, 16, 1).contiguous()
+
+    def quotient(evals, y, table, roots_k):
+        calls.append(("fr_quotient", evals, table))
+        assert y.shape == (evals.shape[0], 16, 1) and y.dtype == torch.int64
+        qs = [render_quotient(lb.limbs_to_ints(evals[b]), lb.limbs_to_ints(y[b])[0],
+                              _words_to_ints(table[b]), roots, n, *_kernel_split(n))
+              for b in range(evals.shape[0])]
+        return lb.as_limb_tensor(np.stack([lb.ints_to_limbs(v, 16) for v in qs]))
+
+    return evaluate, quotient, calls
+
+
+@pytest.mark.parametrize("n", [4, 32, 4096])
+def test_closed_form_products_over_the_domain(n):
+    """Over FrDomain's bit-reversed roots: prod_i (z - w_i) = z^n - 1, and
+    the aligned chunk g of m = 2^l roots (the coset c H_m) has
+    prod (z - w_i) = z^m - c^m = z^m - w_g, at every l and g (at 4096 on
+    a sample of the chunks); so prod_i (w_i - z) = (-1)^n (z^n - 1)."""
+    d = fr_poly.FrDomain(n, "cpu")
+    w = d.roots_brp_ints
+    rng = random.Random(n)
+    z = rng.randrange(R)
+    full = 1
+    for x in w:
+        full = full * (z - x) % R
+    assert full == (pow(z, n, R) - 1) % R
+    neg = 1
+    for x in w:
+        neg = neg * (x - z) % R
+    assert neg == (-1) ** n * (pow(z, n, R) - 1) % R
+    for level in range(d.levels + 1):
+        m = 1 << level
+        chunks = range(n // m) if n <= 32 else sorted(rng.sample(range(n // m), min(4, n // m)))
+        for g in chunks:
+            prod = 1
+            for x in w[g * m : (g + 1) * m]:
+                prod = prod * (z - x) % R
+            assert prod == (pow(z, m, R) - w[g]) % R, (level, g)
+            assert pow(w[g * m], m, R) == w[g]  # c^m with c the chunk's first root
+
+
+@pytest.mark.parametrize("n", [4, 32, 4096])
+def test_fraction_sum_gives_the_barycentric_y(n):
+    """y = (1/n) sum_i e_i w_i prod_{j != i} (z - w_j) equals
+    host/fft.barycentric_evaluate outside the domain, and the stored e_m at
+    z = w_m, with no inversion but 1/n (at 4096 through the rendering of
+    fr_evaluate's tree, on plain values)."""
+    d = fr_poly.FrDomain(n, "cpu")
+    w = d.roots_brp_ints
+    rng = random.Random(n + 1)
+    e = [rng.randrange(R) for _ in range(n)]
+    m = rng.randrange(n)
+    for z in (rng.randrange(R), w[m]):
+        if n <= 32:
+            total = 0
+            for i in range(n):
+                term = e[i] * w[i]
+                for j in range(n):
+                    if j != i:
+                        term = term * (z - w[j]) % R
+                total += term
+            y = total * pow(n, -1, R) % R
+        else:
+            mont = [x * fr_poly.R_MONT % R for x in w]
+            y = render_evaluate(e, _words_to_ints(d.z_table_host([z])[0]), mont,
+                                pow(n, -1, R) * fr_poly.R_MONT % R, n, *_kernel_split(n))
+        want = e[m] if z == w[m] else JFFT.barycentric_evaluate(e, z, n)
+        assert y == want
+
+
+@pytest.mark.parametrize("n", [4, 32])
+def test_host_table_holds_the_powers_and_the_inverse(n):
+    """z_table_host, all in Montgomery form: column l z^(2^l), the last
+    column K = 1 / (z^n - 1), so that K prod_i (w_i - z) = (-1)^n: the
+    product of batch_inv of the plain version's denominators times (-1)^n,
+    in Montgomery form; 0 at a z in the domain."""
+    d = fr_poly.FrDomain(n, "cpu")
+    rng = random.Random(5 * n)
+    zs = [rng.randrange(R) for _ in range(3)] + [d.roots_brp_ints[1]]
+    denoms = FR.sub(d.roots_brp.expand(3, 16, n), d.z_consts(zs[:3])[0].expand(3, 16, n))
+    inv = fr_poly.batch_inv(denoms)
+    tab = d.z_table_host(zs)
+    assert tab.dtype == np.int32 and tab.shape == (4, 8, d.levels + 1)
+    assert torch.equal(d.z_table(zs), torch.from_numpy(tab))
+    for b, z in enumerate(zs):
+        row = _words_to_ints(tab[b])
+        assert row[: d.levels] == [pow(z, 1 << lv, R) * fr_poly.R_MONT % R for lv in range(d.levels)]
+        if b == 3:
+            assert row[-1] == 0
+            continue
+        prod_inv = 1
+        for v in FR.from_mont_host(inv[b]):
+            prod_inv = prod_inv * v % R
+        assert row[-1] == (-1) ** n * prod_inv * fr_poly.R_MONT % R
+        assert row[-1] * pow(fr_poly.R_MONT, -1, R) * ((pow(z, n, R) - 1) % R) % R == 1
+
+
+SPLITS = {4: [(4, 1), (2, 2), (2, 1), (1, 4)], 32: [(32, 1), (4, 8), (8, 2), (2, 4), (16, 2)]}
+
+
+@pytest.mark.parametrize("n", [4, 32])
+def test_kernel_schedules_equal_the_plain_versions(n):
+    """The renderings of fr_evaluate and fr_quotient at several splits
+    (threads, blocks; the kernels' own first) on plain evaluations and the
+    host's table equal the CPU route of open_mont (y and q plain), the
+    quotient also before any evaluation, and at z = w_m y = e_m."""
+    d = fr_poly.FrDomain(n, "cpu")
+    rng = random.Random(7 * n)
+    e = [rng.randrange(R) for _ in range(n)]
+    z = rng.randrange(R)
+    roots = [x * fr_poly.R_MONT % R for x in d.roots_brp_ints]
+    n_inv = pow(n, -1, R) * fr_poly.R_MONT % R
+    plain = lb.as_limb_tensor(lb.ints_to_limbs(e, 16))[None]
+    q_ref, y_ref = d.open_mont(plain, [z])
+    want_y, want_q = lb.limbs_to_ints(y_ref[0])[0], lb.limbs_to_ints(q_ref[0])
+    z_m, zn1_m = d.z_consts([z])
+    ev_m = FR.to_mont(plain[0])
+    assert want_y == FR.from_mont_host(d.evaluate_mont_plain(ev_m, z_m[0], zn1_m[0]))[0]
+    assert want_q == lb.limbs_to_ints(d.quotient_mont_plain(ev_m, d.mont([want_y]), z_m[0]))
+    tab = _words_to_ints(d.z_table_host([z])[0])
+    assert _kernel_split(n) == SPLITS[n][0]
+    for threads, blocks in SPLITS[n]:
+        assert render_quotient(e, want_y, tab, roots, n, threads, blocks) == want_q
+        assert render_evaluate(e, tab, roots, n_inv, n, threads, blocks) == want_y, (threads, blocks)
+        m = rng.randrange(n)
+        at_root = _words_to_ints(d.z_table_host([d.roots_brp_ints[m]])[0])
+        assert render_evaluate(e, at_root, roots, n_inv, n, threads, blocks) == e[m]
+
+
+def test_kernel_schedules_at_the_blob_domain():
+    """At n = 4096 on the kernels' own split (8 blocks of 256 threads, 2
+    elements a thread): the rendered route of open_mont on plain values
+    equals the host's evaluation and quotient."""
+    n = 4096
+    d = fr_poly.FrDomain(n, "cpu")
+    rng = random.Random(4096)
+    e = [rng.randrange(R) for _ in range(n)]
+    z = rng.randrange(R)
+    assert _kernel_split(n) == (256, 8)
+    roots = [x * fr_poly.R_MONT % R for x in d.roots_brp_ints]
+    tab = _words_to_ints(d.z_table_host([z])[0])
+    y = render_evaluate(e, tab, roots, pow(n, -1, R) * fr_poly.R_MONT % R, n, 256, 8)
+    assert y == JFFT.barycentric_evaluate(e, z, n)
+    assert render_quotient(e, y, tab, roots, n, 256, 8) == HostBackend(
+        types.SimpleNamespace(n=n)).quotient(e, z, y)
+
+
 @pytest.mark.parametrize("lead", [(), (1,), (BLOBS,)])
 def test_dispatch_routes_flatten_the_batch(monkeypatch, case, lead):
     """dispatch.fr_to_mont, fr_evaluate, fr_quotient and
-    fr_quotient_in_domain on leading shapes (), (1,) and (B,), z broadcast
-    from [16, 1] where the evaluations carry the batch: the results equal
-    the plain versions, and the in-domain route passes each blob's index."""
+    fr_quotient_in_domain on leading shapes (), (1,) and (B,), with one z
+    for all blobs: fr_evaluate and fr_quotient (the renderings of their
+    schedules) take the plain public limbs flattened to [B, 16, n] and the
+    table of each blob's z, and the results equal the plain versions; the
+    in-domain route passes each blob's index."""
     domain, _, blobs, evals_m, zs = case
     monkeypatch.setattr(domain, "roots_k", lb.to_u32_layout(domain.roots_brp))
     monkeypatch.setattr(domain, "n_inv_k", lb.to_u32_layout(domain.n_inv))
@@ -212,24 +489,25 @@ def test_dispatch_routes_flatten_the_batch(monkeypatch, case, lead):
         onehot = torch.arange(domain.n)[None, :] == torch.tensor(m)[:, None]
         return domain.quotient_in_domain_mont_plain(evals, onehot, z_inv)
 
+    evaluate, quotient, calls = _render_kernels(domain)
     monkeypatch.setattr(kernels, "fr_to_mont", lambda a: lb.to_u32_layout(FR.to_mont(lb.to_u16_layout(a))))
-    monkeypatch.setattr(kernels, "fr_evaluate", _stand_in(
-        lambda b, e, z, zn1, roots, n_inv: domain.evaluate_mont_plain(e, z, zn1), domain))
-    monkeypatch.setattr(kernels, "fr_quotient", _stand_in(
-        lambda b, e, y, z, roots: domain.quotient_mont_plain(e, y, z), domain))
+    monkeypatch.setattr(kernels, "fr_evaluate", evaluate)
+    monkeypatch.setattr(kernels, "fr_quotient", quotient)
     monkeypatch.setattr(kernels, "fr_quotient_in_domain", _stand_in(in_domain, domain))
     k = int(np.prod(lead, dtype=np.int64))
     ev = evals_m[:k].reshape(lead + (16, domain.n))
     plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs(b, 16) for b in blobs[:k]])).reshape(ev.shape)
     assert torch.equal(dispatch.fr_to_mont(plain), ev)
     z_m, zn1_m = domain.z_consts(zs[:1])
-    z1, zn1 = z_m[0], zn1_m[0]  # [16, 1], broadcast over the batch
-    y = dispatch.fr_evaluate(ev, z1, zn1, domain.roots_k, domain.n_inv_k)
-    assert y.shape == lead + (16, 1)
-    assert torch.equal(y, domain.evaluate_mont_plain(ev, z1.expand(lead + (16, 1)),
-                                                     zn1.expand(lead + (16, 1))))
-    q = dispatch.fr_quotient(ev, y, z1, domain.roots_k)
-    assert torch.equal(q, domain.quotient_mont_plain(ev, y, z1.expand(lead + (16, 1))))
+    z_m, zn1_m = z_m[0].expand(lead + (16, 1)), zn1_m[0].expand(lead + (16, 1))
+    want_y = FR.from_mont(domain.evaluate_mont_plain(ev, z_m, zn1_m))
+    table = domain.z_table(zs[:1] * k)
+    y = dispatch.fr_evaluate(plain, table, domain.roots_k, domain.n_inv_k)
+    assert y.shape == lead + (16, 1) and torch.equal(y, want_y)
+    q = dispatch.fr_quotient(plain, y, table, domain.roots_k)
+    assert torch.equal(q, domain.quotient_mont_plain(ev, FR.to_mont(y), z_m))
+    assert [c[0] for c in calls] == ["fr_evaluate", "fr_quotient"]
+    assert all(c[1].shape == (k, 16, domain.n) for c in calls)
     ms = [(5 * b + 1) % domain.n for b in range(k)]
     onehot = torch.stack([torch.arange(domain.n) == m for m in ms]).reshape(lead + (domain.n,))
     z_inv = torch.stack([domain.mont([pow(domain.roots_brp_ints[m], R - 2, R)]) for m in ms])
@@ -242,39 +520,55 @@ def test_dispatch_routes_flatten_the_batch(monkeypatch, case, lead):
 
 @pytest.mark.parametrize("quotient", [True, False])
 def test_fr_open_keeps_the_kernel_layout(monkeypatch, case, quotient):
-    """dispatch.fr_open, the card's route of FrDomain.open_mont, on
-    stand-in kernels: fr_evaluate and fr_quotient take the very tensor
-    fr_to_mont returned, z and z^n - 1 come in the kernel layout, and q
-    and y equal the CPU domain's open_mont (the plain versions)."""
-    domain, _, blobs, evals_m, zs = case
+    """dispatch.fr_open, the card's route of FrDomain.open_mont, on the
+    renderings of the kernels: fr_evaluate and fr_quotient take the plain
+    public limbs as they are (no conversion of form or layout, no
+    fr_to_mont) and the host's table, which they leave as it is, and q and
+    y (both plain) equal the CPU domain's open_mont (the plain
+    versions)."""
+    domain, _, blobs, _, zs = case
     roots_k, n_inv_k = lb.to_u32_layout(domain.roots_brp), lb.to_u32_layout(domain.n_inv)
-    made, took = [], []
+    evaluate, quotient_k, calls = _render_kernels(domain)
 
-    def to_mont(a):
-        made.append(lb.to_u32_layout(FR.to_mont(lb.to_u16_layout(a))))
-        return made[-1]
+    def refuse(*args):
+        raise AssertionError("fr_open converted the evaluations")
 
-    def evaluate(e, z, zn1, roots, n_inv):
-        took.append(e)
-        return _stand_in(lambda b, e, z, zn1, roots, n_inv: domain.evaluate_mont_plain(e, z, zn1),
-                         types.SimpleNamespace(roots_k=roots_k))(e, z, zn1, roots, n_inv)
-
-    def quotient_k(e, y, z, roots):
-        took.append(e)
-        return _stand_in(lambda b, e, y, z, roots: domain.quotient_mont_plain(e, y, z),
-                         types.SimpleNamespace(roots_k=roots_k))(e, y, z, roots)
-
-    monkeypatch.setattr(kernels, "fr_to_mont", to_mont)
+    monkeypatch.setattr(kernels, "fr_to_mont", refuse)
     monkeypatch.setattr(kernels, "fr_evaluate", evaluate)
     monkeypatch.setattr(kernels, "fr_quotient", quotient_k)
     plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs(b, 16) for b in blobs]))
-    zz = lb.to_u32_layout(domain._z_pair_host(zs))
-    assert zz.shape == (2, BLOBS, kernels.FR_NL, 1)
-    q, y = dispatch.fr_open(plain, zz, roots_k, n_inv_k, quotient)
+    table = torch.from_numpy(domain.z_table_host(zs))
+    assert table.shape == (BLOBS, kernels.FR_NL, domain.levels + 1)
+    q, y = dispatch.fr_open(plain, table, roots_k, n_inv_k, quotient)
+    assert torch.equal(table, torch.from_numpy(domain.z_table_host(zs)))
     want_q, want_y = domain.open_mont(plain, zs, quotient)
     assert torch.equal(y, want_y) and y.shape == (BLOBS, 16, 1)
     assert (q is None and want_q is None) if not quotient else torch.equal(q, want_q)
-    assert len(made) == 1 and all(t is made[0] for t in took) and len(took) == 1 + quotient
+    assert [c[0] for c in calls] == ["fr_evaluate", "fr_quotient"][: 1 + quotient]
+    assert all(c[1] is plain and c[2] is table for c in calls)
+
+
+def test_quotient_route_needs_no_evaluation_first(monkeypatch, case):
+    """FrDomain.quotient's card route, dispatch.fr_quotient on one blob's
+    plain limbs, the host int y and a fresh table of its z, on the
+    rendering of fr_quotient with fr_evaluate refused: the table alone
+    carries what the quotient needs, and q equals the CPU route and the
+    JAX host quotient."""
+    domain, host, blobs, _, zs = case
+    evaluate, quotient_k, calls = _render_kernels(domain)
+
+    def refuse(*args):
+        raise AssertionError("the quotient's route ran an evaluation")
+
+    monkeypatch.setattr(kernels, "fr_evaluate", refuse)
+    monkeypatch.setattr(kernels, "fr_quotient", quotient_k)
+    plain = lb.as_limb_tensor(lb.ints_to_limbs(blobs[1], 16))
+    y = JFFT.barycentric_evaluate(blobs[1], zs[1], domain.n)
+    q = dispatch.fr_quotient(plain, domain.limbs([y]), domain.z_table([zs[1]]),
+                             lb.to_u32_layout(domain.roots_brp))
+    assert [c[0] for c in calls] == ["fr_quotient"] and q.shape == (16, domain.n)
+    assert torch.equal(q, domain.quotient(plain, zs[1], y))
+    assert lb.limbs_to_ints(q) == host.quotient(blobs[1], zs[1], y)
 
 
 def test_smoke_counts_the_fr_kernels_work():
@@ -282,11 +576,17 @@ def test_smoke_counts_the_fr_kernels_work():
     136; the smoke's inversion at its cheapest window costs no more than
     fr::inv's fixed 4-bit window (252 squarings, 73 products) and no less
     than the 254 squarings of r - 2. Each kernel is charged the fewest
-    products of its function: the evaluation 3 (n - 1) + 4 a blob (a tree
-    of fraction sums), the quotient 3 (n - 1) + n + 1 (Montgomery's trick,
-    R^-1 folded into the inversion), the in-domain quotient n more (q_m on
-    the q_i), each with one inversion; a quotient reads its evaluations,
-    the roots, y and z once and writes its quotients once."""
+    products of its function, the chunks' denominators in closed form from
+    L = log2 n squarings: the evaluation 2 n + 1 a blob (a tree of
+    fraction sums with known denominators, then z N, (z^n - 1) sum e and
+    1 / n) and no inversion, the quotient 3 n - 2 (a tree of inverses down
+    from 1 / (z^n - 1), then the n quotients) and its one inversion, the
+    in-domain quotient n more (q_m on the q_i); the evaluation reads its
+    evaluations (32 bytes an element, whatever layout the kernel reads),
+    the roots, the z table (L + 1 values a blob) and 1/n once and writes
+    y, the quotient reads the evaluations, y, the roots and the table and
+    writes its quotients; so both bounds are by operations at 1, 6 and 64
+    blobs."""
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
@@ -294,13 +594,19 @@ def test_smoke_counts_the_fr_kernels_work():
     assert smoke.IMAD_PER_FR_MUL is P.IMAD_PER_FR_MUL and smoke.IMAD_PER_FR_SQR is P.IMAD_PER_FR_SQR
     inv = smoke.fr_inv_imads()
     assert 254 * 208 <= inv <= 252 * 208 + 73 * 264
-    n, b = 4096, 6
+    n, b, levels = 4096, 6, 12
     nbytes, imads = smoke.fr_kernel_work("fr_quotient", n, b)
-    assert nbytes == 2 * b * n * 32 + n * 32 + 2 * b * 32
-    assert imads == b * ((3 * (n - 1) + n + 1) * 264 + inv)
-    assert smoke.bound(nbytes, imads)["bound_by"] == "operations"
-    assert smoke.fr_kernel_work("fr_evaluate", n, b)[1] == b * ((3 * (n - 1) + 4) * 264 + inv)
-    assert smoke.fr_kernel_work("fr_quotient_in_domain", n, b)[1] == imads + b * n * 264
+    assert nbytes == 2 * b * n * 32 + n * 32 + b * (levels + 1) * 32 + b * 32
+    assert imads == b * ((3 * n - 2) * 264 + levels * 208 + inv)
+    assert smoke.fr_kernel_work("fr_evaluate", n, b) == (
+        b * n * 32 + n * 32 + b * (levels + 1) * 32 + b * 32 + 32, b * ((2 * n + 1) * 264 + levels * 208))
+    for blobs in (1, 6, 64):
+        for name in ("fr_evaluate", "fr_quotient"):
+            assert smoke.bound(*smoke.fr_kernel_work(name, n, blobs))["bound_by"] == "operations"
+    assert smoke.bound(*smoke.fr_kernel_work("fr_evaluate", n, 1))["bound_ms"] == pytest.approx(
+        ((2 * n + 1) * 264 + levels * 208) / P.IMAD_PER_S * 1e3)
+    in_domain = smoke.fr_kernel_work("fr_quotient_in_domain", n, b)
+    assert in_domain == (2 * b * n * 32 + n * 32 + b * 36, imads + b * n * 264)
     assert smoke.fr_kernel_work("fr_to_mont", n, b) == (2 * b * n * 32, b * n * 264)
     assert smoke.fr_kernel_work("fr_check", n, 1) == (10 * n * 32, n * (2 * 264 + 208 + 136 + inv))
 
