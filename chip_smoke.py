@@ -7,12 +7,14 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the sixteen kernels and the three field checks from
+  2. nvcc builds the seventeen kernels and the three field checks from
      lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
      linked into one library), and beside it g++ the native tier
      (csrc/native/bls12_381.cpp, native.py); ptxas' report, and per pairing kernel its
      registers and spills with the levels, linear waves, products and
      inversions of one run at B = 2 (counted from its level program);
+     fr_evaluate, fr_quotient and fr_quotient_in_domain (each cluster form
+     too) must not call fr::inv, and g1_fold's registers are printed;
   3. each kernel against its plain PyTorch version on the card, limb for
      limb: fp::sqr against fp::mul(a, a) and the plain square on random
      elements and on 0, 1, p - 1 and R mod p; the cooperative field of
@@ -23,7 +25,10 @@ Phases, each printed with its seconds:
      basis with every 7th lane invalid, and at the mainnet shape (4096
      lanes, c = 8); g1_madd, g1_add and g1_dbl at lane counts 1 to 4096 (and 200,
      a partly filled second block) with random and exceptional lanes (P at
-     infinity, P == Q, P == -Q, dead lanes); g1_bucket_accumulate and
+     infinity, P == Q, P == -Q, dead lanes); g1_fold against g1_ops.fold
+     at K = 2, 3, 4 rows on 12 lanes, and at the meshes' shapes (K = 2 on 3
+     lanes, K = 4 on 6), with rows at infinity, equal rows and Z != 1,
+     each timed; g1_bucket_accumulate and
      g1_bucket_reduce on the committed mainnet table at c = 8 for one and
      for six seeded blobs, on a synthetic table of four points and their
      negations repeated (so runs of members double, cancel to infinity
@@ -55,9 +60,11 @@ Phases, each printed with its seconds:
      kernels' time); fr_check (fr.cuh's product, square, sum, difference,
      negation, inverse and conversions) against the plain FR on 4096
      elements with 0, 1, r - 1, r - 2, 2 and R mod r among them, and at
-     the blob domain (n = 4096) on 1, 6 and 64 blobs fr_to_mont and
-     fr_quotient_in_domain (m = 0, 1, n - 1) against FR.to_mont and
-     FrDomain's plain version on Montgomery evaluations, fr_evaluate and
+     the blob domain (n = 4096) on 1, 6 and 64 blobs fr_to_mont against
+     FR.to_mont and fr_quotient_in_domain (m = 0, 1, n - 1 and a seeded
+     m, each alone at B = 1, all four among the blobs at 6 and 64) on the
+     plain limbs and their root table against FrDomain's plain version
+     (and blob 0 against the host's quotient), fr_evaluate and
      fr_quotient on the plain ones and one z table as FrDomain.open_mont
      runs them (against its CPU route's plain versions, on the card; the
      table, which the kernels only read, equal to the host's after them),
@@ -118,14 +125,17 @@ Phases, each printed with its seconds:
      and a batch of six through compute_blob_kzg_proof_batch (twice),
      timed with CUDA events, each call launching each MSM kernel and each
      of fr_evaluate and fr_quotient once and the batch equal
-     to the singles, and compute_kzg_proof at a root of unity (fr_to_mont
-     and fr_quotient_in_domain once; y the stored element, the proof
-     verified); one proof's launches under torch.profiler; then
+     to the singles, and compute_kzg_proof at a root of unity
+     (fr_quotient_in_domain once and no other Fr kernel; y the stored
+     element, the proof verified); one proof's launches under
+     torch.profiler; then
      for one blob and for six the Fr part (fr_ms: the z table's
      transfer, the evaluation and the quotient) and the MSM timed apart,
      and counted under torch.profiler after a warm-up step (launches;
      the Fr part's must hold both Fr kernels and the copy and be at most
-     FR_PART_MAX; device busy), and the host syncs of a proof and of a
+     FR_PART_MAX; device busy), the same for the Fr part of a proof at a
+     root of unity (FrDomain.quotient: the root table's transfer and one
+     fr_quotient_in_domain launch), and the host syncs of a proof and of a
      batch counted;
  10. each kernel timed with CUDA events: the MSM kernels at the path's
      shapes for one blob and for six (seeded random blobs, c = 8), and the
@@ -142,7 +152,8 @@ Phases, each printed with its seconds:
      figures), and the Fr kernels at phase 3's times; plain times are
      phase 3's at the same shapes where it ran them; then
      utils/profiling.py's roofline table (g1_madd, g1_add,
-     g1_dbl chained in one CUDA graph at 8192 lanes, the plain Fp product);
+     g1_dbl chained in one CUDA graph at 8192 lanes, the plain Fp product),
+     and g1_fold at phase 3's times;
  11. the multi-device tier (lambdaworks_kzg_tpu_torch/parallel) on the
      converted setup, on logical meshes over the card named four times,
      (1, 1), (2, 2) and (1, 4), and on a mesh of every card when there is
@@ -152,16 +163,15 @@ Phases, each printed with its seconds:
      blob_to_kzg_commitment vectors; batches of 6 and 5 seeded blobs equal
      phase 6's commitments, and compute_blob_kzg_proof_batch of 6 phase
      9's proofs, each call in exactly D P g1_bucket_accumulate and
-     g1_bucket_reduce launches and D ceil(log2 P) g1_add launches (the
-     fold) and nothing else; a generic sharded MSM of a blob over the
+     g1_bucket_reduce launches and, where P > 1, D g1_fold launches (one
+     fold a row) and nothing else; a generic sharded MSM of a blob over the
      4096 Lagrange points equals its commitment by points, windows and
      auto; the 23 verify_blob_kzg_proof_batch vectors, and phase 8's
      seeded batches of 6 and 64 verified true and false, each in its
      exact launches (the 64's linear combinations sharded); batches of 6
      timed with CUDA events (a logical mesh is one card doing every
      shard's work: no multi-card time); the sharded NTT and inverse at
-     n = 4096 on 2 and 4 devices equal host/fft.fr_fft; g1_add timed at
-     the fold's 12 lanes;
+     n = 4096 on 2 and 4 devices equal host/fft.fr_fft;
  12. the C ABI (lambdaworks_kzg_tpu_torch/capi): cc builds the shim into
      _build/liblambdaworks_kzg_tpu_torch.so, loaded with ctypes into this
      process; load_trusted_setup_file on a FILE * of
@@ -172,8 +182,7 @@ Phases, each printed with its seconds:
      express, a wrong length, must expect null), each call launching
      g1_bucket_accumulate and g1_bucket_reduce once for a commitment or a
      proof, and for a proof fr_evaluate and fr_quotient once
-     (fr_to_mont and fr_quotient_in_domain in their place at a root of
-     unity), the
+     (fr_quotient_in_domain in their place at a root of unity), the
      pairing kernels once for a verdict, a batch of n >= 2
      VERIFY_BATCH_LAUNCHES, and nothing for a BADARGS call (a failed
      batch: at most its decompression and subgroup check); the blst G1 and
@@ -205,7 +214,8 @@ Phases, each printed with its seconds:
      NTT at n = 4096 and its inverse with the data axis across the ranks
      and with the points axis across them (parallel/ntt.py: one
      batch_isend_irecv exchange and one all_gather, through host tensors
-     on gloo), each
+     on gloo), each MSM across ranks folding the gathered partials in one
+     g1_fold launch, each
      equal to those phases' results in every rank, and prints its times
      and launches; a failed rank fails the phase;
  15. the generic MSM (ops/msm.msm_device) at the JAX package's bench
@@ -342,8 +352,13 @@ def fr_kernel_work(name: str, n: int, blobs: int) -> tuple:
       its sibling's denominator, 2 (n - 1) products, and n products
       (e_i - y) / (w_i - z), plain with R^-1 folded into the inversion;
       L squarings;
-    - fr_quotient_in_domain: the quotient's, and n more for
-      q_m = -(1 / z) sum_{i != m} q_i w_i on the q_i already made;
+    - fr_quotient_in_domain, z = w_m: 1 / (z - w_i) down the same tree
+      from K = w_m / n (1 / prod_{i != m} (z - w_i), on the host), where
+      the chunk of 2^l that holds m has product 2^l z^(2^l) / z (L
+      products by the host's 1/z), 2 (n - 1) products; the n quotients;
+      and q_m = -(1 / z) sum_{i != m} q_i w_i on them, n + 1 products: no
+      inversion and no squaring, z's powers being roots the host looks
+      up; it reads the table's L + 2 values and m (4 bytes);
     - fr_to_mont: one product an element;
     - fr_check on n lanes: two products (a b, to_mont), a squaring, an
       inversion and a reduction (from_mont) a lane.
@@ -362,7 +377,8 @@ def fr_kernel_work(name: str, n: int, blobs: int) -> tuple:
     if name == "fr_quotient":
         return 2 * elems + roots + table + ys, quotient
     if name == "fr_quotient_in_domain":
-        return 2 * elems + roots + blobs * (FR_BYTES + 4), quotient + blobs * n * IMAD_PER_FR_MUL
+        return (2 * elems + roots + blobs * ((levels + 2) * FR_BYTES + 4),
+                blobs * (4 * n - 1 + levels) * IMAD_PER_FR_MUL)
     if name == "fr_check":
         return 10 * n * FR_BYTES, n * (2 * IMAD_PER_FR_MUL + IMAD_PER_FR_SQR + IMAD_PER_FR_REDC + inv)
     raise ValueError(name)
@@ -521,16 +537,21 @@ EDGE_LANES = (1, 12, 31, 33, 128)
 C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
 # a batch's Fr part: one evaluation and one quotient on the plain limbs;
-# a proof at a root of unity: a conversion to Montgomery form and the
-# in-domain quotient; a batch verification's blob evaluations
+# a proof at a root of unity: the in-domain quotient on them; a batch
+# verification's blob evaluations
 FR_PROOF_LAUNCHES = {"fr_evaluate": 1, "fr_quotient": 1}
-FR_ROOT_LAUNCHES = {"fr_to_mont": 1, "fr_quotient_in_domain": 1}
+FR_ROOT_LAUNCHES = {"fr_quotient_in_domain": 1}
 FR_EVAL_LAUNCHES = {"fr_evaluate": 1}
 FR_PART_MAX = 6  # device operations of a batch's Fr part under the profiler
 FR_KERNELS = ("fr_to_mont", "fr_evaluate", "fr_quotient", "fr_quotient_in_domain")
+FR_PATH_KERNELS = FR_KERNELS[1:]  # fr_to_mont is on no path
 FR_BLOBS = (1, 6, 64)  # phase 3's batches at the blob domain: a proof, a block, a batch verification
-PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", *FR_KERNELS)
-MESH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table", "g1_add")
+FR_ROOT_SEED = 4847  # phase 3's seeded in-domain index
+PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", *FR_PATH_KERNELS)
+MESH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table", "g1_fold")
+# phase 3's folds: (rows K, lanes B), K = 2, 3, 4 on 12 lanes, then the
+# meshes' own (the (2, 2) mesh's rows of 3 blobs, the (1, 4) mesh's 6)
+FOLD_SHAPES = ((2, 12), (3, 12), (4, 12), (2, 3), (4, 6))
 # one conversion of the mainnet setup (n = 4096): one decompression, one
 # subgroup check, 12 FFT stages of one launch each, and [1/n]
 CONVERT_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fft_stage": 12,
@@ -579,7 +600,7 @@ CAPI_SIZES = {"blob": 131072, "blobs": 131072, "z": 32, "y": 32, "commitment": 4
               "commitments": 48, "proof": 48, "proofs": 48}
 CAPI_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce",
                 "pairing_miller_loop", "pairing_final_exp", "g1_decompress", "g1_subgroup_mask",
-                *FR_KERNELS)
+                *FR_PATH_KERNELS)
 MSM_LAUNCHES = {"g1_bucket_accumulate": 1, "g1_bucket_reduce": 1}
 C_KZG_OK, C_KZG_BADARGS = 0, 1
 CAPI_REPS = 5  # timed calls per entry point, through the ABI and on a Python context
@@ -587,7 +608,7 @@ NATIVE_REPS = 5  # phase 13's calls per way, in turns
 # phase 14: the worlds and the backend each must choose (NCCL refuses two
 # ranks on one card), the kernels every world's ranks launch in all
 DIST_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
-DIST_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce", "g1_add",
+DIST_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce", "g1_fold",
                 "g1_decompress", "g1_subgroup_mask", "pairing_miller_loop", "pairing_final_exp",
                 "fr_evaluate")
 DIST_TIMEOUT_S = 240
@@ -957,6 +978,35 @@ def prove_split(backend, blobs, zs) -> dict:
     return out
 
 
+def root_split(backend, blob: bytes, m: int) -> dict:
+    """The Fr part of a proof at z = w_m as TorchBackend._open_in_domain
+    runs it (`FrDomain.quotient`: the root table's transfer and one
+    fr_quotient_in_domain launch on the blob's plain limbs, checked),
+    between CUDA events, and once more under the profiler, whose record
+    must hold the kernel and the table's copy and at most FR_PART_MAX
+    launches."""
+    import torch
+
+    domain = backend.domain
+    plain = backend.blob_scalars([blob])[0]
+    z = domain.roots_brp_ints[m]
+
+    def fr():
+        return domain.quotient(plain, z, None)
+
+    torch.cuda.synchronize()
+    before = launch_counts()
+    _, ms = events_ms(fr)
+    expect_launches("the Fr part of a proof at a root", before, FR_ROOT_LAUNCHES)
+    out = {"m": m, "fr_ms": ms, "fr_device": device_work(fr)}
+    rec = out["fr_device"] or {"kernels": 0, "copies": 0, "names": []}
+    if (not any("fr_quotient_in_domain" in key for key in rec["names"]) or rec["copies"] < 1
+            or rec["kernels"] > FR_PART_MAX):
+        raise AssertionError(f"the profiler's record of the Fr part at a root lacks the kernel or the "
+                             f"copy, or holds more than {FR_PART_MAX} launches: {rec}")
+    return out
+
+
 def synthetic_table(points, n_rows: int, c: int, n_blobs: int, seed: int):
     """A table whose rows repeat four setup points and their negations, and
     members sorted by seeded digits in which bucket 1 stays empty and
@@ -1177,6 +1227,43 @@ def check_kernel(op: str, args16) -> int:
     plain = getattr(g1_ops, op)(*args16)
     k_args = [lb.to_u32_layout(a) if a.dtype == torch.int64 else a for a in args16]
     return same(op, lb.to_u16_layout(getattr(kernels, op)(*k_args)), plain)
+
+
+def check_fold(points, max_err: dict) -> dict:
+    """g1_fold against g1_ops.fold on the card, limb for limb, at each of
+    FOLD_SHAPES: K rows of B lanes from make_lanes (Z != 1 on even lanes,
+    points at infinity, P == Q and P == -Q among them), row 1 equal to row 0
+    on the first lane (the doubling) and its negation on the last
+    (infinity); then at each shape on random finite lanes timed (CUDA
+    events behind a spin, 200 launches, twice), the plain version once,
+    and its bound: K rows in and one out of 144 bytes a lane, K - 1 adds a
+    lane -> {"k<K>_b<B>": {"rows", "lanes", "ms", "plain_ms", "bound_ms",
+    "bound_by"}}."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops, kernels
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    out = {}
+    for rows_k, lanes in FOLD_SHAPES:
+        def rows_of(exceptional: bool):
+            p, _, _, _ = make_lanes(points, rows_k * lanes, seed=100 * rows_k + lanes, exceptional=exceptional)
+            return p.reshape(3, 24, rows_k, lanes).permute(2, 0, 1, 3).contiguous()
+
+        rows = rows_of(True)
+        rows[1, :, :, :1] = rows[0, :, :, :1]
+        rows[1, :, :, -1:] = torch.stack([rows[0, 0, :, -1:], FP.neg(rows[0, 1, :, -1:]), rows[0, 2, :, -1:]])
+        max_err["g1_fold"] = max(max_err["g1_fold"], same(f"g1_fold K={rows_k} B={lanes}",
+                                                          kernels.fold(rows), g1_ops.fold(rows)))
+        rows = rows_of(False)
+        shape = {"rows": rows_k, "lanes": lanes,
+                 "ms": sum(time_ms(lambda: kernels.fold(rows), reps=200, warm=5) for _ in range(2)) / 2,
+                 "plain_ms": time_ms(lambda: g1_ops.fold(rows), reps=1, warm=1),
+                 **bound(lanes * (rows_k + 1) * 3 * FP_BYTES, lanes * (rows_k - 1) * op_imads("add"))}
+        out[f"k{rows_k}_b{lanes}"] = shape
+        log(f"  g1_fold K={rows_k} B={lanes}: equal to plain, limb for limb; kernel {shape['ms']:.4f} ms, "
+            f"plain {shape['plain_ms']:.1f} ms, bound {shape['bound_ms']:.6f} ms ({shape['bound_by']})")
+    return out
 
 
 def outside_g1(count: int):
@@ -1481,14 +1568,31 @@ def check_pairing_kernels(dev, max_err: dict) -> dict:
     return out
 
 
+def in_domain_quotient_host(evals, m: int, roots) -> list:
+    """The quotient at z = w_m in Python ints, y = e_m: (e_i - y) /
+    (w_i - z) for i != m, and q_m = sum_{i != m} (e_i - y) w_i /
+    (z (z - w_i))."""
+    from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host.field import batch_fr_inv
+
+    z, y = roots[m], evals[m]
+    inv = batch_fr_inv([(w - z) % R if i != m else 1 for i, w in enumerate(roots)])
+    q = [(e - y) * d % R if i != m else 0 for i, (e, d) in enumerate(zip(evals, inv))]
+    q[m] = -sum(qi * w for qi, w in zip(q, roots)) * pow(z, R - 2, R) % R
+    return q
+
+
 def check_fr_kernels(dev, max_err: dict) -> dict:
     """The Fr kernels against their plain versions on the card, limb for
     limb: fr_check against the plain FR on NTT_N elements (all pairs of 0,
     1, r - 1, r - 2, 2, R mod r, and seeded pairs); at the blob domain
     (n = NTT_N) for each of FR_BLOBS blobs of seeded elements below r,
-    fr_to_mont against FR.to_mont and fr_quotient_in_domain (m = 0, 1,
-    n - 1 in turn) through FrDomain on Montgomery evaluations against its
-    plain version; fr_evaluate (z outside the domain) and fr_quotient on
+    fr_to_mont against FR.to_mont, and fr_quotient_in_domain through
+    FrDomain.quotient_in_domain on the plain limbs (m = 0, 1, n - 1 and a
+    seeded m: each in a call of its own at B = 1, all four among the blobs
+    at 6 and 64) against its plain version on their Montgomery form, blob
+    0 also against the host's in-domain quotient; fr_evaluate (z outside
+    the domain) and fr_quotient on
     the plain limbs and one z table, as FrDomain.open_mont runs them,
     against the plain versions of that route (FR.to_mont, then
     evaluate_mont_plain with y out of Montgomery form, and
@@ -1513,6 +1617,7 @@ def check_fr_kernels(dev, max_err: dict) -> dict:
     n = NTT_N
     out = {name: {} for name in FR_KERNELS + ("fr_check",)}
     rng = random.Random(12)
+    root_ms = (0, 1, n - 1, random.Random(FR_ROOT_SEED).randrange(2, n - 1))
     edge = [0, 1, R - 1, R - 2, 2, (1 << 256) % R]
     pairs = [(x, y) for x in edge for y in edge]
     pairs += [(rng.randrange(R), rng.randrange(R)) for _ in range(n - len(pairs))]
@@ -1537,15 +1642,19 @@ def check_fr_kernels(dev, max_err: dict) -> dict:
         plain = torch.from_numpy(limbs).to(dev)
         zs = [rng.randrange(R) for _ in range(blobs)]
         z_m, zn1_m = d.z_consts(zs)
-        ms = [(0, 1, n - 1)[b % 3] for b in range(blobs)]
-        onehot = torch.stack([torch.arange(n, device=dev) == m for m in ms])
-        z_inv = torch.stack([d.mont([pow(d.roots_brp_ints[m], R - 2, R)]) for m in ms])
         evals_m = d.to_mont(plain)
         want, t_mont = events_ms(lambda: FR.to_mont(plain))
         check("fr_to_mont", f"B={blobs}", evals_m, want)
-        q_in = d.quotient_in_domain_mont(evals_m, ms, z_inv)
-        want, t_in = events_ms(lambda: d.quotient_in_domain_mont_plain(evals_m, onehot, z_inv))
-        check("fr_quotient_in_domain", f"B={blobs} m={sorted(set(ms))}", q_in, want)
+        evals0 = lb.limbs_to_ints(plain[0])
+        for ms in ([[m] for m in root_ms] if blobs == 1 else [[root_ms[b % 4] for b in range(blobs)]]):
+            onehot = torch.stack([torch.arange(n, device=dev) == m for m in ms])
+            z_inv = torch.stack([d.mont([pow(d.roots_brp_ints[m], R - 2, R)]) for m in ms])
+            q_in = d.quotient_in_domain(plain, ms)
+            want, t_in = events_ms(lambda: d.quotient_in_domain_mont_plain(evals_m, onehot, z_inv))
+            check("fr_quotient_in_domain", f"B={blobs} m={sorted(set(ms))}", q_in, want)
+            if lb.limbs_to_ints(q_in[0]) != in_domain_quotient_host(evals0, ms[0], d.roots_brp_ints):
+                raise AssertionError(f"B={blobs}: blob 0's quotient at w_{ms[0]} differs from the host's")
+        root_table = d.root_table(ms)
         # the main path's inputs: the plain limbs and one table
         table = d.z_table(zs)
         y = kernels.fr_evaluate(plain, table, d.roots_k, d.n_inv_k)
@@ -1559,7 +1668,6 @@ def check_fr_kernels(dev, max_err: dict) -> dict:
         q_open, y_open = d.open_mont(plain, zs)
         if not (torch.equal(q_open, q) and torch.equal(y_open, y)):
             raise AssertionError(f"B={blobs}: open_mont differs from its kernels one by one")
-        evals0 = lb.limbs_to_ints(plain[0])
         y0 = fft.barycentric_evaluate(evals0, zs[0], n)
         if lb.limbs_to_ints(y[0]) != [y0] or lb.limbs_to_ints(q[0]) != fft.quotient(evals0, zs[0], y0, n):
             raise AssertionError(f"B={blobs}: blob 0's y or quotient differs from the host's")
@@ -1569,20 +1677,23 @@ def check_fr_kernels(dev, max_err: dict) -> dict:
         if (lb.limbs_to_ints(at_roots[..., 0].T) != stored
                 or d.evaluate_blobs_plain(plain, [d.roots_brp_ints[m] for m in ms]) != stored):
             raise AssertionError(f"B={blobs}: evaluations at roots differ from the stored elements")
-        p32, e32, zi32 = lb.to_u32_layout(plain), lb.to_u32_layout(evals_m), lb.to_u32_layout(z_inv)
+        p32 = lb.to_u32_layout(plain)
         for name, fn, plain_ms in (
                 ("fr_to_mont", lambda: kernels.fr_to_mont(p32), t_mont),
                 ("fr_evaluate", lambda: kernels.fr_evaluate(plain, table, d.roots_k, d.n_inv_k), t_eval),
                 ("fr_quotient", lambda: kernels.fr_quotient(plain, y, table, d.roots_k), t_quot),
-                ("fr_quotient_in_domain", lambda: kernels.fr_quotient_in_domain(e32, ms, zi32, d.roots_k),
-                 t_in)):
+                ("fr_quotient_in_domain",
+                 lambda: kernels.fr_quotient_in_domain(plain, ms, root_table, d.roots_k), t_in)):
             shape = {"blobs": blobs, "n": n, "ms": time_ms(fn, reps=20), "plain_ms": plain_ms,
                      **bound(*fr_kernel_work(name, n, blobs))}
+            if name == "fr_quotient_in_domain":
+                shape["m"] = sorted(set(ms))
             out[name][f"b{blobs}"] = shape
             log(f"  {name} n={n} B={blobs}: equal to plain, limb for limb; kernel {shape['ms']:.4f} ms, "
                 f"plain {plain_ms:.1f} ms, bound {shape['bound_ms']:.6f} ms ({shape['bound_by']})")
-        log(f"  B={blobs}: blob 0's y and quotient equal the host's; at the roots m = {sorted(set(ms))} "
-            "fr_evaluate gives the stored elements; the table equals the host's after the kernels")
+        log(f"  B={blobs}: blob 0's y and quotients (also at w_m) equal the host's; at the roots "
+            f"m = {sorted(set(ms))} fr_evaluate gives the stored elements; the table equals the host's "
+            "after the kernels")
     return out
 
 
@@ -1728,10 +1839,10 @@ def expect_launches(what: str, before: dict, want: dict) -> None:
 def mesh_batch_launches(mesh) -> dict:
     """One commitment or proof batch on a mesh (ops/backend.py, the batch
     step of parallel/msm.py): an accumulation and a reduce per shard on
-    every row, and on each row ceil(log2 P) g1_add launches of its fold."""
+    every row, and on each row one g1_fold launch of its fold where it has
+    more than one shard."""
     d, p = mesh.shape["data"], mesh.shape["points"]
-    return {"g1_bucket_accumulate": d * p, "g1_bucket_reduce": d * p,
-            "g1_add": d * (p - 1).bit_length()}
+    return {"g1_bucket_accumulate": d * p, "g1_bucket_reduce": d * p, "g1_fold": d * (p > 1)}
 
 
 def mesh_generic_launches(mesh, n_points: int, sharded: bool) -> dict:
@@ -1742,7 +1853,7 @@ def mesh_generic_launches(mesh, n_points: int, sharded: bool) -> dict:
         return {"g1_fixedbase_table": 1, "g1_bucket_accumulate": 1, "g1_bucket_reduce": 1}
     p = mesh.shape["points"]
     return {"g1_fixedbase_table": len(set(mesh.devices[0])), "g1_bucket_accumulate": p,
-            "g1_bucket_reduce": p, "g1_add": (p - 1).bit_length()}
+            "g1_bucket_reduce": p, "g1_fold": int(p > 1)}
 
 
 def mesh_verify_launches(mesh, n_blobs: int) -> dict:
@@ -2658,12 +2769,17 @@ def run() -> None:
             pairing_report[name]["ptxas"] = ptxas_report(info["log"], name + "_kernel")
             log(f"  {name}: {pairing_report[name]}")
         fr_report = {name: ptxas_report(info["log"], name + "_kernel", calls=True)
-                     for name in ("fr_evaluate_cluster", "fr_evaluate", "fr_quotient")}
-        for name, rep in fr_report.items():  # no Fermat chain on the card for these two
+                     for name in ("fr_evaluate_cluster", "fr_evaluate", "fr_quotient",
+                                  "fr_quotient_in_domain_cluster", "fr_quotient_in_domain")}
+        for name, rep in fr_report.items():  # no Fermat chain on the card for these three
             log(f"  {name}: ptxas {rep}")
             if "registers" not in rep or any("fr3inv" in c for c in rep["calls"]):
                 raise AssertionError(f"{name}: ptxas reports a call of fr::inv or no entry: {rep}")
         results["fr_ptxas"] = fr_report
+        # g1_fold_kernel on the public limbs (g1_fold) and on two u32 rows (g1_add)
+        results["fold_ptxas"] = {name: ptxas_report(info["log"], rows)
+                                 for name, rows in (("g1_fold", "LimbRows"), ("g1_add", "WordRows"))}
+        log(f"  g1_fold and g1_add: ptxas {results['fold_ptxas']}")
 
     setup = load_mainnet_setup()
     points = lb.as_limb_tensor(setup.lagrange_points, dev)
@@ -2686,6 +2802,7 @@ def run() -> None:
                 name = getattr(kernels, op).name
                 max_err[name] = max(max_err[name], check_kernel(op, args))
                 log(f"  {op} M={M}: equal to plain, limb for limb")
+        fold_checked = check_fold(points, max_err)
         table16, table_valid = convert.fixedbase_from_npz(FIXEDBASE, dev)
         rng = np.random.default_rng(3)
         for n_blobs in (1, 6):
@@ -2960,6 +3077,12 @@ def run() -> None:
                 f"{FR_PROOF_LAUNCHES} of them Fr kernels, device busy {fr_dev['busy_ms']:.3f} ms), msm_ms {sp['msm_ms']:.3f} (MSM + "
                 f"result; {msm_dev.get('kernels', 'not measured')} launches, device busy "
                 f"{msm_dev.get('busy_ms', float('nan')):.3f} ms) ({card})")
+        results["prove_split_root"] = [root_split(ctx.backend, blobs[0], 1) for _ in range(2)]
+        for sp in results["prove_split_root"]:
+            dev_rec = sp["fr_device"]
+            log(f"  at z = w_1: fr_ms {sp['fr_ms']:.3f} (the root table and the in-domain quotient; "
+                f"{dev_rec['kernels']} launches and {dev_rec['copies']} copies, device busy "
+                f"{dev_rec['busy_ms']:.4f} ms) ({card})")
         syncs = {"single": host_syncs(lambda: ctx.compute_blob_kzg_proof(blobs[0], commitments[0])),
                  "batch6": host_syncs(lambda: ctx.compute_blob_kzg_proof_batch(blobs, commitments))}
         results["prove_host_syncs"] = syncs
@@ -3056,7 +3179,7 @@ def run() -> None:
             entry = {
                 "name": kernel.name,
                 "route": "cuda",
-                "source": f"{PKG}/csrc/g1.cu",
+                "source": f"{PKG}/csrc/{'g1_batch.cu' if op == 'add' else 'g1.cu'}",
                 "replaces": kernel.replaces,
                 **counted(kernel.name),
                 "max_abs_err": max_err[kernel.name],
@@ -3242,6 +3365,15 @@ def run() -> None:
                             **{key: first[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                             "library_ms": None, "n": NTT_N, "shapes": shapes})
 
+        # g1_fold at phase 3's times; the entry's own numbers are the (1, 4)
+        # mesh's fold of a batch of 6 (K = 4 rows of 6 lanes)
+        main = fold_checked["k4_b6"]
+        entries.append({"name": kernels.fold.name, "route": "cuda", "source": f"{PKG}/csrc/g1_batch.cu",
+                        "replaces": kernels.fold.replaces, **counted(kernels.fold.name),
+                        "max_abs_err": max_err[kernels.fold.name],
+                        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                        "library_ms": None, "rows": 4, "lanes": 6, "shapes": fold_checked})
+
         # the roofline table of utils/profiling.py: g1_madd, g1_add and
         # g1_dbl chained in one CUDA graph at 8192 lanes, and the plain Fp
         # product, against the card's speed of light
@@ -3259,23 +3391,10 @@ def run() -> None:
         missing = [name for name in MESH_KERNELS if mesh_launches[name] == 0]
         if missing:
             raise AssertionError(f"not launched on the mesh path: {missing}")
-        # g1_add at the fold's widest level here: two partials of six blobs
-        # (the 1x4 mesh), random finite lanes
-        p, _, _, q3 = make_lanes(points, 12, seed=84, exceptional=False)
-        p32, q32 = lb.to_u32_layout(p), lb.to_u32_layout(q3)
-        t_bytes = 12 * FP_BYTES * 9 / HBM_BYTES_PER_S * 1e3
-        t_ops = 12 * op_imads("add") / IMAD_PER_S * 1e3
-        fold = {"lanes": 12, "ms": sum(time_ms(lambda: kernels.add(p32, q32), reps=200, warm=5)
-                                       for _ in range(2)) / 2,
-                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        log(f"  g1_add M=12 (the mesh fold): kernel {fold['ms']:.4f} ms, bound {fold['bound_ms']:.6f} ms "
-            f"({fold['bound_by']})")
         for entry in entries:
             n = mesh_launches.get(entry["name"], 0)
             entry["launches_by_path"]["mesh"] = n
             entry["launches"] += n
-            if entry["name"] == kernels.add.name:
-                entry["mesh_fold"] = fold
         log(f"  {card}; the meshes are logical: one card runs every shard, so no time here is a "
             "multi-card time")
 

@@ -17,19 +17,21 @@
 // negation, inverse and both conversions, to hold fr.cuh against the
 // plain field (ops/field_ops.py FR) on the card.
 //
-// Layout. fr_evaluate and fr_quotient take the plain evaluations as the
+// Layout. The three polynomial kernels take the plain evaluations as the
 // public layout, int64 radix-2^16 limbs [B, 16, n] (limb j of blob b's
 // element i at (b 16 + j) n + i), and give the plain y [B, 16, 1] and
 // quotients [B, 16, n] in it, so no conversion of layout or form runs
 // around them (a Montgomery product of a plain value by a Montgomery one
-// is plain). Beside them, limbs-first u32 arrays in
-// Montgomery form with R = 2^256: the roots w_i in bit-reversed order
-// [8, n], 1/n [8, 1], and a table of each blob's z [B, 8, L + 1], L =
-// log2 n, all of it made on the host and only read here: column l < L
-// z^(2^l), column L the quotient's K = 1 / (z^n - 1) (0 where z^n = 1),
-// so that plain evaluations and y give plain quotients. fr_quotient_in_domain
-// and fr_to_mont keep u32 arrays [B, 8, n] (one value per blob [B, 8, 1],
-// the in-domain index m as int32[B]).
+// is plain). Beside them, limbs-first u32 arrays in Montgomery form with
+// R = 2^256: the roots w_i in bit-reversed order [8, n], 1/n [8, 1], and a
+// table of each blob's z, all of it made on the host and only read here.
+// For fr_evaluate and fr_quotient it is [B, 8, L + 1], L = log2 n: column
+// l < L z^(2^l), column L the quotient's K = 1 / (z^n - 1) (0 where
+// z^n = 1). For fr_quotient_in_domain, z = w_m, it is [B, 8, L + 3]:
+// column l < L z^(2^l), column L K = w_m / n, column L + 1 1/z, and in
+// word 0 of column L + 2 the index m. K carries R, so that plain
+// evaluations and y give plain quotients. fr_to_mont keeps u32 arrays
+// [B, 8, n].
 //
 // Design of fr_evaluate and fr_quotient: no inversion on the card. The
 // domain's n roots of unity in bit-reversed order fall into aligned chunks:
@@ -61,29 +63,34 @@
 // denominators. Each block reads the powers z^(2^l) from the table into
 // shared memory first, so neither kernel squares and neither depends on
 // the other having run.
+// fr_quotient_in_domain, z = w_m, walks down the same tree as fr_quotient
+// on the same split. The product of the n - 1 nonzero denominators is
+// prod_{i != m} (z - w_i) = n / w_m (the derivative of X^n - 1 at w_m), so
+// K = w_m / n; every sibling chunk keeps z^s - w_g but the one that holds
+// m (on i's path, the sibling at the level where i's and m's paths part),
+// whose product without the zero factor is s z^s / z (the derivative of
+// X^s - w_g at z). So 1 / (z - w_i) for i != m comes down the tree from K
+// with no inversion, the host having sent z's powers (roots, looked up)
+// and 1/z (a root too). y = e_m, and q_m = -(1/z) sum_{i != m} q_i w_i:
+// each block sums its elements' q_i w_i (e_m - y = 0 makes q_m's own term
+// 0), and as in fr_evaluate the G blocks of a blob are one cluster, whose
+// first block reads the others' sums from their shared memory.
 // Every result is canonical, so the order of the products does not
 // matter: the outputs equal the plain PyTorch versions (ops/fr_poly.py)
 // bit for bit.
 //
-// fr_quotient_in_domain keeps its first design: one block of T = min(n,
-// 256) threads per blob, Montgomery's trick on two levels (each thread's
-// prefix products, a shared tree of the T partials, one Fermat inversion
-// by one thread, fr::inv, back down), the zero denominator at m set to one
-// for the inversion and its inverse to zero, as ops/fr_poly.py does.
-//
 // What bounds them: the functions need, a blob of n = 4096, its n values
 // in (128 KB as 32-byte elements; the public limbs the kernels read hold
-// each in 128 bytes, 512 KB) and, for the quotient, n out; fr_evaluate
+// each in 128 bytes, 512 KB) and, for the quotients, n out; fr_evaluate
 // 2 n + 1 products, ~2.2 M IMADs, fr_quotient 3 n - 2 and one inversion,
-// ~3.3 M: by operations ~0.13 us and ~0.2 us a blob on the card. The
-// launch is bound instead by its chain: fr_evaluate a thread's 2 elements
-// (2 dependent products), then 8 levels in the block and 3 in the
-// cluster, one product and two barriers each, and the product by 1/n;
-// fr_quotient 3 products for the block's root, 8 levels down and 2
-// products a thread -- ~15 dependent products of ~1,300 cycles each.
-// fr_quotient_in_domain is bound by its Fermat chain (252 squarings, 73
-// products) and each thread's 16 elements on one SM (ROADMAP queue B
-// item 0).
+// ~3.3 M, fr_quotient_in_domain 4 n - 1 + L, ~4.3 M: by operations
+// ~0.13 us, ~0.2 us and ~0.26 us a blob on the card. The launch is bound
+// instead by its chain: fr_evaluate a thread's 2 elements (2 dependent
+// products), then 8 levels in the block and 3 in the cluster, one product
+// and two barriers each, and the product by 1/n; fr_quotient 3 products
+// for the block's root, 8 levels down and 2 products a thread -- ~15
+// dependent products of ~1,300 cycles each; fr_quotient_in_domain the
+// same, then 4 products a thread, the block's sum and the cluster's.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,7 +104,7 @@ namespace cg = cooperative_groups;
 using fr::Fr;
 
 constexpr int kMaxThreads = 256;  // threads a blob's block; the tree's leaves
-constexpr int kCluster = 8;  // fr_evaluate's and fr_quotient's blocks a blob from n = 2048 on
+constexpr int kCluster = 8;  // blocks a blob from n = 2048 on
 constexpr int kMaxLevels = 31;    // log2 n
 
 inline int threads_for(int n) { return n < kMaxThreads ? n : kMaxThreads; }
@@ -108,52 +115,7 @@ inline int log2_of(int x) {  // x a power of two
   return l;
 }
 
-// The inverses of the block's n denominators denom(i) (none zero; a zero
-// gives zero inverses) by Montgomery's trick on two levels, handed to
-// use(i, 1 / denom(i)) element by element as each thread walks back.
-// pre: this blob's [8, n] scratch for the prefix products; use may write
-// element i of it (it is read there before). node and inv: shared arrays
-// of 2 kMaxThreads, a heap of T leaves (node j's children 2j, 2j + 1).
-template <class Denom, class Use>
-__device__ void batch_inverse(int n, uint32_t* pre, Fr* node, Fr* inv, Denom denom, Use use) {
-  const int T = blockDim.x, t = threadIdx.x, per = n / T;
-  Fr acc = fr::one();
-  for (int k = 0; k < per; ++k) {
-    const int i = t + k * T;
-    acc = fr::mul(acc, denom(i));
-    fr::store(pre, n, i, acc);
-  }
-  node[T + t] = acc;
-  __syncthreads();
-  for (int h = T / 2; h >= 1; h >>= 1) {
-    if (t < h) node[h + t] = fr::mul(node[2 * (h + t)], node[2 * (h + t) + 1]);
-    __syncthreads();
-  }
-  if (t == 0) inv[1] = fr::inv(node[1]);
-  __syncthreads();
-  for (int h = 1; h < T; h <<= 1) {
-    if (t < h) {
-      const int j = h + t;
-      const Fr up = inv[j];
-      inv[2 * j] = fr::mul(up, node[2 * j + 1]);
-      inv[2 * j + 1] = fr::mul(up, node[2 * j]);
-    }
-    __syncthreads();
-  }
-  Fr acc_inv = inv[T + t];  // 1 / (the product of this thread's denominators)
-  for (int k = per - 1; k >= 0; --k) {
-    const int i = t + k * T;
-    Fr inv_i = acc_inv;
-    if (k) {
-      inv_i = fr::mul(acc_inv, fr::load(pre, n, i - T));
-      acc_inv = fr::mul(acc_inv, denom(i));
-    }
-    use(i, inv_i);
-  }
-}
-
-// The block's sum of each thread's part, left in node[0] for thread 0.
-// node must be free: batch_inverse reads it last before its final barrier.
+// The block's sum of each thread's part, left in node[0].
 __device__ void block_sum(Fr part, Fr* node) {
   const int t = threadIdx.x;
   node[t] = part;
@@ -304,33 +266,86 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-    fr_quotient_in_domain_kernel(const uint32_t* __restrict__ evals,
-                                 const int32_t* __restrict__ m_idx,
-                                 const uint32_t* __restrict__ z_inv,
-                                 const uint32_t* __restrict__ roots, uint32_t* out, int n) {
-  __shared__ Fr node[2 * kMaxThreads];
-  __shared__ Fr inv[2 * kMaxThreads];
-  const int b = blockIdx.x;
-  const uint32_t* e = evals + (size_t)b * fr::NL * n;
-  uint32_t* q = out + (size_t)b * fr::NL * n;  // also the prefix products
-  const int m = m_idx[b];  // in [0, n): the wrapper checks
-  const Fr y = fr::load(e, n, m);
-  const Fr zb = fr::load(roots, n, m);
-  Fr part = fr::zero();
-  batch_inverse(
-      n, q, node, inv,
-      [&](int i) { return i == m ? fr::one() : fr::sub(fr::load(roots, n, i), zb); },
-      [&](int i, const Fr& inv_i) {
-        const Fr d = i == m ? fr::zero() : inv_i;  // 1 / (w_i - z), 0 at m
-        const Fr shifted = fr::sub(fr::load(e, n, i), y);
-        fr::store(q, n, i, fr::from_mont(fr::mul(shifted, d)));
-        // 1 / (z - w_i) = -d
-        part = fr::add(part, fr::mul(fr::mul(shifted, fr::load(roots, n, i)), fr::neg(d)));
-      });
+// z = w_m, m in word 0 of the table's column L + 2, on the split of
+// fr_quotient: a blob of n on G blocks of T threads, 2^lk elements a
+// thread, block rank r owning the elements [r T 2^lk, (r + 1) T 2^lk).
+template <int G>
+__device__ void quotient_in_domain_blob(const int64_t* __restrict__ evals,
+                                        const uint32_t* __restrict__ table,
+                                        const uint32_t* __restrict__ roots,
+                                        int64_t* __restrict__ out, int n, int lk) {
+  // comp as in fr_quotient_kernel; held[l] = 2^l z^(2^l) / z, the product
+  // of a chunk of 2^l that holds m without its zero factor
+  __shared__ Fr comp[2 * kMaxThreads], node[kMaxThreads], pw[kMaxLevels], held[kMaxLevels];
+  const int T = blockDim.x, t = threadIdx.x, lt = 31 - __clz(T), lg = 31 - __clz(G);
+  const int rank = blockIdx.x % G, b = blockIdx.x / G;
+  const int lb = lk + lt, L = lb + lg, W = L + 3;
+  const uint32_t* tab = table + (size_t)b * fr::NL * W;
+  const int m = (int)tab[L + 2];  // in [0, n): the wrapper checks
+  const Fr z_inv = fr::load(tab, W, L + 1);
+  if (t < L) {
+    pw[t] = fr::load(tab, W, t);
+    Fr h = fr::mul(pw[t], z_inv);
+    for (int k = 0; k < t; ++k) h = fr::add(h, h);
+    held[t] = h;
+  }
+  __syncthreads();
+  // the product of the denominators of chunk g at size 2^l, m's left out
+  auto denom = [&](int l, int g) {
+    return g == (m >> l) ? held[l] : fr::sub(pw[l], fr::load(roots, n, g));
+  };
+  if (t == 0) {  // K times the denominators of the block's siblings above it
+    Fr c = fr::load(tab, W, L);
+    for (int l = lb; l < L; ++l) c = fr::mul(c, denom(l, (rank >> (l - lb)) ^ 1));
+    comp[1] = c;
+  }
+  __syncthreads();
+  for (int h = 1, level = lb - 1; h < T; h <<= 1, --level) {
+    if (t < 2 * h) comp[2 * h + t] = fr::mul(comp[h + (t >> 1)], denom(level, rank * 2 * h + (t ^ 1)));
+    __syncthreads();
+  }
+  const Fr mine = comp[T + t];
+  const int64_t* e = evals + (size_t)b * 2 * fr::NL * n;
+  int64_t* q = out + (size_t)b * 2 * fr::NL * n;
+  const Fr y = load16(e, n, m);
+  Fr part = fr::zero();  // sum of q_i w_i over this thread's elements
+  for (int r = 0; r < (1 << lk); ++r) {
+    const int i = ((rank * T + t) << lk) + r;
+    Fr inv_i = mine;  // 1 / (z - w_i) for i != m
+    for (int l = 0; l < lk; ++l) inv_i = fr::mul(inv_i, denom(l, (i >> l) ^ 1));
+    const Fr qi = fr::mul(fr::sub(y, load16(e, n, i)), inv_i);  // 0 at m
+    if (i != m) store16(q, n, i, qi);
+    part = fr::add(part, fr::mul(qi, fr::load(roots, n, i)));
+  }
   block_sum(part, node);
-  if (threadIdx.x == 0)
-    fr::store(q, n, m, fr::from_mont(fr::mul(node[0], fr::load(z_inv + b * fr::NL, 1, 0))));
+  if constexpr (G > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every block's sum is in its node[0]
+    if (rank == 0 && t < G) node[t] = *cluster.map_shared_rank(node, t);
+    cluster.sync();  // read: the other blocks may leave
+    if (rank) return;
+  }
+  if (t == 0) {
+    Fr s = node[0];
+    for (int k = 1; k < G; ++k) s = fr::add(s, node[k]);
+    store16(q, n, m, fr::neg(fr::mul(s, z_inv)));  // q_m = -(1/z) sum q_i w_i
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+    fr_quotient_in_domain_kernel(const int64_t* __restrict__ evals,
+                                 const uint32_t* __restrict__ table,
+                                 const uint32_t* __restrict__ roots, int64_t* __restrict__ out,
+                                 int n, int lk) {
+  quotient_in_domain_blob<1>(evals, table, roots, out, n, lk);
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxThreads)
+    fr_quotient_in_domain_cluster_kernel(const int64_t* __restrict__ evals,
+                                         const uint32_t* __restrict__ table,
+                                         const uint32_t* __restrict__ roots,
+                                         int64_t* __restrict__ out, int n, int lk) {
+  quotient_in_domain_blob<kCluster>(evals, table, roots, out, n, lk);
 }
 
 // element i of each of the B [8, n] arrays, one thread each
@@ -364,8 +379,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 inline int blocks_for(long lanes) { return (int)((lanes + kMaxThreads - 1) / kMaxThreads); }
 
-// fr_evaluate and fr_quotient: a blob of n (a power of two, at least 2) on
-// G blocks of T = min(n, 256) threads, G = 8 from n = 2048 on and 1 below,
+// fr_evaluate, fr_quotient and fr_quotient_in_domain: a blob of n (a
+// power of two) on G blocks of T = min(n, 256) threads, G = 8 from n = 2048 on and 1 below,
 // 2^lk = n / (G T) elements a thread.
 struct Split {
   int T, G, lk, lg;
@@ -408,12 +423,18 @@ extern "C" int lwkzg_fr_quotient(const void* evals, const void* y, const void* t
   return (int)cudaGetLastError();
 }
 
-extern "C" int lwkzg_fr_quotient_in_domain(const void* evals, const void* m, const void* z_inv,
+extern "C" int lwkzg_fr_quotient_in_domain(const void* evals, const void* table,
                                            const void* roots, void* out, int B, int n,
                                            void* stream) {
-  fr_quotient_in_domain_kernel<<<B, threads_for(n), 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)evals, (const int32_t*)m, (const uint32_t*)z_inv, (const uint32_t*)roots,
-      (uint32_t*)out, n);
+  const Split s = split_for(n);
+  const auto e = (const int64_t*)evals;
+  const auto tab = (const uint32_t*)table, r = (const uint32_t*)roots;
+  if (s.G == kCluster)
+    fr_quotient_in_domain_cluster_kernel<<<B * s.G, s.T, 0, (cudaStream_t)stream>>>(
+        e, tab, r, (int64_t*)out, n, s.lk);
+  else
+    fr_quotient_in_domain_kernel<<<B, s.T, 0, (cudaStream_t)stream>>>(e, tab, r, (int64_t*)out, n,
+                                                                      s.lk);
   return (int)cudaGetLastError();
 }
 

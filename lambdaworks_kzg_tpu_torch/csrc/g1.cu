@@ -1,16 +1,15 @@
-// BLS12-381 G1 point kernels for Hopper (sm_90a): g1_madd, g1_add, g1_dbl.
+// BLS12-381 G1 point kernels for Hopper (sm_90a): g1_madd and g1_dbl
+// (their sibling g1_add is g1_batch.cu's fold at K = 2).
 //
 // They replace the TPU kernels of lambdaworks_kzg_tpu/ops/pallas_g1_v2.py:
 //   g1_madd <- madd (_madd_kernel): bucket += affine point
-//   g1_add  <- add  (_add_kernel):  complete Jacobian add
 //   g1_dbl  <- dbl  (_dbl_kernel):  doubling; the fixed-base table build
 // and, through them, the v1-layout kernels of ops/pallas_g1.py, whose
 // function is the same bit for bit. On the commit path the lock-step madd
-// rounds and the fold reduce run fused in msm.cu (g1_bucket_accumulate,
-// g1_bucket_reduce) and the table build's doublings in table.cu
-// (g1_fixedbase_table), on the same group law (g1.cuh); these three are
-// the per-op forms of those steps. fp_sqr_check holds fp::sqr against
-// fp::mul(a, a) on the card.
+// rounds run fused in msm.cu (g1_bucket_accumulate) and the table build's
+// doublings in table.cu (g1_fixedbase_table), on the same group law
+// (g1.cuh); these two are the per-op forms of those steps, off every path.
+// fp_sqr_check holds fp::sqr against fp::mul(a, a) on the card.
 //
 // Layout: limbs-first u32 arrays, [3, 12, M] Jacobian (X, Y, Z) and
 // [2, 12, M] affine (x, y), Montgomery form, R = 2^384; coordinate c,
@@ -24,13 +23,13 @@
 // PyTorch versions (ops/g1_ops.py) limb for limb, Z included.
 //
 // What bounds it: each lane moves 385 bytes (madd: 144 in + 96 in + 1
-// live + 144 out), 432 (add) or 288 (dbl), and needs 7 Montgomery products
-// and 4 squarings (madd), 11 and 5 (add) or 2 and 5 (dbl, with Z3 = 2 Y Z;
-// jac_dbl's (Y + Z)^2 - YY - ZZ takes 1 and 7, 324 IMADs more). A product
-// is 588 32-bit multiply-adds (a 32x32->64 product is two IMADs), a
-// squaring that shares its cross products (fp::sqr) 456. At 5,940
-// IMADs against 385 bytes the kernels are bound by integer multiply
-// throughput, not by memory; at the MSM's 2,048 lanes they also fill only 16 blocks of the
+// live + 144 out) or 288 (dbl), and needs 7 Montgomery products and 4
+// squarings (madd) or 2 and 5 (dbl, with Z3 = 2 Y Z; jac_dbl's
+// (Y + Z)^2 - YY - ZZ takes 1 and 7, 324 IMADs more). A product is 588
+// 32-bit multiply-adds (a 32x32->64 product is two IMADs), a squaring
+// that shares its cross products (fp::sqr) 456. At ~5,900 IMADs against
+// 385 bytes the kernels are bound by integer multiply throughput, not by
+// memory; at the MSM's 2,048 lanes they also fill only 16 blocks of the
 // card's 132 SMs, so one thread's latency sets a launch's time at the
 // path's shapes.
 #include <cuda_runtime.h>
@@ -65,17 +64,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    g1_add_kernel(const uint32_t* __restrict__ p,
-                  const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
-                  int M) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const Jac a = g1::load_jac(p, M, m);
-  const Jac b = g1::load_jac(q, M, m);
-  g1::store_jac(out, M, m, g1::jac_add(a, b));
-}
-
-__global__ void __launch_bounds__(kThreads)
     g1_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
                   int M) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
@@ -106,13 +94,6 @@ extern "C" int lwkzg_g1_madd(const void* p, const void* q, const void* live,
   g1_madd_kernel<<<blocks_for(M), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (const uint32_t*)q, (const uint8_t*)live,
       (uint32_t*)out, M);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int lwkzg_g1_add(const void* p, const void* q, void* out, int M,
-                            void* stream) {
-  g1_add_kernel<<<blocks_for(M), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, M);
   return (int)cudaGetLastError();
 }
 

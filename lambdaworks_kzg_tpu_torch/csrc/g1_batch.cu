@@ -1,7 +1,8 @@
 // Batched G1 kernels for Hopper (sm_90a): g1_decompress, g1_scalar_mul,
 // g1_fft_stage and g1_subgroup_mask, the setup conversion's and the batch
-// verification's point steps, and fp_coop_check, which holds the
-// cooperative field (fp_coop.cuh) against fp.cuh.
+// verification's point steps; g1_fold, the mesh's fold of the shards'
+// partials, and g1_add, the same fold of two rows; and fp_coop_check,
+// which holds the cooperative field (fp_coop.cuh) against fp.cuh.
 //
 // They replace the per-step launches of the TPU kernels add and dbl of
 // lambdaworks_kzg_tpu/ops/pallas_g1_v2.py (_add_kernel, _dbl_kernel), which
@@ -21,13 +22,22 @@
 //                       in one launch, for points known to lie in G1;
 //   g1_subgroup_mask <- subgroup_mask (:126) with _jacobian_eq_mask: two
 //                       multiplications by |x| (64 bits) and the
-//                       cross-multiplied test sigma(P) == -[x^2]P.
+//                       cross-multiplied test sigma(P) == -[x^2]P;
+//   g1_fold          <- the add launches of lambdaworks_kzg_tpu/parallel/
+//                       msm.py _tree_fold_points (:40), one per level:
+//                       K rows of Jacobian points folded into one, every
+//                       level in one launch;
+//   g1_add           <- add (pallas_g1_v2.py :376) itself: g1_fold's body
+//                       on two rows in the u32 layout.
 // Their plain versions are ops/g1_ops.py decompress_xy, scalar_mul,
-// scalar_mul_endo, fft_stage_endo and subgroup_mask.
+// scalar_mul_endo, fft_stage_endo, subgroup_mask, fold and add.
 //
 // Layout as g1.cu: limbs-first u32 arrays in Montgomery form, [12, M] for
 // an Fp value, [3, 12, M] Jacobian; scalars [8, M] plain u32 words, or
 // [8, 1] with k_stride 0 for one scalar on every lane; bools as uint8.
+// g1_fold reads and writes the public layout instead, int64 radix-2^16
+// limbs [K, 3, 24, B] in and [3, 24, B] out, as the mesh holds its
+// partials, so no conversion runs around it.
 //
 // What bounds them: the operations, in chains. g1_scalar_mul on a 255-bit
 // scalar runs ~254 doublings and ~128 adds per lane; g1_subgroup_mask 126
@@ -80,6 +90,15 @@
 // the split mode alone. It reads the stage's input and writes another
 // array (ping-pong), in the natural order, so no layout step sits between
 // stages.
+//
+// g1_fold and g1_add: a pair per add, so an add is 8 products deep at
+// ~1,570 cycles, against 16 at ~2,900 for one thread on fp.cuh. What bounds
+// them is that chain: a mesh's fold has a handful of columns (6 to 12),
+// far too few lanes to fill the card. A column (a lane of the K rows) has
+// up to 8 pairs: the adds of one level run side by side, each level's sums
+// wait in shared memory behind a barrier for the next, in the plain fold's
+// order (row j plus row half + j; an odd last row waits a level), and the
+// last sum is stored, so K rows take ceil(log2 K) adds in one launch.
 //
 // g1_decompress: one group of fpc::kT threads per lane, since a lane's one
 // chain (the power) gives a pair no second product. The exponent (p+1)/4
@@ -507,6 +526,139 @@ __global__ void __launch_bounds__(kBlock)
   if (live && threadIdx.x % kPair == 0) out[m] = (inf1 || inf2) ? (inf1 == inf2) : (ex && ey);
 }
 
+// -- the fold of K Jacobian rows (g1_fold; g1_add is its K = 2) ----------
+
+constexpr int kPoint = 3 * fp::NL;  // words of a Jacobian point in a slot
+constexpr int kMaxTeam = kBlock / kPair;  // pairs a column at most: a block
+
+__device__ __forceinline__ Fq load_limbs(const int64_t* __restrict__ base, int B, int b) {
+  Fq a;  // this rank's words of an element of the public int64 radix-2^16 limbs
+  const int o = fpc::rank() * fpc::kS;
+#pragma unroll
+  for (int k = 0; k < fpc::kS; ++k)
+    a.v[k] = (uint32_t)base[(size_t)(2 * (o + k)) * B + b] |
+             ((uint32_t)base[(size_t)(2 * (o + k) + 1) * B + b] << 16);
+  return a;
+}
+
+__device__ __forceinline__ void store_limbs(int64_t* __restrict__ base, int B, int b, const Fq& a) {
+  const int o = fpc::rank() * fpc::kS;
+#pragma unroll
+  for (int k = 0; k < fpc::kS; ++k) {
+    base[(size_t)(2 * (o + k)) * B + b] = a.v[k] & 0xffffu;
+    base[(size_t)(2 * (o + k) + 1) * B + b] = a.v[k] >> 16;
+  }
+}
+
+// g1_fold's rows: [K, 3, 24, B] Jacobian points as public int64 limbs in,
+// [3, 24, B] out
+struct LimbRows {
+  const int64_t* in;
+  int64_t* out;
+  int B;
+  __device__ __forceinline__ CJac load(int k, int b) const {
+    const int64_t* p = in + (size_t)k * 3 * 2 * fp::NL * B;
+    CJac r;
+    r.X = load_limbs(p, B, b);
+    r.Y = load_limbs(p + (size_t)2 * fp::NL * B, B, b);
+    r.Z = load_limbs(p + (size_t)4 * fp::NL * B, B, b);
+    return r;
+  }
+  __device__ __forceinline__ void store(int b, const CJac& r) const {
+    store_limbs(out, B, b, r.X);
+    store_limbs(out + (size_t)2 * fp::NL * B, B, b, r.Y);
+    store_limbs(out + (size_t)4 * fp::NL * B, B, b, r.Z);
+  }
+};
+
+// g1_add's rows: p (row 0) and q (row 1), [3, 12, M] u32 words each
+struct WordRows {
+  const uint32_t* p;
+  const uint32_t* q;
+  uint32_t* out;
+  int B;
+  __device__ __forceinline__ CJac load(int k, int b) const { return load_cjac(k ? q : p, B, b); }
+  __device__ __forceinline__ void store(int b, const CJac& r) const { store_cjac(out, B, b, r); }
+};
+
+__device__ __forceinline__ void put_slot(uint32_t* s, const CJac& P) {
+  const int o = fpc::rank() * fpc::kS;
+#pragma unroll
+  for (int k = 0; k < fpc::kS; ++k) {
+    s[o + k] = P.X.v[k];
+    s[fp::NL + o + k] = P.Y.v[k];
+    s[2 * fp::NL + o + k] = P.Z.v[k];
+  }
+}
+
+__device__ __forceinline__ CJac get_slot(const uint32_t* s) {
+  const int o = fpc::rank() * fpc::kS;
+  CJac P;
+#pragma unroll
+  for (int k = 0; k < fpc::kS; ++k) {
+    P.X.v[k] = s[o + k];
+    P.Y.v[k] = s[fp::NL + o + k];
+    P.Z.v[k] = s[2 * fp::NL + o + k];
+  }
+  return P;
+}
+
+// Column b of K >= 2 rows folded as the plain fold does: each level adds
+// row j to row half + j for j < half = k / 2 and keeps an odd last row for
+// the next level. A column has `team` pairs (a power of two dividing
+// kMaxTeam), pair p taking adds p, p + team, ..; each add's sum goes to
+// its slot j in shared memory (K / 2 slots a column), the last level's to
+// the output. Rows below k - 1 sit in their slots from the second level
+// on, and the last row in slot `last`, or in the input while it is still
+// row K - 1 passed down. Every pair runs each round (an idle one adds row
+// half - 1 again and stores nothing), so whole warps run every add.
+template <class Rows>
+__global__ void __launch_bounds__(kBlock) g1_fold_kernel(Rows rows, int K, int team) {
+  extern __shared__ uint32_t slots[];
+  const int pair = threadIdx.x / kPair, p = pair % team;
+  const int b = blockIdx.x * (kMaxTeam / team) + pair / team;
+  const bool live = b < rows.B;
+  const int col = live ? b : rows.B - 1;  // a column past the last computes the last again
+  uint32_t* mine = slots + (size_t)(pair / team) * (K / 2) * kPoint;
+  int k = K, last = K - 1;
+  bool last_in = true;
+  for (bool first = true; k > 1; first = false) {
+    const int half = k / 2;
+    auto row = [&](int r) {
+      const int at = r == k - 1 ? last : r;
+      return first || (r == k - 1 && last_in) ? rows.load(at, col)
+                                              : get_slot(mine + (size_t)at * kPoint);
+    };
+#pragma unroll 1
+    for (int base = 0; base < half; base += team) {
+      const bool act = base + p < half;
+      const int j = act ? base + p : half - 1;
+      const CJac s = cjac_add(row(j), row(half + j));
+      if (act && !fpc::second()) {
+        if (k == 2) {
+          if (live) rows.store(col, s);
+        } else {
+          put_slot(mine + (size_t)j * kPoint, s);
+        }
+      }
+    }
+    if (k % 2 == 0) {
+      last = half - 1;
+      last_in = false;
+    }
+    k = half + k % 2;
+    __syncthreads();  // this level's sums are in their slots
+  }
+}
+
+// pairs a column of the fold of K rows: the largest power of two up to
+// K / 2, at most a block's
+inline int fold_team(int K) {
+  int team = 1;
+  while (2 * team <= K / 2 && 2 * team <= kMaxTeam) team *= 2;
+  return team;
+}
+
 // lane m of [12, M] arrays a, b below p -> out [7, 12, M]: the cooperative
 // mul(a, b), sqr(a), add(a, b), sub(a, b), then fp::mul(a, b), fp::sqr(a),
 // and in plane 6 the cooperative is_zero(a) (limb 0) and eq(a, b) (limb 1)
@@ -580,6 +732,24 @@ extern "C" int lwkzg_g1_subgroup_mask(const void* p, void* out, int M,
                                       void* stream) {
   g1_subgroup_mask_kernel<<<coop_blocks(M, kPair), kBlock, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (uint8_t*)out, M);
+  return (int)cudaGetLastError();
+}
+
+// p, q, out [3, 12, M]: the fold of the two rows p and q
+extern "C" int lwkzg_g1_add(const void* p, const void* q, void* out, int M, void* stream) {
+  g1_fold_kernel<<<coop_blocks(M, kPair), kBlock, 0, (cudaStream_t)stream>>>(
+      WordRows{(const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, M}, 2, 1);
+  return (int)cudaGetLastError();
+}
+
+// in [K, 3, 24, B] int64 limbs, K >= 2, out [3, 24, B]; a block holds
+// K / 2 slots of 144 bytes for each of its columns, 18 KB at the
+// wrapper's largest K, 256
+extern "C" int lwkzg_g1_fold(const void* in, void* out, int K, int B, void* stream) {
+  const int team = fold_team(K), cols = kMaxTeam / team;
+  const size_t smem = K > 2 ? (size_t)cols * (K / 2) * kPoint * sizeof(uint32_t) : 0;
+  g1_fold_kernel<<<(B + cols - 1) / cols, kBlock, smem, (cudaStream_t)stream>>>(
+      LimbRows{(const int64_t*)in, (int64_t*)out, B}, K, team);
   return (int)cudaGetLastError();
 }
 

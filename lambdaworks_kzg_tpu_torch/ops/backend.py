@@ -17,8 +17,8 @@ On a (data, points) mesh (`parallel/`) the backend keeps one table per
 (device, shard) of the points axis instead (`parallel.msm.ShardedBasis`),
 built at init or cut from a table handed in. Every commitment and
 proof batch runs the batch step: its blobs over the data axis, each
-blob's MSM over the points axis, folded on the g1_add kernel, gathered on
-the lead device (the mesh's first), where the Fr layer, the
+blob's MSM over the points axis, folded by one g1_fold launch a row,
+gathered on the lead device (the mesh's first), where the Fr layer, the
 decompression and the pairing check stay. The generic MSM is sharded
 from max(16, 2 P) points on, padded with invalid points to P 2^k.
 

@@ -15,7 +15,8 @@ against this module runs the plain versions on any device when handed
 The routes of the batched G1 steps (`ops/g1_batch.py`) take and return
 the public layout and convert around each launch: `decompress_xy`,
 `scalar_mul`, `scalar_mul_endo`, `subgroup_mask` and `add` run once per
-batch or per FFT stage, not in a loop of ops. `fft_stage_endo` takes and
+batch or per FFT stage, not in a loop of ops. `fold`, the mesh's fold of
+its partials, takes the public layout as it is. `fft_stage_endo` takes and
 returns the op layout, so the conversion's FFT converts once before its
 stages and once after them.
 
@@ -24,11 +25,11 @@ steps (`ops/pairing_ops.py`), public layout in and out.
 
 `fr_to_mont`, `fr_evaluate`, `fr_quotient` and `fr_quotient_in_domain`
 run the Fr layer's kernels on CUDA tensors only, with any leading batch
-dimensions flattened into the kernels' blob axis: `fr_to_mont` and
-`fr_quotient_in_domain` public layout in and out around the kernel
-layout, `fr_evaluate` and `fr_quotient` on the plain public limbs as
-they are (their kernels read and write that layout), each z a row of
-`FrDomain.z_table`; `fr_open` runs a batch's evaluation and quotient,
+dimensions flattened into the kernels' blob axis: `fr_to_mont` public
+layout in and out around the kernel layout, the other three on the
+plain public limbs as they are (their kernels read and write that
+layout), each z a row of `FrDomain.z_table` (`FrDomain.root_table` for
+a z in the domain); `fr_open` runs a batch's evaluation and quotient,
 two launches and no conversion.
 `ops/fr_poly.FrDomain` routes a CUDA tensor here and keeps the plain
 versions for the CPU.
@@ -150,6 +151,17 @@ def add(p16, q16):
     return g1_ops.add(p16, q16)
 
 
+def fold(points16):
+    """[K, 3, 24, B] Jacobian points folded over the leading axis ->
+    [3, 24, B] (`g1_ops.fold`): one g1_fold launch on the public limbs on
+    a card, none for one row."""
+    if points16.shape[0] == 1:
+        return points16[0]
+    if points16.is_cuda:
+        return kernels.fold(points16.contiguous())
+    return g1_ops.fold(points16)
+
+
 # -- the pairing tier's two steps -------------------------------------------
 
 
@@ -174,17 +186,10 @@ def pairing_final_exp(f16):
 # -- the Fr layer's kernels (CUDA tensors), public layout in and out -------
 
 
-def _fr_rows(x16, lead) -> torch.Tensor:
-    """Fr limbs [..., 16, k] broadcast to lead + (16, k) -> the kernel
-    layout [B, 8, k], B = prod(lead)."""
-    x16 = x16.expand(tuple(lead) + tuple(x16.shape[-2:]))
-    return lb.to_u32_layout(x16).reshape(-1, kernels.FR_NL, x16.shape[-1])
-
-
 def fr_to_mont(plain16):
     """Plain Fr limbs [..., 16, n] on a card -> Montgomery [..., 16, n]."""
-    out = kernels.fr_to_mont(_fr_rows(plain16, plain16.shape[:-2]))
-    return lb.to_u16_layout(out).reshape(plain16.shape)
+    rows = lb.to_u32_layout(plain16).reshape(-1, kernels.FR_NL, plain16.shape[-1])
+    return lb.to_u16_layout(kernels.fr_to_mont(rows)).reshape(plain16.shape)
 
 
 def fr_evaluate(evals16, table, roots, n_inv):
@@ -206,16 +211,14 @@ def fr_quotient(evals16, y16, table, roots):
     return q.reshape(tuple(lead) + (16, n))
 
 
-def fr_quotient_in_domain(evals16, m, z_inv16, roots):
-    """Montgomery evaluations [..., 16, n] on a card, the index m of
-    z = w_m as a host int or host ints of the leading shape, 1/z
-    [..., 16, 1], roots [8, n] -> PLAIN q [..., 16, n]."""
-    n = evals16.shape[-1]
-    ms = torch.as_tensor(m)
-    lead = torch.broadcast_shapes(evals16.shape[:-2], ms.shape, z_inv16.shape[:-2])
-    q = kernels.fr_quotient_in_domain(_fr_rows(evals16, lead), ms.expand(lead).reshape(-1).tolist(),
-                                      _fr_rows(z_inv16, lead), roots)
-    return lb.to_u16_layout(q).reshape(tuple(lead) + (16, n))
+def fr_quotient_in_domain(evals16, m, table, roots):
+    """Plain evaluations [..., 16, n] on a card, the index m of each blob's
+    z = w_m as B = prod(...) host ints, the table of those blobs
+    [B, 8, levels + 3] (`FrDomain.root_table`), roots [8, n] -> PLAIN q
+    [..., 16, n]."""
+    lead, n = evals16.shape[:-2], evals16.shape[-1]
+    q = kernels.fr_quotient_in_domain(evals16.reshape(-1, 16, n).contiguous(), m, table, roots)
+    return q.reshape(tuple(lead) + (16, n))
 
 
 def fr_open(plain16, table, roots, n_inv, quotient: bool = True):

@@ -9,18 +9,21 @@ programs once per domain size (`_eval_kernel`, `_quotient_kernel`,
 `_quotient_in_domain_kernel`); here each is one Hopper kernel launch per
 batch of blobs on a CUDA tensor (`csrc/fr_poly.cu` through
 `ops/dispatch.py`: `fr_evaluate`, `fr_quotient`,
-`fr_quotient_in_domain`, and `fr_to_mont` for `FrDomain.to_mont`), with
-no fallback, and its plain PyTorch version (`evaluate_mont_plain`,
-`quotient_mont_plain`, `quotient_in_domain_mont_plain`) on a CPU tensor.
-`fr_evaluate` and `fr_quotient` take the plain public limbs and each z as
-a row of `FrDomain.z_table` (its powers z^(2^l) and the quotient's
-1 / (z^n - 1), made on the host in one transfer), so `FrDomain.open_mont`
-runs a batch's evaluation and quotient in two launches, with no
-conversion of form or layout, and y and q come out plain;
-`FrDomain.evaluate` and `FrDomain.quotient` take a blob's plain limbs
-through the same kernels. The plain versions also run on the card when
-called by name, as the reference the kernels are held against.
-`host/fft.py` and the host quotient are the oracles.
+`fr_quotient_in_domain`), with no fallback, and its plain PyTorch
+version (`evaluate_mont_plain`, `quotient_mont_plain`,
+`quotient_in_domain_mont_plain`) on a CPU tensor. The three kernels take
+the plain public limbs and each z as a row of a table made on the host
+in one transfer: `FrDomain.z_table` (its powers z^(2^l) and the
+quotient's 1 / (z^n - 1)) outside the domain, `FrDomain.root_table`
+(its powers, w_m / n, 1/z and m) at z = w_m. So `FrDomain.open_mont`
+runs a batch's evaluation and quotient in two launches and
+`FrDomain.quotient_in_domain` in one, with no conversion of form or
+layout, and y and q come out plain; `FrDomain.evaluate` and
+`FrDomain.quotient` take a blob's plain limbs through the same kernels.
+`FrDomain.to_mont` runs `fr_to_mont`, which no path needs any more. The
+plain versions also run on the card when called by name, as the
+reference the kernels are held against. `host/fft.py` and the host
+quotient are the oracles.
 """
 
 import functools
@@ -87,10 +90,11 @@ def _masked_pick(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
 class FrDomain:
     """The domain of size n = 2^levels on one device: the roots in
     bit-reversed order (`roots_brp`, Montgomery [16, n], and
-    `roots_brp_ints` with `root_index` on the host, `roots_brp_le` as the
-    native tier's bytes) and 1/n; on a card also both in the kernel layout
-    (`roots_k` [8, n], `n_inv_k` [8, 1]), resident for the kernels. On the
-    card unless "cpu" is asked for; raises where CUDA is absent."""
+    `roots_brp_ints` with `root_index` on the host, beside `roots_ints` in
+    natural order, `roots_brp_le` as the native tier's bytes) and 1/n; on
+    a card also both in the kernel layout (`roots_k` [8, n], `n_inv_k`
+    [8, 1]), resident for the kernels. On the card unless "cpu" is asked
+    for; raises where CUDA is absent."""
 
     def __init__(self, n: int, device="cuda"):
         if n < 1 or n & (n - 1):
@@ -98,7 +102,8 @@ class FrDomain:
         self.n = n
         self.levels = n.bit_length() - 1
         self.device = dispatch.resolve_device(device)
-        self.roots_brp_ints = fft.bit_reversal_permutation(fft.fr_roots_of_unity(n))
+        self.roots_ints = fft.fr_roots_of_unity(n)  # natural order: w^k at k
+        self.roots_brp_ints = fft.bit_reversal_permutation(self.roots_ints)
         self.root_index = {w: i for i, w in enumerate(self.roots_brp_ints)}
         self.roots_brp = self.mont(self.roots_brp_ints)
         self.n_inv = self.mont([pow(n, R - 2, R)])
@@ -157,18 +162,48 @@ class FrDomain:
         """`z_table_host` on the device, in one transfer."""
         return torch.from_numpy(self.z_table_host(zs)).to(self.device)
 
+    def root_table_host(self, ms) -> np.ndarray:
+        """Indices m of zs in the domain, z = w_m -> the table of each z
+        that `fr_quotient_in_domain` reads, int32 words [B, 8, levels + 3]
+        (the kernel layout): column l < levels z^(2^l), column levels
+        K = w_m / n, the inverse of prod_{i != m} (z - w_i) = n / w_m,
+        column levels + 1 1/z, all in Montgomery form (K's R makes the
+        quotient of plain evaluations plain), and m in word 0 of the last
+        column. z = w^k, so its powers and 1/z are roots, looked up."""
+        L, n, rows = self.levels, self.n, []
+        n_inv = pow(n, -1, R)
+        for m in ms:
+            k = int(format(m, f"0{L}b")[::-1], 2) if L else 0  # w_m = w^k
+            row = [self.roots_ints[(k << lv) % n] for lv in range(L)]
+            row += [self.roots_brp_ints[m] * n_inv % R, self.roots_ints[-k % n]]
+            rows.append([v * R_MONT % R for v in row] + [m])
+        raw = b"".join(v.to_bytes(32, "little") for row in rows for v in row)
+        words = np.frombuffer(raw, dtype="<u4").reshape(len(rows), L + 3, 8)
+        return np.ascontiguousarray(words.transpose(0, 2, 1)).view(np.int32)
+
+    def root_table(self, ms) -> torch.Tensor:
+        """`root_table_host` on the device, in one transfer."""
+        return torch.from_numpy(self.root_table_host(ms)).to(self.device)
+
     # -- the JAX package's jitted kernels: the kernel on a CUDA tensor -------
 
-    def quotient_in_domain_mont(self, evals_m, m, z_inv_m) -> torch.Tensor:
-        """The quotient for z = w_m (JAX `_quotient_in_domain_kernel`;
-        `quotient_in_domain_mont_plain` says what it computes), m a host
-        int or host ints of the leading shape, each in [0, n) -> PLAIN q
-        [..., 16, n]. One `fr_quotient_in_domain` launch on a CUDA tensor;
-        the plain version on the CPU takes m as a one-hot mask."""
-        if evals_m.is_cuda:
-            return dispatch.fr_quotient_in_domain(evals_m, m, z_inv_m, self.roots_k)
-        onehot = torch.as_tensor(m).unsqueeze(-1) == torch.arange(self.n)
-        return self.quotient_in_domain_mont_plain(evals_m, onehot, z_inv_m)
+    def quotient_in_domain(self, plain: torch.Tensor, m) -> torch.Tensor:
+        """The quotient at z = w_m (JAX `_quotient_in_domain_kernel`;
+        `quotient_in_domain_mont_plain` says what it computes) of plain
+        limbs [..., 16, n], m a host int or host ints of the leading shape,
+        each in [0, n) -> PLAIN q [..., 16, n]. One `fr_quotient_in_domain`
+        launch on the plain limbs of a CUDA tensor, after one transfer of
+        their table (`root_table`); on the CPU `FR.to_mont` and the plain
+        version, with m as a one-hot mask and 1/z."""
+        ms = torch.as_tensor(m)
+        lead = torch.broadcast_shapes(plain.shape[:-2], ms.shape)
+        plain = plain.expand(tuple(lead) + (16, self.n))
+        flat = ms.expand(lead).reshape(-1).tolist()
+        if plain.is_cuda:
+            return dispatch.fr_quotient_in_domain(plain, flat, self.root_table(flat), self.roots_k)
+        onehot = ms.expand(lead).unsqueeze(-1) == torch.arange(self.n)
+        z_inv = self.mont([pow(self.roots_brp_ints[i], -1, R) for i in flat]).T.reshape(lead + (16, 1))
+        return self.quotient_in_domain_mont_plain(FR.to_mont(plain), onehot, z_inv)
 
     def open_mont(self, plain: torch.Tensor, zs, quotient: bool = True):
         """Plain evaluations [B, 16, n] and host zs outside the domain (JAX
@@ -194,11 +229,11 @@ class FrDomain:
         `quotient_plain_from_mont`): outside the domain
         q_i = (e_i - y) / (w_i - z), one `fr_quotient` launch on a CUDA
         tensor (`quotient_mont_plain` on the CPU); at z = w_m
-        `quotient_in_domain_mont` on the Montgomery evaluations."""
+        `quotient_in_domain`."""
         z %= R
         idx = self.root_index.get(z)
         if idx is not None:
-            return self.quotient_in_domain_mont(self.to_mont(plain), idx, self.mont([pow(z, R - 2, R)]))
+            return self.quotient_in_domain(plain, idx)
         if plain.is_cuda:
             return dispatch.fr_quotient(plain, self.limbs([int(y)]), self.z_table([z]), self.roots_k)
         return self.quotient_mont_plain(FR.to_mont(plain), self.mont([int(y)]), self.mont([z]))
@@ -225,7 +260,7 @@ class FrDomain:
         return FR.from_mont(FR.mul(shifted, batch_inv(denoms)))
 
     def quotient_in_domain_mont_plain(self, evals_m, m_onehot, z_inv_m) -> torch.Tensor:
-        """`quotient_in_domain_mont` in PyTorch ops on any device, with
+        """`quotient_in_domain` in PyTorch ops on any device, with
         y = e_m:
 
           q_i = (e_i - y) / (w_i - z)                      for i != m

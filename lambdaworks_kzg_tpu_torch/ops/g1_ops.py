@@ -94,6 +94,20 @@ def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return _sel_pt(q_inf, p, out)
 
 
+def fold(points: torch.Tensor) -> torch.Tensor:
+    """Fold [K, 3, L, B] Jacobian points over the leading axis with
+    complete adds -> [3, L, B]: each level adds row j to row half + j,
+    j < half = K // 2, over all lanes at once; an odd last row waits for
+    the next level (JAX `parallel/msm.py` `_tree_fold_points`)."""
+    while points.shape[0] > 1:
+        half = points.shape[0] // 2
+        folded = add(points[:half], points[half:2 * half])
+        if points.shape[0] % 2:
+            folded = torch.cat([folded, points[2 * half:]])
+        points = folded
+    return points[0]
+
+
 def madd(p: torch.Tensor, q_aff: torch.Tensor, q_valid: torch.Tensor) -> torch.Tensor:
     """Complete mixed addition: Jacobian p + affine q (madd-2007-bl).
     Lanes with q_valid False pass p through."""

@@ -2,10 +2,13 @@
 `csrc/g1_batch.cu`, `csrc/pairing.cu`, `csrc/fr_poly.cu`), their build and
 their wrappers.
 
-`g1_madd`, `g1_add` and `g1_dbl` (g1.cu) replace the TPU kernels `madd`,
-`add` and `dbl` of `lambdaworks_kzg_tpu/ops/pallas_g1_v2.py` (and the
-v1-layout kernels of `ops/pallas_g1.py`, which compute the same function);
-their plain versions are `madd`, `add` and `dbl` of `ops/g1_ops.py`.
+`g1_madd` and `g1_dbl` (g1.cu) and `g1_add` (g1_batch.cu) replace the TPU
+kernels `madd`, `dbl` and `add` of `lambdaworks_kzg_tpu/ops/pallas_g1_v2.py`
+(and the v1-layout kernels of `ops/pallas_g1.py`, which compute the same
+function); their plain versions are `madd`, `dbl` and `add` of
+`ops/g1_ops.py`. `g1_fold` (g1_batch.cu) folds a mesh's partials, K rows
+of points, with every level of the plain `g1_ops.fold` in one launch;
+`g1_add` is its body on two rows.
 `g1_bucket_accumulate` and `g1_bucket_reduce` (msm.cu) run the fixed-base
 MSM's lock-step madd rounds and its fold reduce with the group tree, each
 in one launch per batch of blobs; their plain versions are
@@ -33,10 +36,10 @@ their plain versions are `pairing_ops.miller_loop_jac` and
 the Fr field of `fr.cuh`) run the three programs the JAX package jits once
 per domain size (`lambdaworks_kzg_tpu/ops/fr_poly.py` `_eval_kernel`,
 `_quotient_kernel`, `_quotient_in_domain_kernel`), each in one launch per
-batch of blobs: the first two on up to 8 blocks a blob (a thread block
-cluster for the evaluation), with no inversion on the card, the third
-on a block a blob; `fr_to_mont` puts evaluations into Montgomery form
-for the third. Their plain versions are
+batch of blobs, on up to 8 blocks a blob (a thread block cluster for the
+evaluation and the in-domain quotient), with no inversion on the card;
+`fr_to_mont` puts evaluations into Montgomery form, on no path. Their
+plain versions are
 `FrDomain.evaluate_mont_plain`, `quotient_mont_plain`,
 `quotient_in_domain_mont_plain` (`ops/fr_poly.py`) and `FR.to_mont`.
 `fp_sqr_check` (g1.cu) returns the field's square and product a * a, to
@@ -66,14 +69,16 @@ the basis as [2, 12, N] affine with valid bool[N] and returns the rows;
 the batched G1 kernels take x as [12, M], scalars as [8, M] u32 words
 (or [8, 1], one scalar for every lane) and return bool[M] masks; the FFT
 stage takes its n points [3, 12, n] in natural order and its twiddles
-[8, n/2]; the pairing kernels take G1 Jacobian [3, 12, B], G2 Jacobian
-[3, 2, 12, B] and Miller values [12, 12, B] (`tower_ops.flatten12`); the
-Fr kernels take the domain's roots [8, n] and 1/n [8, 1]; `fr_evaluate`
-and `fr_quotient` the plain evaluations as public int64 limbs [B, 16, n]
-and a table of each z [B, 8, log2 n + 1], and return the plain y
-[B, 16, 1] or quotients [B, 16, n]; `fr_quotient_in_domain` Montgomery evaluations
-[B, 8, n], 1/z [B, 8, 1] and the in-domain index as B host ints, and
-returns the plain quotients [B, 8, n].
+[8, n/2]; the fold takes the public int64 limbs [K, 3, 24, B] and
+returns [3, 24, B]; the pairing kernels take G1 Jacobian [3, 12, B], G2
+Jacobian [3, 2, 12, B] and Miller values [12, 12, B]
+(`tower_ops.flatten12`); the
+Fr kernels take the domain's roots [8, n] and 1/n [8, 1], the plain
+evaluations as public int64 limbs [B, 16, n] and a table of each z,
+[B, 8, log2 n + 1] (`fr_evaluate`, `fr_quotient`) or [B, 8, log2 n + 3]
+with the in-domain index also as B host ints (`fr_quotient_in_domain`),
+and return the plain y [B, 16, 1] or quotients [B, 16, n]; `fr_to_mont`
+takes and returns [B, 8, n].
 They allocate the output with `torch.empty`, launch on the current
 stream, raise when the launch fails, and count their launches.
 """
@@ -103,6 +108,7 @@ NL = 12  # 32-bit limbs per Fp element in the kernel layout
 FR_NL = 8  # 32-bit limbs per Fr element
 MAX_C = 12  # window bits the MSM and table kernels take (auto_window picks 4, 8, 12)
 MAX_GROUPS = 32  # lane groups g1_bucket_reduce sums in its last block
+MAX_FOLD_ROWS = 256  # rows g1_fold takes: K / 2 points a column in shared memory
 # g1_bucket_reduce keeps a block's 3 * 2^(c-1) points of 144 bytes in
 # shared memory when they fit beside its 32 group sums in a block's 227 KB
 _SMEM_PER_BLOCK = 232448
@@ -193,12 +199,13 @@ def _load():
             lib.lwkzg_fp_coop_check.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_subgroup_mask.argtypes = [vp, vp, ci, vp]
             lib.lwkzg_g1_fft_stage.argtypes = [vp, vp, vp, ci, ci, vp]
+            lib.lwkzg_g1_fold.argtypes = [vp, vp, ci, ci, vp]
             lib.lwkzg_pairing_miller_loop.argtypes = [vp, vp, vp, ci, u64, vp, ci, ci, vp]
             lib.lwkzg_pairing_final_exp.argtypes = [vp, vp, vp, vp, ci, u64, u64, vp, ci, ci, vp]
             lib.lwkzg_pairing_smem.argtypes = [ci, ci, vp]
             lib.lwkzg_fr_evaluate.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
             lib.lwkzg_fr_quotient.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
-            lib.lwkzg_fr_quotient_in_domain.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+            lib.lwkzg_fr_quotient_in_domain.argtypes = [vp, vp, vp, vp, ci, ci, vp]
             lib.lwkzg_fr_to_mont.argtypes = [vp, vp, ci, ci, vp]
             lib.lwkzg_fr_check.argtypes = [vp, vp, vp, ci, vp]
             fns = {
@@ -211,6 +218,7 @@ def _load():
                 "scalar_mul": lib.lwkzg_g1_scalar_mul,
                 "subgroup_mask": lib.lwkzg_g1_subgroup_mask,
                 "fft_stage": lib.lwkzg_g1_fft_stage,
+                "fold": lib.lwkzg_g1_fold,
                 "coop_check": lib.lwkzg_fp_coop_check,
                 "miller_loop": lib.lwkzg_pairing_miller_loop,
                 "final_exp": lib.lwkzg_pairing_final_exp,
@@ -462,6 +470,22 @@ def _subgroup_mask(k: _Kernel, p: torch.Tensor):
     return out
 
 
+def _fold(k: _Kernel, points: torch.Tensor):
+    """points [K, 3, 24, B] Jacobian, public int64 limbs, 2 <= K <=
+    MAX_FOLD_ROWS -> [3, 24, B]: the rows folded as `g1_ops.fold` does,
+    each level adding row j to row half + j, an odd last row waiting."""
+    if points.dim() != 4 or not 2 <= points.shape[0] <= MAX_FOLD_ROWS:
+        raise ValueError(f"points must be [K, 3, {2 * NL}, B] with 2 <= K <= {MAX_FOLD_ROWS}, "
+                         f"got {tuple(points.shape)}")
+    rows, b = points.shape[0], points.shape[-1]
+    _check(points, "points", (rows, 3, 2 * NL, b), points.device, torch.int64)
+    out = torch.empty((3, 2 * NL, b), dtype=torch.int64, device=points.device)
+    if b:
+        _run("fold", points, points.data_ptr(), out.data_ptr(), rows, b)
+        k.launches += 1
+    return out
+
+
 def _coop_check(k: _Kernel, a: torch.Tensor, b: torch.Tensor):
     """a, b [12, M] values below p -> [7, 12, M]: the cooperative field's
     mul(a, b), sqr(a), add(a, b), sub(a, b), then fp::mul(a, b), fp::sqr(a),
@@ -540,16 +564,15 @@ def _final_exp(k: _Kernel, f: torch.Tensor):
     return out, ok
 
 
-def _check_domain(evals: torch.Tensor, roots: torch.Tensor, limbs: int = FR_NL) -> tuple:
-    """-> (B, n) of evaluations [B, limbs, n] over roots [8, n] on one
-    device, n a power of two: int32 words (8 limbs) or int64 public limbs
-    (16, n at least 2)."""
+def _check_domain(evals: torch.Tensor, roots: torch.Tensor, min_n: int = 2) -> tuple:
+    """-> (B, n) of plain evaluations as public int64 limbs [B, 16, n] over
+    roots [8, n] on one device, n a power of two, at least min_n."""
     if evals.dim() != 3:
-        raise ValueError(f"evals must be [B, {limbs}, n], got {tuple(evals.shape)}")
+        raise ValueError(f"evals must be [B, 16, n], got {tuple(evals.shape)}")
     b, n = evals.shape[0], evals.shape[-1]
-    if n < (1 if limbs == FR_NL else 2) or n & (n - 1):
-        raise ValueError(f"the domain size must be a power of two, got {n}")
-    _check(evals, "evals", (b, limbs, n), evals.device, torch.int32 if limbs == FR_NL else torch.int64)
+    if n < min_n or n & (n - 1):
+        raise ValueError(f"the domain size must be a power of two, at least {min_n}, got {n}")
+    _check(evals, "evals", (b, 16, n), evals.device, torch.int64)
     _check(roots, "roots", (FR_NL, n), evals.device)
     return b, n
 
@@ -560,7 +583,7 @@ def _fr_evaluate(k: _Kernel, evals: torch.Tensor, table: torch.Tensor, roots: to
     [B, 8, log2 n + 1] (`FrDomain.z_table`: z^(2^l) in column l), roots
     [8, n], 1/n [8, 1] -> plain y [B, 16, 1]: (z^n - 1) / n *
     sum_i e_i w_i / (z - w_i), the stored element e_m at z = w_m."""
-    b, n = _check_domain(evals, roots, 16)
+    b, n = _check_domain(evals, roots)
     dev = evals.device
     _check(table, "table", (b, FR_NL, n.bit_length()), dev)
     _check(n_inv, "n_inv", (FR_NL, 1), dev)
@@ -578,7 +601,7 @@ def _fr_quotient(k: _Kernel, evals: torch.Tensor, y: torch.Tensor, table: torch.
     z's table [B, 8, log2 n + 1] (`FrDomain.z_table`: z^(2^l) in column l,
     K = 1 / (z^n - 1) in the last), roots [8, n], z outside the domain ->
     PLAIN q [B, 16, n], q_i = (e_i - y) / (w_i - z)."""
-    b, n = _check_domain(evals, roots, 16)
+    b, n = _check_domain(evals, roots)
     _check(y, "y", (b, 16, 1), evals.device, torch.int64)
     _check(table, "table", (b, FR_NL, n.bit_length()), evals.device)
     out = torch.empty_like(evals)
@@ -589,23 +612,24 @@ def _fr_quotient(k: _Kernel, evals: torch.Tensor, y: torch.Tensor, table: torch.
     return out
 
 
-def _fr_quotient_in_domain(k: _Kernel, evals: torch.Tensor, m, z_inv: torch.Tensor,
+def _fr_quotient_in_domain(k: _Kernel, evals: torch.Tensor, m, table: torch.Tensor,
                            roots: torch.Tensor):
-    """evals [B, 8, n], the index m of z = w_m per blob as B host ints,
-    1/z [B, 8, 1], roots [8, n], Montgomery -> PLAIN q [B, 8, n] with
+    """evals [B, 16, n] plain public int64 limbs, the index m of each
+    blob's z = w_m as B host ints, and their table [B, 8, log2 n + 3]
+    (`FrDomain.root_table`: z^(2^l) in column l, then K = w_m / n, 1/z and
+    m, which the kernel reads), roots [8, n] -> PLAIN q [B, 16, n] with
     y = e_m: q_i = (e_i - y) / (w_i - z) for i != m and
-    q_m = sum_{i != m} (e_i - y) w_i / (z (z - w_i)). Raises unless each m
-    is in [0, n)."""
-    b, n = _check_domain(evals, roots)
+    q_m = sum_{i != m} (e_i - y) w_i / (z (z - w_i)). Raises, before any
+    launch, unless each m is in [0, n)."""
+    b, n = _check_domain(evals, roots, min_n=1)
     m = [int(i) for i in m]
     if len(m) != b or any(not 0 <= i < n for i in m):
         raise ValueError(f"m must be {b} indices in [0, {n}), got {m}")
-    _check(z_inv, "z_inv", (b, FR_NL, 1), evals.device)
+    _check(table, "table", (b, FR_NL, n.bit_length() + 2), evals.device)
     out = torch.empty_like(evals)
     if b:
-        m_dev = torch.tensor(m, dtype=torch.int32).to(evals.device)
-        _run("fr_quotient_in_domain", evals, evals.data_ptr(), m_dev.data_ptr(), z_inv.data_ptr(),
-             roots.data_ptr(), out.data_ptr(), b, n)
+        _run("fr_quotient_in_domain", evals, evals.data_ptr(), table.data_ptr(), roots.data_ptr(),
+             out.data_ptr(), b, n)
         k.launches += 1
     return out
 
@@ -639,6 +663,9 @@ def _fr_check(k: _Kernel, a: torch.Tensor, b: torch.Tensor):
 _V2 = "lambdaworks_kzg_tpu/ops/pallas_g1_v2.py"
 madd = _Kernel("g1_madd", f"{_V2}:353", _madd)
 add = _Kernel("g1_add", f"{_V2}:376", _add)
+# the add launches of the mesh's fold, one per level
+# (lambdaworks_kzg_tpu/parallel/msm.py:40 _tree_fold_points), in one launch
+fold = _Kernel("g1_fold", f"{_V2}:376", _fold)
 dbl = _Kernel("g1_dbl", f"{_V2}:392", _dbl)
 # the madd of the lock-step rounds (lambdaworks_kzg_tpu/ops/msm.py:787-852)
 bucket_accumulate = _Kernel("g1_bucket_accumulate", f"{_V2}:353", _bucket_accumulate)
@@ -669,9 +696,9 @@ fr_evaluate = _Kernel("fr_evaluate", f"{_FR}:66", _fr_evaluate)
 fr_quotient = _Kernel("fr_quotient", f"{_FR}:82", _fr_quotient)
 fr_quotient_in_domain = _Kernel("fr_quotient_in_domain", f"{_FR}:94", _fr_quotient_in_domain)
 fr_to_mont = _Kernel("fr_to_mont", "lambdaworks_kzg_tpu/ops/field_ops.py:97", _fr_to_mont)
-ALL = (madd, add, dbl, bucket_accumulate, bucket_reduce, fixedbase_table, decompress, scalar_mul,
-       subgroup_mask, fft_stage, miller_loop, final_exp, fr_to_mont, fr_evaluate, fr_quotient,
-       fr_quotient_in_domain)
+ALL = (madd, add, dbl, fold, bucket_accumulate, bucket_reduce, fixedbase_table, decompress,
+       scalar_mul, subgroup_mask, fft_stage, miller_loop, final_exp, fr_to_mont, fr_evaluate,
+       fr_quotient, fr_quotient_in_domain)
 # a check of the field's square, off every path (the TPU kernels' _sqr_acc)
 sqr_check = _Kernel("fp_sqr_check", "lambdaworks_kzg_tpu/ops/pallas_g1.py:142", _sqr_check)
 # a check of the cooperative field, off every path (the TPU kernels' _KernelFp)

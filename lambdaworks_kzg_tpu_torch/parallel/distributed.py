@@ -8,8 +8,8 @@ order, drives its own local devices as the single-process mesh does
 (`parallel/mesh.py`), and exchanges only small results. A mesh from
 `global_mesh` holds the rank that owns each cell; on it,
 `parallel.msm.ShardedBasis` builds tables for this process's cells only,
-runs only their shards, folds its partials on `dispatch.add` (the g1_add
-kernel on a card), and makes one all_gather of a [3, 12, B] int32
+runs only their shards, folds its partials on `dispatch.fold` (one
+g1_fold launch on a card), and makes one all_gather of a [3, 12, B] int32
 Jacobian partial per process (`all_gather_points`), which every process
 folds in rank order: every process returns the same points, the whole
 batch. The Fr layer, decompression and the pairing check run in every

@@ -23,8 +23,8 @@ one sort, one g1_bucket_accumulate and one g1_bucket_reduce launch on a
 card), all of them queued before anything waits. A row's partials are
 copied to its first device (`mesh.to_device`, ordered by events) and
 folded there by complete adds, halving as JAX's fold does
-(`_tree_fold_points`: one `dispatch.add`, the g1_add kernel on a card,
-per level). The batch step splits the blobs over the ``data`` axis too,
+(`_tree_fold_points`): `dispatch.fold`, one g1_fold launch on a card for
+all the levels. The batch step splits the blobs over the ``data`` axis too,
 padded with zero blobs to a multiple of its size; the rows' sums are
 gathered on the mesh's lead device and the padding dropped. One transfer
 then brings the results to the host.
@@ -37,8 +37,8 @@ On a mesh across processes (`parallel/distributed.py`) a process builds
 the tables of its own cells only and runs only their shards; each of
 its rows' partials is folded as above, a row it has no cell in is
 infinity, and one all_gather brings every process's [3, L, B] to every
-process, where they are folded in rank order: every process returns the
-same points.
+process, where they are folded in rank order (one more `dispatch.fold`):
+every process returns the same points.
 """
 
 import torch
@@ -63,26 +63,6 @@ def resolve_shard(mesh, n: int, shard: str) -> str:
     if shard not in ("points", "windows"):
         raise ValueError(f"shard must be 'points', 'windows' or 'auto', got {shard!r}")
     return shard
-
-
-def _tree_fold_points(arr: torch.Tensor) -> torch.Tensor:
-    """Fold [K, 3, L, B] Jacobian points (public layout, one device) over
-    the leading axis with complete adds -> [3, L, B]: each level adds the
-    first half of the rows to the second in one `dispatch.add` over all
-    their lanes; an odd row waits for the next level."""
-    b = arr.shape[-1]
-    while arr.shape[0] > 1:
-        half = arr.shape[0] // 2
-
-        def lanes(x):  # [half, 3, L, B] -> [3, L, half B]
-            return x.permute(1, 2, 0, 3).reshape(3, L, half * b)
-
-        folded = dispatch.add(lanes(arr[:half]), lanes(arr[half:2 * half]))
-        folded = folded.reshape(3, L, half, b).permute(2, 0, 1, 3)
-        if arr.shape[0] % 2:
-            folded = torch.cat([folded, arr[2 * half:]], dim=0)
-        arr = folded
-    return arr[0]
 
 
 def _cut(table16: torch.Tensor, valid: torch.Tensor, windows: int, lo: int, hi: int):
@@ -207,10 +187,10 @@ class ShardedBasis:
                 continue
             home = row[0][0]
             parts = torch.stack([to_device(dispatch.from_op_layout(pt), home) for _, pt in row])
-            sums.append(to_device(_tree_fold_points(parts), lead))
+            sums.append(to_device(dispatch.fold(parts), lead))
         out = torch.cat(sums, dim=-1)
         if self.mesh.ranks is not None:
-            out = _tree_fold_points(distributed.all_gather_points(out))
+            out = dispatch.fold(distributed.all_gather_points(out))
         return out[..., :b]
 
 

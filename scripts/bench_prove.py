@@ -12,6 +12,8 @@ process of its own. After a warm-up it measures:
   - `compute_blob_kzg_proof` on seeded blobs, host clock from the call to
     the proof's bytes, `reps` calls;
   - `compute_blob_kzg_proof_batch` of 6 blobs, ms per proof, `reps` calls;
+  - `compute_kzg_proof` at a root of unity (z = w_1, the in-domain
+    quotient), host clock, `reps` calls;
   - `TorchBackend.open_scalars` on one blob's limbs already on the card
     (the Fr part, the MSM and the proof's transfer, without the blob's
     checks and the challenge), host clock, `reps` calls;
@@ -25,7 +27,9 @@ process of its own. After a warm-up it measures:
     both read with chip_smoke.py's `events_ms` and `device_work` from
     this repository, whichever tree is timed;
   - where the tree's `FrDomain` has `z_table`, that table's host time
-    alone (build and transfer, to a synchronize).
+    alone (build and transfer, to a synchronize);
+  - the Fr part of a proof at z = w_1 as the tree's `FrDomain.quotient`
+    runs it on one blob's plain limbs, the same way (`fr.root`).
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -70,9 +74,9 @@ def main() -> int:
     parser.add_argument("--root", default=HERE)
     parser.add_argument("--reps", type=int, default=10)
     args = parser.parse_args()
-    root = os.path.abspath(args.root)
+    root_dir = os.path.abspath(args.root)
     device_work, events_ms = smoke_readers()
-    sys.path.insert(0, root)
+    sys.path.insert(0, root_dir)
     import torch
 
     from lambdaworks_kzg_tpu_torch import EIP4844Context
@@ -91,6 +95,9 @@ def main() -> int:
     single = host_ms(lambda: ctx.compute_blob_kzg_proof(blobs[1], commitments[1]), args.reps)
     batch = [t / 6 for t in host_ms(lambda: ctx.compute_blob_kzg_proof_batch(blobs, commitments),
                                      args.reps)]
+    z_root = ctx.backend.domain.roots_brp_ints[1]
+    ctx.compute_kzg_proof(blobs[0], z_root.to_bytes(32, "little"))
+    at_root = host_ms(lambda: ctx.compute_kzg_proof(blobs[2], z_root.to_bytes(32, "little")), args.reps)
     backend, domain = ctx.backend, ctx.backend.domain
     zs = [rng.randrange(1 << 250) for _ in range(6)]
     one = backend.blob_scalars(blobs[:1])
@@ -112,15 +119,24 @@ def main() -> int:
                 domain.z_table(zs[:k])
                 torch.cuda.synchronize()
             fr[f"b{k}"]["z_table_ms"] = host_ms(table, args.reps)
-    out = {"root": os.path.relpath(root, HERE), "card": card,
+    fn = lambda: domain.quotient(one[0], z_root, None)  # noqa: E731
+    fn()
+    root_fr_ms = []
+    for _ in range(args.reps):
+        torch.cuda.synchronize()
+        root_fr_ms.append(events_ms(fn)[1])
+    fr["root"] = {"fr_ms": root_fr_ms, "device": device_work(fn)}
+    out = {"root": os.path.relpath(root_dir, HERE), "card": card,
            "proof_ms": single, "proof_ms_median": statistics.median(single),
+           "root_proof_ms": at_root, "root_proof_ms_median": statistics.median(at_root),
            "batch6_ms_per_proof": batch, "batch6_ms_per_proof_median": statistics.median(batch),
            "open_scalars_ms": opened, "open_scalars_ms_median": statistics.median(opened),
            "evaluate64_ms": evaluated, "evaluate64_ms_median": statistics.median(evaluated),
            "fr": fr}
     for k, v in fr.items():
         print(f"{k}: fr_ms median {statistics.median(v['fr_ms']):.3f}, device {v['device']}", flush=True)
-    print(f"proof median {out['proof_ms_median']:.3f} ms, batch of 6 median "
+    print(f"proof median {out['proof_ms_median']:.3f} ms, at a root {out['root_proof_ms_median']:.3f} ms, "
+          f"batch of 6 median "
           f"{out['batch6_ms_per_proof_median']:.3f} ms a proof, open_scalars median "
           f"{out['open_scalars_ms_median']:.3f} ms, 64 evaluations median "
           f"{out['evaluate64_ms_median']:.3f} ms", flush=True)

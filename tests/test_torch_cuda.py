@@ -10,8 +10,10 @@ is marked `cuda` and skips without a card: the kernels have no CPU mode.
 
 - g1_madd, g1_add and g1_dbl on the 128 lanes of tests/test_torch_g1.py
   (random points of the mainnet Lagrange basis plus P at infinity,
-  P == Q, P == -Q and dead lanes), limb for limb, Z included; fp::sqr
-  equals fp::mul(a, a) on random elements and on 0, 1, p - 1 and R mod p.
+  P == Q, P == -Q and dead lanes), limb for limb, Z included; g1_fold at
+  K = 2, 3, 4 and 9 rows on 1, 12 and 200 lanes of the same points
+  against g1_ops.fold; fp::sqr equals fp::mul(a, a) on random elements
+  and on 0, 1, p - 1 and R mod p.
 
 Basis: the first N points of the mainnet Lagrange basis, one of them at
 infinity. For c in {3, 4, 6, 12}, g1_fixedbase_table's rows equal the
@@ -53,20 +55,20 @@ g1_fft_stage, one g1_scalar_mul and no g1_add launches.
 The Fr layer (csrc/fr_poly.cu on csrc/fr.cuh): fr_check's product,
 square, sum, difference, negation, inverse and conversions equal the
 plain FR on edge and random elements; fr_to_mont, fr_evaluate,
-fr_quotient and fr_quotient_in_domain (m = 0, 1, n - 1) equal the plain
-versions at n = 4, 32 and 4096 and 1 to 64 blobs, one launch each,
-fr_evaluate and fr_quotient on the plain limbs and the host's table as
-FrDomain.open_mont runs them (the quotient also before any evaluation;
-the table unchanged after them);
-fr_evaluate at z = w_m gives e_m; the in-domain wrapper refuses an index
-outside [0, n); on the mainnet context a proof batch launches fr_evaluate
-and fr_quotient once and no other Fr kernel, a proof at a root of unity
-fr_to_mont and fr_quotient_in_domain once (its MSM equal to the host
-quotient's), a batch verification fr_evaluate once.
+fr_quotient and fr_quotient_in_domain (m = 0, 1, n - 1 and a seeded m)
+equal the plain versions at n = 4, 32 and 4096 and 1 to 64 blobs, one
+launch each, the three polynomial kernels on the plain limbs and the
+host's tables as FrDomain.open_mont and FrDomain.quotient_in_domain run
+them (the quotient also before any evaluation; the tables unchanged after
+them); fr_evaluate at z = w_m gives e_m; the in-domain wrapper refuses
+an index outside [0, n); on the mainnet context a proof batch launches
+fr_evaluate and fr_quotient once and no other Fr kernel, a proof at a root
+of unity fr_quotient_in_domain once and no other (its MSM equal to the
+host quotient's), a batch verification fr_evaluate once.
 
 The multi-device tier on a logical (2, 2) mesh of the one card: a batch
 of three blobs commits as the unsharded context does, in four launches
-of each MSM kernel and two of g1_add (the fold).
+of each MSM kernel and two of g1_fold (one fold a row).
 
 The pairing tier (csrc/pairing.cu): pairing_miller_loop equals
 pairing_ops.miller_loop_jac and pairing_final_exp equals
@@ -167,6 +169,24 @@ def test_hopper_kernel_matches_plain_on_card(op_lanes, op):
     assert torch.equal(got, getattr(g1_ops, op)(*plain_args))
 
 
+@pytest.mark.parametrize("rows,lanes", [(2, 12), (3, 12), (4, 12), (4, 1), (9, 200)])
+def test_fold_kernel_matches_plain_on_card(op_lanes, rows, lanes):
+    """g1_fold against g1_ops.fold limb for limb, Z included, on K rows of
+    the op lanes (P at infinity, P == Q, P == -Q among them, Z != 1), one
+    launch, and the public limbs in and out."""
+    p, _, _, q3 = op_lanes
+    lanes_all = torch.cat([p, q3], dim=-1)
+    pick = torch.arange(rows * lanes, device="cuda") % lanes_all.shape[-1]
+    points = lanes_all[:, :, pick].reshape(3, 24, rows, lanes).permute(2, 0, 1, 3).contiguous()
+    points[1, :, :, :1] = points[0, :, :, :1]  # the doubling on lane 0
+    before = kernels.fold.launches
+    got = kernels.fold(points)
+    torch.cuda.synchronize()
+    assert kernels.fold.launches == before + 1 and got.dtype == torch.int64
+    assert torch.equal(got, g1_ops.fold(points))
+    assert torch.equal(dispatch.fold(points), got)
+
+
 def test_fp_coop_matches_fp_on_card():
     """The cooperative field of fp_coop.cuh: mul and sqr equal fp::mul and
     fp::sqr (and the plain product), add and sub the plain ones, is_zero
@@ -223,11 +243,12 @@ def test_fr_check_matches_plain_field_on_card():
 def test_fr_kernels_match_plain_on_card(n, blobs):
     """fr_to_mont, fr_evaluate, fr_quotient and fr_quotient_in_domain,
     through FrDomain on the card, equal the plain versions on the same
-    tensors, one launch each: the in-domain index m runs over 0, 1 and
-    n - 1; open_mont (fr_evaluate and fr_quotient on the plain limbs)
-    equals the plain versions' y out of Montgomery form and quotient.
-    fr_quotient on a fresh table before any evaluation gives the same
-    quotients, and neither kernel changes the host's table."""
+    tensors, one launch each: the in-domain index m runs over 0, 1, n - 1
+    and a seeded m, on the plain limbs; open_mont (fr_evaluate and
+    fr_quotient on the plain limbs) equals the plain versions' y out of
+    Montgomery form and quotient. fr_quotient on a fresh table before any
+    evaluation gives the same quotients, and no kernel changes the host's
+    tables."""
     rng = random.Random(n + blobs)
     d = fr_poly.FrDomain(n, "cuda")
     plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs([rng.randrange(R) for _ in range(n)], 16)
@@ -239,10 +260,10 @@ def test_fr_kernels_match_plain_on_card(n, blobs):
     before = [k.launches for k in watched]
     evals_m = d.to_mont(plain)
     q_open, y_open = d.open_mont(plain, zs)
-    ms = [(0, 1, n - 1)[b % 3] for b in range(blobs)]
+    ms = [(0, 1, n - 1, rng.randrange(n))[b % 4] for b in range(blobs)]
     onehot = torch.stack([torch.arange(n, device="cuda") == m for m in ms])
     z_inv = torch.stack([d.mont([pow(d.roots_brp_ints[m], R - 2, R)]) for m in ms])
-    q_in = d.quotient_in_domain_mont(evals_m, ms, z_inv)
+    q_in = d.quotient_in_domain(plain, ms)
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(watched, before)] == [1, 1, 1, 1]
     assert torch.equal(evals_m, FR.to_mont(plain))
@@ -250,6 +271,9 @@ def test_fr_kernels_match_plain_on_card(n, blobs):
     assert torch.equal(y_open, FR.from_mont(y_m))
     assert torch.equal(q_open, d.quotient_mont_plain(evals_m, y_m, z_m))
     assert torch.equal(q_in, d.quotient_in_domain_mont_plain(evals_m, onehot, z_inv))
+    root_table = d.root_table(ms)
+    assert torch.equal(kernels.fr_quotient_in_domain(plain, ms, root_table, d.roots_k), q_in)
+    assert torch.equal(root_table.cpu(), torch.from_numpy(d.root_table_host(ms)))
     table = d.z_table(zs)
     assert torch.equal(kernels.fr_quotient(plain, y_open, table, d.roots_k), q_open)
     assert torch.equal(kernels.fr_evaluate(plain, table, d.roots_k, d.n_inv_k), y_open)
@@ -283,19 +307,19 @@ def test_fr_quotient_in_domain_rejects_a_bad_index():
     """The in-domain wrapper raises, before any launch, unless it gets one
     index in [0, n) per blob."""
     d = fr_poly.FrDomain(32, "cuda")
-    evals = torch.zeros((2, kernels.FR_NL, 32), dtype=torch.int32, device="cuda")
-    z_inv = torch.zeros((2, kernels.FR_NL, 1), dtype=torch.int32, device="cuda")
+    evals = torch.zeros((2, 16, 32), dtype=torch.int64, device="cuda")
+    table = d.root_table([0, 1])
     before = kernels.fr_quotient_in_domain.launches
     for bad in ([0, 32], [-1, 0], [0]):
         with pytest.raises(ValueError):
-            kernels.fr_quotient_in_domain(evals, bad, z_inv, d.roots_k)
+            kernels.fr_quotient_in_domain(evals, bad, table, d.roots_k)
     assert kernels.fr_quotient_in_domain.launches == before
 
 
 def test_fr_domain_on_card_takes_the_kernels():
     """On the mainnet context: a proof batch makes one fr_evaluate and one
     fr_quotient launch and no fr_to_mont, a proof at a root of unity one
-    fr_to_mont and one fr_quotient_in_domain launch and equals the host
+    fr_quotient_in_domain launch and no other and equals the host
     quotient's MSM, and a batch verification one fr_evaluate launch."""
     setup = srs.load_mainnet_setup()
     ctx = EIP4844Context(setup, backend=TorchBackend(setup, "cuda",
@@ -311,7 +335,7 @@ def test_fr_domain_on_card_takes_the_kernels():
     roots = ctx.backend.domain.roots_brp_ints
     before = [k.launches for k in watched]
     proof, y = ctx.compute_kzg_proof(blobs[0], roots[1].to_bytes(32, "little"))
-    assert [k.launches - b for k, b in zip(watched, before)] == [1, 0, 0, 1]
+    assert [k.launches - b for k, b in zip(watched, before)] == [0, 0, 0, 1]
     evals = [int.from_bytes(blobs[0][32 * i : 32 * i + 32], "little") for i in range(4096)]
     assert int.from_bytes(y, "little") == evals[1]
     # the quotient at z = w_1 in Python ints: (e_i - y) / (w_i - z) for i
@@ -672,7 +696,7 @@ def test_logical_mesh_commits_as_the_unsharded_context():
     """A (2, 2) mesh over cuda:0 four times, the mainnet table cut from
     the committed one: three blobs (padded to four over the data axis) give
     the unsharded context's commitments, in 2 x 2 launches of each MSM
-    kernel and one g1_add fold launch per row."""
+    kernel and one g1_fold launch per row."""
     setup = srs.load_mainnet_setup()
     fixedbase = convert.fixedbase_from_npz(FIXEDBASE, "cpu")
     mesh = make_mesh(["cuda:0"] * 4, data=2, points=2)
@@ -681,7 +705,7 @@ def test_logical_mesh_commits_as_the_unsharded_context():
     rng = random.Random(23)
     blobs = [b"".join(rng.randrange(R).to_bytes(32, "little") for _ in range(4096))
              for _ in range(3)]
-    used = (kernels.bucket_accumulate, kernels.bucket_reduce, kernels.add)
+    used = (kernels.bucket_accumulate, kernels.bucket_reduce, kernels.fold)
     before = [k.launches for k in used]
     got = ctx.blob_to_kzg_commitment_batch(blobs)
     assert [k.launches - b for k, b in zip(used, before)] == [4, 4, 2]
@@ -699,7 +723,7 @@ def test_mainnet_conversion_matches_cache(tmp_path):
     counts = {k.name: k.launches for k in kernels.ALL}
     assert counts["g1_decompress"] == 1 and counts["g1_subgroup_mask"] == 1
     assert counts["g1_fft_stage"] == 12 and counts["g1_scalar_mul"] == 1
-    assert counts["g1_add"] == 0
+    assert counts["g1_add"] == 0 and counts["g1_fold"] == 0
     assert counts["g1_dbl"] == 0 and counts["g1_madd"] == 0
     assert os.listdir(tmp_path) == ["srs_mainnet.npz"]
     with np.load(tmp_path / "srs_mainnet.npz") as got, np.load(

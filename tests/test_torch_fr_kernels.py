@@ -13,7 +13,7 @@
 - A CPU `FrDomain` never reaches `kernels`: its wrappers raise here.
 - `ops/dispatch.py`'s Fr routes flatten the leading batch dimensions and
   pass each blob's in-domain index: held here against the plain versions
-  with stand-ins for the kernels that compute in the kernel layout.
+  with stand-ins for the kernels.
 - What `fr_evaluate` and `fr_quotient` rest on, at n = 4, 32 and 4096 over
   the domain's roots: the product of the n denominators is z^n - 1, that
   of an aligned chunk of m bit-reversed roots z^m - w_g, the fraction sum
@@ -26,6 +26,16 @@
   it stands in for the kernels in the dispatch routes' tests, so
   `FrDomain.open_mont`'s card route runs here end to end, and the
   quotient's route runs with no evaluation before it.
+- What `fr_quotient_in_domain` rests on, z = w_m: prod_{i != m} (z - w_i)
+  = n / w_m, so K = w_m / n, and the aligned chunk of s = 2^l roots that
+  holds m has product s z^s / z without its zero factor, at every m and
+  level for n = 4 and 32 and at four m at 4096; the host's root table
+  holds z's powers, K with its R, 1/z and m. The rendering of its
+  schedule (the walk down with that one sibling's closed form, then q_m
+  from the blocks' sums) equals the plain version at n = 4 and 32 for
+  every m on several splits, and at 4096 on the kernel's own; standing
+  in for the kernel, it shows the in-domain route as one call on the
+  plain limbs, with no conversion of form or layout.
 - `chip_smoke.py` counts the kernels' work for their bounds from
   `utils/profiling.py`'s Fr product and squaring.
 
@@ -183,7 +193,7 @@ def test_cpu_domain_never_reaches_the_kernels(monkeypatch, case):
     plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs(b, 16) for b in blobs]))
     assert torch.equal(domain.to_mont(plain), evals_m)
     z_inv = domain.mont([pow(domain.roots_brp_ints[3], R - 2, R)])
-    assert torch.equal(domain.quotient_in_domain_mont(evals_m[0], 3, z_inv),
+    assert torch.equal(domain.quotient_in_domain(plain[0], 3),
                        domain.quotient_in_domain_mont_plain(evals_m[0], torch.arange(domain.n) == 3, z_inv))
     q, y = domain.open_mont(plain, zs)
     z_m, zn1_m = domain.z_consts(zs)
@@ -194,23 +204,9 @@ def test_cpu_domain_never_reaches_the_kernels(monkeypatch, case):
     assert [y0] == lb.limbs_to_ints(y[0])
     assert torch.equal(domain.quotient(plain[0], zs[0], y0), q[0])
     assert torch.equal(domain.quotient(plain[0], domain.roots_brp_ints[3], None),
-                       domain.quotient_in_domain_mont(evals_m[0], 3, z_inv))
+                       domain.quotient_in_domain(plain[0], 3))
     domain.evaluate_blobs_plain(plain, zs)
     assert domain.roots_k is None and domain.n_inv_k is None
-
-
-def _stand_in(plain_fn, domain):
-    """A kernel wrapper's stand-in: its kernel-layout arguments to the
-    public layout, `plain_fn` on them, the result back to the kernel
-    layout, with the wrapper's shape checks."""
-    def kernel(*args):
-        assert args[0].dim() == 3 and args[0].shape[1] == kernels.FR_NL
-        b = args[0].shape[0]
-        assert torch.equal(args[-1], domain.roots_k) or args[-1].shape == (kernels.FR_NL, 1)
-        ins = [a if isinstance(a, list) else lb.to_u16_layout(a) for a in args]
-        out = plain_fn(b, *ins)
-        return lb.to_u32_layout(out)
-    return kernel
 
 
 # -- the schedules of fr_evaluate and fr_quotient, in Python ints -----------
@@ -305,6 +301,73 @@ def render_quotient(e, y, tab, roots, n, threads, blocks):
                 inv_i = _chunk_complement(comp[threads + t], i, lk, pw, roots)
                 q[i] = _mmul((y - e[i]) % R, inv_i)
     return q
+
+
+def render_in_domain(e, tab, roots, n, threads, blocks):
+    """fr_quotient_in_domain's schedule on one blob: e the n plain
+    evaluations, tab its root table's L + 3 ints (z's powers, K = w_m / n,
+    1/z, m; read only), roots Montgomery ints -> the n plain quotients.
+    The walk down is fr_quotient's from K, but for the sibling chunk of
+    2^l that holds m, whose product is held[l] = 2^l z^(2^l) / z; then
+    q_m = -(1/z) sum_i q_i w_i over every block's elements (q_m's own
+    term is 0: y = e_m)."""
+    lg, lt = _log2(blocks), _log2(threads)
+    lk = _log2(n) - lt - lg
+    lb_, L = lk + lt, lk + lt + lg
+    pw, z_inv, m = tab[:L], tab[L + 1], tab[L + 2]
+    held = []
+    for level in range(L):
+        h = _mmul(pw[level], z_inv)
+        for _ in range(level):
+            h = (h + h) % R
+        held.append(h)
+
+    def denom(level, g):
+        return held[level] if g == m >> level else (pw[level] - roots[g]) % R
+
+    q, total = [None] * n, 0
+    for rank in range(blocks):
+        c = tab[L]
+        for level in range(lb_, L):
+            c = _mmul(c, denom(level, (rank >> (level - lb_)) ^ 1))
+        comp = [None, c] + [None] * (2 * threads)
+        h, level = 1, lb_ - 1
+        while h < threads:
+            for t in range(2 * h):
+                comp[2 * h + t] = _mmul(comp[h + (t >> 1)], denom(level, rank * 2 * h + (t ^ 1)))
+            h, level = 2 * h, level - 1
+        for t in range(threads):
+            for r in range(1 << lk):
+                i = ((rank * threads + t) << lk) + r
+                inv_i = comp[threads + t]
+                for level in range(lk):
+                    inv_i = _mmul(inv_i, denom(level, (i >> level) ^ 1))
+                qi = _mmul((e[m] - e[i]) % R, inv_i)
+                if i != m:
+                    q[i] = qi
+                total = (total + _mmul(qi, roots[i])) % R
+    q[m] = -_mmul(total, z_inv) % R
+    return q
+
+
+def _render_in_domain_kernel(domain, calls):
+    """A stand-in for kernels.fr_quotient_in_domain on CPU tensors: the
+    rendering at the kernel's split, with the wrapper's checks."""
+    want_roots_k = lb.to_u32_layout(domain.roots_brp)
+    roots = _words_to_ints(want_roots_k)
+    n = domain.n
+
+    def in_domain(evals, m, table, roots_k):
+        calls.append(("fr_quotient_in_domain", evals, table))
+        assert evals.dtype == torch.int64 and evals.shape[1:] == (16, n)
+        assert table.dtype == torch.int32 and table.shape == (evals.shape[0], 8, domain.levels + 3)
+        assert len(m) == evals.shape[0] and all(0 <= i < n for i in m)
+        assert torch.equal(roots_k, want_roots_k)
+        qs = [render_in_domain(lb.limbs_to_ints(evals[b]), _words_to_ints(table[b]), roots, n,
+                               *_kernel_split(n)) for b in range(evals.shape[0])]
+        return lb.as_limb_tensor(np.stack([lb.ints_to_limbs(v, 16) for v in qs]))
+
+    return in_domain
 
 
 def _render_kernels(domain):
@@ -471,6 +534,140 @@ def test_kernel_schedules_at_the_blob_domain():
         types.SimpleNamespace(n=n)).quotient(e, z, y)
 
 
+def _root_ms(n: int) -> list:
+    """Every m at n <= 32; at 4096, m = 0, 1, n - 1 and one seeded m."""
+    return list(range(n)) if n <= 32 else [0, 1, n - 1, random.Random(n).randrange(2, n - 1)]
+
+
+@pytest.mark.parametrize("n", [4, 32, 4096])
+def test_in_domain_closed_forms(n):
+    """At z = w_m: prod_{i != m} (z - w_i) = n / w_m, so K = w_m / n is its
+    inverse; and the aligned chunk of s = 2^l bit-reversed roots that
+    holds m has prod_{j != m} (z - w_j) = s z^s / z, at every level, while
+    every other chunk keeps z^s - w_g; z^s and 1/z are roots."""
+    d = fr_poly.FrDomain(n, "cpu")
+    w = d.roots_brp_ints
+    for m in _root_ms(n):
+        z = w[m]
+        full = 1
+        for i, x in enumerate(w):
+            if i != m:
+                full = full * (z - x) % R
+        assert full == n * pow(z, -1, R) % R
+        assert full * (z * pow(n, -1, R)) % R == 1
+        assert pow(z, -1, R) in d.root_index
+        for level in range(d.levels + 1):
+            size = 1 << level
+            g = m >> level
+            held = 1
+            for j in range(g * size, (g + 1) * size):
+                if j != m:
+                    held = held * (z - w[j]) % R
+            assert held == size * pow(z, size, R) * pow(z, -1, R) % R, (m, level)
+            assert pow(z, size, R) in d.root_index
+            other = g ^ 1 if size < n else None
+            if other is not None and n <= 32:
+                prod = 1
+                for x in w[other * size:(other + 1) * size]:
+                    prod = prod * (z - x) % R
+                assert prod == (pow(z, size, R) - w[other]) % R
+
+
+@pytest.mark.parametrize("n", [1, 4, 32])
+def test_host_root_table_holds_powers_k_inverse_and_index(n):
+    """root_table_host, int32 words [B, 8, levels + 3]: column l z^(2^l),
+    then K = w_m / n, then 1/z, all in Montgomery form (value times
+    R mod r), and m in word 0 of the last column; root_table is the same
+    table on the domain's device."""
+    d = fr_poly.FrDomain(n, "cpu")
+    ms = list(range(n))
+    tab = d.root_table_host(ms)
+    assert tab.dtype == np.int32 and tab.shape == (n, 8, d.levels + 3)
+    assert torch.equal(d.root_table(ms), torch.from_numpy(tab))
+    for b, m in enumerate(ms):
+        row, z = _words_to_ints(tab[b]), d.roots_brp_ints[m]
+        assert row[: d.levels] == [pow(z, 1 << lv, R) * fr_poly.R_MONT % R for lv in range(d.levels)]
+        assert row[d.levels] == z * pow(n, -1, R) * fr_poly.R_MONT % R
+        assert row[d.levels + 1] == pow(z, -1, R) * fr_poly.R_MONT % R
+        assert row[d.levels + 2] == m and tab[b, 0, -1] == m and not tab[b, 1:, -1].any()
+
+
+IN_DOMAIN_SPLITS = {1: [(1, 1)], 4: [(4, 1), (2, 2), (1, 4)], 32: [(32, 1), (4, 8), (8, 2), (2, 4)]}
+
+
+@pytest.mark.parametrize("n", [1, 4, 32])
+def test_in_domain_schedule_equals_the_plain_version(n):
+    """The rendering of fr_quotient_in_domain at several splits (its own
+    first) on plain evaluations and the host's root table equals the plain
+    version (`quotient_in_domain_mont_plain` on their Montgomery form) at
+    every m, and the JAX host quotient there."""
+    d = fr_poly.FrDomain(n, "cpu")
+    rng = random.Random(11 * n)
+    e = [rng.randrange(R) for _ in range(n)]
+    roots = [x * fr_poly.R_MONT % R for x in d.roots_brp_ints]
+    plain = lb.as_limb_tensor(lb.ints_to_limbs(e, 16))
+    z_inv = d.mont([pow(w, -1, R) for w in d.roots_brp_ints]).T.reshape(n, 16, 1)
+    want = d.quotient_in_domain_mont_plain(FR.to_mont(plain).expand(n, 16, n),
+                                           torch.eye(n, dtype=torch.bool), z_inv)
+    host = HostBackend(types.SimpleNamespace(n=n))
+    assert IN_DOMAIN_SPLITS[n][0] == _kernel_split(n)
+    for m in range(n):
+        tab = _words_to_ints(d.root_table_host([m])[0])
+        assert lb.limbs_to_ints(want[m]) == host.quotient(e, d.roots_brp_ints[m], e[m])
+        for threads, blocks in IN_DOMAIN_SPLITS[n]:
+            assert render_in_domain(e, tab, roots, n, threads, blocks) == lb.limbs_to_ints(want[m]), (
+                m, threads, blocks)
+
+
+def test_in_domain_schedule_at_the_blob_domain():
+    """At n = 4096 on the kernel's own split (8 blocks of 256 threads, 2
+    elements a thread, the blocks' sums across the cluster), m = 0, 1,
+    n - 1 and a seeded m: the rendering equals the plain version."""
+    n = 4096
+    d = fr_poly.FrDomain(n, "cpu")
+    rng = random.Random(4097)
+    e = [rng.randrange(R) for _ in range(n)]
+    roots = [x * fr_poly.R_MONT % R for x in d.roots_brp_ints]
+    ms = _root_ms(n)
+    assert _kernel_split(n) == (256, 8)
+    want = d.quotient_in_domain(lb.as_limb_tensor(lb.ints_to_limbs(e, 16)), ms)
+    for b, m in enumerate(ms):
+        tab = _words_to_ints(d.root_table_host([m])[0])
+        assert render_in_domain(e, tab, roots, n, 256, 8) == lb.limbs_to_ints(want[b]), m
+
+
+def test_in_domain_route_is_one_call_on_the_plain_limbs(monkeypatch, case):
+    """The card's route of a proof at a root of unity (FrDomain.quotient
+    at z = w_m through dispatch.fr_quotient_in_domain), on the rendering
+    of the kernel: one fr_quotient_in_domain call on the blob's plain
+    limbs as they are, with its root table, no fr_to_mont and no layout
+    conversion; q equals the CPU route and the JAX host quotient."""
+    domain, host, blobs, _, _ = case
+    roots_k = lb.to_u32_layout(domain.roots_brp)
+    calls = []
+    in_domain = _render_in_domain_kernel(domain, calls)
+
+    def refuse(*args):
+        raise AssertionError("the in-domain route converted the evaluations")
+
+    plain = lb.as_limb_tensor(lb.ints_to_limbs(blobs[2], 16))
+    m = 5
+    table = domain.root_table([m])
+    monkeypatch.setattr(kernels, "fr_quotient_in_domain", in_domain)
+    for name in ("fr_to_mont", "fr_evaluate", "fr_quotient"):
+        monkeypatch.setattr(kernels, name, refuse)
+    monkeypatch.setattr(lb, "to_u32_layout", refuse)
+    monkeypatch.setattr(lb, "to_u16_layout", refuse)
+    q = dispatch.fr_quotient_in_domain(plain, [m], table, roots_k)
+    monkeypatch.undo()
+    assert [c[0] for c in calls] == ["fr_quotient_in_domain"]
+    assert calls[0][1].data_ptr() == plain.data_ptr() and calls[0][2] is table
+    assert q.shape == (16, domain.n)
+    z = domain.roots_brp_ints[m]
+    assert torch.equal(q, domain.quotient(plain, z, None))
+    assert lb.limbs_to_ints(q) == host.quotient(blobs[2], z, blobs[2][m])
+
+
 @pytest.mark.parametrize("lead", [(), (1,), (BLOBS,)])
 def test_dispatch_routes_flatten_the_batch(monkeypatch, case, lead):
     """dispatch.fr_to_mont, fr_evaluate, fr_quotient and
@@ -478,22 +675,18 @@ def test_dispatch_routes_flatten_the_batch(monkeypatch, case, lead):
     for all blobs: fr_evaluate and fr_quotient (the renderings of their
     schedules) take the plain public limbs flattened to [B, 16, n] and the
     table of each blob's z, and the results equal the plain versions; the
-    in-domain route passes each blob's index."""
+    in-domain route (the rendering of fr_quotient_in_domain) takes the
+    plain limbs too, and the table that holds each blob's index."""
     domain, _, blobs, evals_m, zs = case
     monkeypatch.setattr(domain, "roots_k", lb.to_u32_layout(domain.roots_brp))
     monkeypatch.setattr(domain, "n_inv_k", lb.to_u32_layout(domain.n_inv))
-    seen = {}
-
-    def in_domain(b, evals, m, z_inv, roots):
-        seen["m"] = m
-        onehot = torch.arange(domain.n)[None, :] == torch.tensor(m)[:, None]
-        return domain.quotient_in_domain_mont_plain(evals, onehot, z_inv)
 
     evaluate, quotient, calls = _render_kernels(domain)
+    in_domain = _render_in_domain_kernel(domain, calls)
     monkeypatch.setattr(kernels, "fr_to_mont", lambda a: lb.to_u32_layout(FR.to_mont(lb.to_u16_layout(a))))
     monkeypatch.setattr(kernels, "fr_evaluate", evaluate)
     monkeypatch.setattr(kernels, "fr_quotient", quotient)
-    monkeypatch.setattr(kernels, "fr_quotient_in_domain", _stand_in(in_domain, domain))
+    monkeypatch.setattr(kernels, "fr_quotient_in_domain", in_domain)
     k = int(np.prod(lead, dtype=np.int64))
     ev = evals_m[:k].reshape(lead + (16, domain.n))
     plain = lb.as_limb_tensor(np.stack([lb.ints_to_limbs(b, 16) for b in blobs[:k]])).reshape(ev.shape)
@@ -512,9 +705,10 @@ def test_dispatch_routes_flatten_the_batch(monkeypatch, case, lead):
     onehot = torch.stack([torch.arange(domain.n) == m for m in ms]).reshape(lead + (domain.n,))
     z_inv = torch.stack([domain.mont([pow(domain.roots_brp_ints[m], R - 2, R)]) for m in ms])
     z_inv = z_inv.reshape(lead + (16, 1))
-    q_in = dispatch.fr_quotient_in_domain(ev, torch.tensor(ms).reshape(lead).tolist(), z_inv,
-                                          domain.roots_k)
-    assert seen["m"] == ms
+    q_in = dispatch.fr_quotient_in_domain(plain, ms, domain.root_table(ms), domain.roots_k)
+    assert calls[-1][0] == "fr_quotient_in_domain" and calls[-1][1].shape == (k, 16, domain.n)
+    assert calls[-1][2][:, 0, -1].tolist() == ms  # each blob's index, in the table
+    assert q_in.shape == lead + (16, domain.n)
     assert torch.equal(q_in, domain.quotient_in_domain_mont_plain(ev, onehot, z_inv))
 
 
@@ -581,7 +775,9 @@ def test_smoke_counts_the_fr_kernels_work():
     fraction sums with known denominators, then z N, (z^n - 1) sum e and
     1 / n) and no inversion, the quotient 3 n - 2 (a tree of inverses down
     from 1 / (z^n - 1), then the n quotients) and its one inversion, the
-    in-domain quotient n more (q_m on the q_i); the evaluation reads its
+    in-domain quotient 4 n - 1 + L and no inversion or squaring (the same
+    tree from K = w_m / n, L products for the chunk that holds m, the n
+    quotients, q_m on them; z's powers are roots); the evaluation reads its
     evaluations (32 bytes an element, whatever layout the kernel reads),
     the roots, the z table (L + 1 values a blob) and 1/n once and writes
     y, the quotient reads the evaluations, y, the roots and the table and
@@ -606,7 +802,9 @@ def test_smoke_counts_the_fr_kernels_work():
     assert smoke.bound(*smoke.fr_kernel_work("fr_evaluate", n, 1))["bound_ms"] == pytest.approx(
         ((2 * n + 1) * 264 + levels * 208) / P.IMAD_PER_S * 1e3)
     in_domain = smoke.fr_kernel_work("fr_quotient_in_domain", n, b)
-    assert in_domain == (2 * b * n * 32 + n * 32 + b * 36, imads + b * n * 264)
+    assert in_domain == (2 * b * n * 32 + n * 32 + b * ((levels + 2) * 32 + 4),
+                         b * (4 * n - 1 + levels) * 264)
+    assert smoke.bound(*in_domain)["bound_by"] == "operations"
     assert smoke.fr_kernel_work("fr_to_mont", n, b) == (2 * b * n * 32, b * n * 264)
     assert smoke.fr_kernel_work("fr_check", n, 1) == (10 * n * 32, n * (2 * 264 + 208 + 136 + inv))
 

@@ -14,6 +14,10 @@ the sharding, the padding and the folds, not any scaling.
   scalar at or above 2^scalar_bits raising; `batch_msm` of 3 blobs on
   (2, 4) (padded to 4) equals it blob by blob, and so does the generic
   MSM of a backend on (2, 4) above its sharding threshold;
+- the fold of the partials: a batch on (2, 4) makes one `dispatch.fold`
+  call a row (one g1_fold launch each on a card), on (1, 1) only folds of
+  one row (no launch), and an MSM across two processes (a mesh with
+  ranks, the gather stood in for) one more fold of the gathered rows;
 - `sharded_ntt_ints` forward and inverse equal JAX `host/fft.fr_fft` at
   n = 64 on 2, 4 and 8 devices of either axis, and round-trips; an n not
   divisible by D^2 raises;
@@ -47,7 +51,9 @@ from lambdaworks_kzg_tpu_torch.host import curve as HC
 from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, limbs as lb, msm
 from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend
 from lambdaworks_kzg_tpu_torch.parallel import batch_msm, make_mesh, sharded_msm
+from lambdaworks_kzg_tpu_torch.parallel import distributed
 from lambdaworks_kzg_tpu_torch.parallel import msm as pmsm
+from lambdaworks_kzg_tpu_torch.parallel.mesh import Mesh
 from lambdaworks_kzg_tpu_torch.parallel.ntt import sharded_ntt_ints
 
 from .test_torch_prove import N_DEV, _host_table, dev_contexts
@@ -186,6 +192,58 @@ def test_batch_msm_matches_host_oracle(basis):
     got = batch_msm(cpu_mesh(2, 4), points, valid,
                     torch.stack([msm.scalars_to_tensor(s) for s in batch]), C_BITS)
     assert [HC.to_affine(p) for p in got] == [_oracle(s, affine) for s in batch]
+
+
+def _counting_folds(monkeypatch) -> list:
+    """dispatch.fold, recording the rows K of each call."""
+    seen, fold = [], dispatch.fold
+
+    def counting(points16):
+        seen.append(points16.shape[0])
+        return fold(points16)
+
+    monkeypatch.setattr(dispatch, "fold", counting)
+    return seen
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 1)])
+def test_mesh_batch_folds_once_a_row(basis, monkeypatch, shape):
+    """A batch of 3 blobs (padded to 4 on two rows) makes one fold call on
+    each row of the data axis, of P partials: one g1_fold launch a row on
+    a card where P > 1, none where P = 1 (a fold of one row)."""
+    points, valid, affine = basis
+    seen = _counting_folds(monkeypatch)
+    rng = random.Random(47)
+    batch = [[rng.randrange(R) for _ in range(N_DEV)] for _ in range(3)]
+    got = batch_msm(cpu_mesh(*shape), points, valid,
+                    torch.stack([msm.scalars_to_tensor(s) for s in batch]), C_BITS)
+    assert seen == [shape[1]] * shape[0]
+    assert [HC.to_affine(p) for p in got] == [_oracle(s, affine) for s in batch]
+
+
+def test_msm_across_ranks_folds_the_gathered_rows_once(basis, monkeypatch):
+    """A (1, 2) mesh across two processes, each owning one cell of the
+    points axis, in this one process: rank 1's partial is made first with
+    the gather stood in for by its own row; then rank 0's call folds its
+    row of one (no launch) and the gathered [rank 0, rank 1] rows in one
+    fold (one g1_fold launch on a card), equal to the host oracle."""
+    points, valid, affine = basis
+    cpu = torch.device("cpu")
+    rng = random.Random(53)
+    scalars = [rng.randrange(R) for _ in range(N_DEV)]
+    tensor = msm.scalars_to_tensor(scalars)[None]
+
+    def basis_of(rank):
+        mesh = Mesh(((cpu, cpu),), ranks=((0, 1),), rank=rank)
+        return pmsm.ShardedBasis(mesh, points, valid, C_BITS, "points")
+
+    monkeypatch.setattr(distributed, "all_gather_points", lambda out: out[None])
+    partner = basis_of(1).msm(tensor)
+    monkeypatch.setattr(distributed, "all_gather_points", lambda out: torch.stack([out, partner]))
+    seen = _counting_folds(monkeypatch)
+    got = basis_of(0).msm(tensor)
+    assert seen == [1, 2]
+    assert HC.to_affine(g1_ops.points_to_host(got)[0]) == _oracle(scalars, affine)
 
 
 def test_backend_generic_msm_shards_and_pads(dev_pair, basis, monkeypatch):
