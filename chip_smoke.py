@@ -28,13 +28,16 @@ Phases, each printed with its seconds:
      infinity, P == Q, P == -Q, dead lanes); g1_fold against g1_ops.fold
      at K = 2, 3, 4 rows on 12 lanes, and at the meshes' shapes (K = 2 on 3
      lanes, K = 4 on 6), with rows at infinity, equal rows and Z != 1,
-     each timed; g1_bucket_accumulate and
-     g1_bucket_reduce on the committed mainnet table at c = 8 for one and
-     for six seeded blobs, on a synthetic table of four points and their
-     negations repeated (so runs of members double, cancel to infinity
-     and lift again, beside empty and dead buckets) at c = 4 and c = 12,
-     and g1_bucket_reduce on synthetic buckets at c = 12, where its points
-     live in global memory instead of shared memory; then one real
+     each timed; g1_bucket_accumulate and g1_bucket_reduce (at the
+     path's chunk length, msm.chunk_length) against
+     g1_ops.accumulate_chunks and reduce_chunks on the committed mainnet
+     table at c = 8 for one and for six seeded blobs and for a blob of
+     4096 elements 0x0101..01 and one of 4096 ones (the digits in one
+     bucket), on a synthetic table of four points and their negations
+     repeated (so runs of members double, cancel to infinity and lift
+     again, beside empty and dead buckets) at c = 4 and c = 12, and
+     g1_bucket_reduce on synthetic chunk partials there (the merge's and
+     the fold's equal, opposite and infinite operands); then one real
      quotient (a dense seeded blob at a seeded z, evaluated and divided on
      the card and equal to the host's): both MSM kernels against their
      plain versions on its members, and its MSM on the kernels against
@@ -138,8 +141,10 @@ Phases, each printed with its seconds:
      fr_quotient_in_domain launch), and the host syncs of a proof and of a
      batch counted;
  10. each kernel timed with CUDA events: the MSM kernels at the path's
-     shapes for one blob and for six (seeded random blobs, c = 8), and the
-     accumulation on the real quotient, madd at the 2048 lanes of one
+     shapes for one blob and for six (seeded random blobs, c = 8), then
+     at B = 1 a random blob beside the 0x0101..01 blob and the blob of
+     ones (each one's ratio to the random blob's), and the accumulation
+     on the real quotient, madd at the 2048 lanes of one
      blob's bucket grid, add at 1024, dbl at 4096, on random lanes, the
      table kernel at the mainnet shape, g1_decompress on 4096, 128 and
      12 x's, g1_scalar_mul in the split mode on [1/n] (4096 lanes) and on
@@ -223,9 +228,8 @@ Phases, each printed with its seconds:
      c = 12 with 248-bit scalars, over the 4096 mainnet Lagrange points
      tiled, equal in affine form to the native tier's 4096-point MSM of
      the scalars folded per point mod r; per shape the table build and
-     the MSM apart (CUDA events), each kernel's launches, the peak
-     allocated memory and g1_bucket_reduce's route (shared memory or
-     global scratch);
+     the MSM apart (CUDA events), each kernel's launches and the peak
+     allocated memory, and the 2^20 MSM's 255-bit / 248-bit ratio;
  16. the fuzz harnesses (lambdaworks_kzg_tpu_torch/fuzz): FUZZ_ITERS
      iterations of fuzz_differential.py on the degree-4 setup through a
      CPU context and the card's context (tier on, LWKZG_NATIVE=0, and
@@ -277,6 +281,7 @@ VECTORS = os.path.join(HERE, "testdata", "consensus", "blob_to_kzg_commitment", 
 
 sys.path.insert(0, HERE)
 try:  # the H100's peak rates and the IMADs of an Fp product and a point op
+    from lambdaworks_kzg_tpu_torch.ops.msm import chunk_length  # the MSM's L for a batch
     from lambdaworks_kzg_tpu_torch.utils.profiling import (FP_OPS, HBM_BYTES_PER_S, IMAD_PER_FP_MUL,
                                                            IMAD_PER_FP_SQR, IMAD_PER_FR_MUL,
                                                            IMAD_PER_FR_REDC, IMAD_PER_FR_SQR,
@@ -534,7 +539,7 @@ CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
 # warp, a warp and one lane more or less, blocks; 4096 is checked at the
 # conversion's shape
 EDGE_LANES = (1, 12, 31, 33, 128)
-C_MAIN, GROUPS = 8, 8  # the mainnet path's window bits and lane groups
+C_MAIN = 8  # the mainnet path's window bits
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
 # a batch's Fr part: one evaluation and one quotient on the plain limbs;
 # a proof at a root of unity: the in-domain quotient on them; a batch
@@ -707,6 +712,14 @@ def blob_members(table_valid, blobs, c: int):
     return scalar_members(table_valid, scalars, c)
 
 
+def skewed_blobs() -> dict:
+    """Blobs whose digits crowd into one bucket: 4096 elements 0x0101..01
+    (every 8-bit digit 1: all 131,072 members in bucket 1) and 4096 ones
+    (window 0's 4096 members in bucket 1, the rest in bucket 0)."""
+    return {"0x0101..01": bytes([1]) * 32 * 4096,
+            "ones": (1).to_bytes(32, "little") * 4096}
+
+
 def dense_blob(rng) -> bytes:
     """A blob of elements uniform below r (seeded random.Random)."""
     from lambdaworks_kzg_tpu_torch.constants import R
@@ -747,7 +760,7 @@ def check_real_quotient(setup, table16, table_valid, max_err: dict):
     top = int(msm.window_digits(q, C_MAIN)[0, -1].max())
     log(f"  real quotient: y and q equal to the host's; top window digits up to {top:#x}")
     check_msm_kernels(f"real quotient c={C_MAIN} B=1", table16, order, bstart, C_MAIN, max_err)
-    point = msm.msm_fixedbase(dispatch.to_table_layout(table16), table_valid, q[0], C_MAIN, GROUPS)
+    point = msm.msm_fixedbase(dispatch.to_table_layout(table16), table_valid, q[0], C_MAIN)
     t0 = time.perf_counter()
     want = HC.g1_msm(q_host, basis_affine(setup))
     if HC.to_affine(point) != HC.to_affine(want):
@@ -1028,28 +1041,42 @@ def synthetic_table(points, n_rows: int, c: int, n_blobs: int, seed: int):
     return table, order, bstart
 
 
-def synthetic_buckets(points, c: int, n_blobs: int, seed: int):
-    """[3, 24, B G 2^c] Jacobian buckets: setup points, Z != 1 on every
-    third lane, and in every group one bucket at infinity, one pair equal
-    and one pair opposite across the first fold."""
+def synthetic_partials(points, bstart, n_members: int, c: int, chunk: int, seed: int):
+    """[3, 24, B K] Jacobian chunk partials: setup points, Z != 1 on every
+    third slot; in buckets of several chunks, chunk 0 at infinity, or
+    chunk 1 equal or opposite to chunk 0 (the merge doubles or cancels);
+    of two one-chunk buckets j and j + 2^(c-1), the first at infinity, or
+    the second equal or opposite to it (the fold's cases)."""
     import torch
 
     from lambdaworks_kzg_tpu_torch.ops import g1_ops
     from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
 
-    m = n_blobs * GROUPS << c
+    first, _ = g1_ops.chunk_plan(bstart.cpu(), n_members, chunk)
+    slots = g1_ops.chunk_slots(n_members, c, chunk)
+    m = bstart.shape[0] * slots
     g = torch.Generator().manual_seed(seed)
-    pick = torch.randint(0, points.shape[-1], (m,), generator=g).to(points.device)
-    lane = torch.arange(m, device=points.device)
-    bk = g1_ops.lift(points[:, :, pick], torch.ones(m, dtype=torch.bool, device=points.device))
-    bk = torch.where((lane % 3 == 0)[None, None], g1_ops.dbl(bk), bk)
+    pts = points.cpu()[:, :, torch.randint(0, points.shape[-1], (m,), generator=g)]
+    bk = g1_ops.lift(pts, torch.ones(m, dtype=torch.bool))
+    bk = torch.where((torch.arange(m) % 3 == 0)[None, None], g1_ops.dbl(bk), bk)
     h = 1 << (c - 1)
-    base = torch.arange(0, m, 1 << c, device=points.device)
-    bk[:, :, base + 2] = 0
-    bk[:, :, base + 1 + h] = bk[:, :, base + 1]
-    opp = bk[:, :, base + 3]
-    bk[:, :, base + 3 + h] = torch.stack([opp[0], FP.neg(opp[1]), opp[2]])
-    return bk.contiguous()
+    for b in range(bstart.shape[0]):
+        f = [b * slots + int(x) for x in first[b]]
+        for j in range(1, 1 << c):
+            s0, n = f[j], f[j + 1] - f[j]
+            if n == 1 and j < h and f[j + h + 1] - f[j + h] == 1:
+                s1 = f[j + h]
+            elif n >= 2:
+                s1 = s0 + 1
+            else:
+                continue
+            if j % 3 == 0:
+                bk[:, :, s0] = 0
+            else:
+                bk[:, :, s1] = bk[:, :, s0]
+                if j % 3 == 2:
+                    bk[1, :, s1] = FP.neg(bk[1, :, s0 : s0 + 1])[:, 0]
+    return bk.to(points.device)
 
 
 def same(name: str, got16, want16) -> int:
@@ -1064,58 +1091,63 @@ def same(name: str, got16, want16) -> int:
 
 
 def check_msm_kernels(label: str, table16, order, bstart, c: int, max_err: dict,
-                      extra_buckets=None) -> None:
-    """Both MSM kernels against their plain versions on the same inputs:
-    the accumulation, then the reduce of its buckets (and of
-    `extra_buckets`); max_err[name] keeps each kernel's max |limb error|."""
+                      extra_partials=None) -> None:
+    """Both MSM kernels against their plain versions on the same inputs,
+    at the path's chunk length: the accumulation, then the reduce of its
+    partials (and of `extra_partials`); max_err[name] keeps each kernel's
+    max |limb error|."""
     from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb
 
     def check(name: str, what: str, got16, want16) -> None:
         max_err[name] = max(max_err[name], same(f"{name} {what}", got16, want16))
         log(f"  {name} {what}: equal to plain, limb for limb")
 
+    n_members = order.shape[1]
+    chunk = chunk_length(*order.shape)
     rows = dispatch.to_table_layout(table16)
-    plain = g1_ops.bucket_accumulate(table16, order, bstart, c, GROUPS)
-    got = kernels.bucket_accumulate(rows, order, bstart, c, GROUPS)
-    check("g1_bucket_accumulate", label, lb.to_u16_layout(got), plain)
-    for what, buckets in (("its buckets", plain), ("synthetic buckets", extra_buckets)):
-        if buckets is None:
+    plain = g1_ops.accumulate_chunks(table16, order, bstart, c, chunk)
+    got = kernels.bucket_accumulate(rows, order, bstart, c, chunk)
+    check("g1_bucket_accumulate", f"{label} (L = {chunk})", dispatch.from_table_layout(got), plain)
+    for what, partials in (("its partials", plain), ("synthetic partials", extra_partials)):
+        if partials is None:
             continue
-        got = kernels.bucket_reduce(lb.to_u32_layout(buckets), c, GROUPS)
+        got = kernels.bucket_reduce(dispatch.to_table_layout(partials), bstart, c, chunk, n_members)
         check("g1_bucket_reduce", f"{label}, {what}", lb.to_u16_layout(got),
-              g1_ops.bucket_reduce(buckets, c, GROUPS))
+              g1_ops.reduce_chunks(partials, bstart, c, chunk, n_members))
 
 
 def accumulate_point_ops(order, bstart):
     """(madds, lifts) that g1_bucket_accumulate needs for these members:
-    each member outside bucket 0 is one step of its group-bucket, and the
-    first step of each non-empty group-bucket lifts the point (no
-    products). A run of members never returns a bucket to infinity
-    (P + -P) on random blobs, so no other step is free."""
-    import torch
+    each member outside bucket 0 is one step of its chunk, and the first
+    step of each chunk lifts the point (no products). A run of members
+    never returns a chunk to infinity (P + -P) on these blobs, so no other
+    step is free."""
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops
 
-    n_members = order.shape[1]
-    bend = torch.cat([bstart[:, 1:], torch.full_like(bstart[:, :1], n_members)], dim=1)
-    counts = (bend - bstart)[:, 1:].long()
-    live = int(counts.sum())
-    lifts = int(counts.clamp(max=GROUPS).sum())
+    first, bend = g1_ops.chunk_plan(bstart, order.shape[1], chunk_length(*order.shape))
+    live = int((bend - bstart.long())[:, 1:].sum())
+    lifts = int(first[:, -1].sum())
     return live - lifts, lifts
 
 
-def reduce_point_ops(buckets16, c: int):
-    """(adds, doublings) that g1_bucket_reduce needs on these buckets: the
-    schedule of g1_ops.bucket_reduce (fold, tree of each high half,
-    Horner chain, group tree) run on which points are at infinity. An add
-    with an operand at infinity, and a doubling of infinity, need no
-    products; a sum of finite points is counted finite (on random blobs
+def reduce_point_ops(bstart, n_members: int, buckets16, c: int):
+    """(adds, doublings) that g1_bucket_reduce needs: the merge's adds
+    (each bucket of k chunks k - 1, all of finite points on these blobs),
+    then fold_reduce's schedule (fold, tree of each high half, Horner
+    chain) run on which merged buckets [3, 24, B 2^c] are at infinity. An
+    add with an operand at infinity, and a doubling of infinity, need no
+    products; a sum of finite points is counted finite (on these blobs
     none cancels)."""
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops
     from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
 
+    first, _ = g1_ops.chunk_plan(bstart, n_members, chunk_length(bstart.shape[0], n_members))
+    chunks = first[:, 1:] - first[:, :-1]
+    counts = {"adds": int((chunks - 1).clamp(min=0).sum()), "dbls": 0}
     nb = 1 << c
     finite = ~FP.is_zero(buckets16[2])
     finite = finite.reshape(-1, nb).clone()
     finite[:, 0] = False  # bucket 0 has weight 0
-    counts = {"adds": 0, "dbls": 0}
 
     def add(a, b):
         counts["adds"] += int((a & b).sum())
@@ -1136,7 +1168,6 @@ def reduce_point_ops(buckets16, c: int):
     for e in totals[1:]:
         counts["dbls"] += int(acc.sum())
         acc = add(acc, e)
-    tree(acc.reshape(-1, GROUPS))
     return counts["adds"], counts["dbls"]
 
 
@@ -2580,8 +2611,9 @@ def generic_msm_phase(setup, dev, card: str) -> tuple:
     on the native tier, compared in affine form. Tiling sends equal points
     into one bucket, so the accumulation's doubling fix-up runs hard.
     Prints per shape the table build and the MSM apart (CUDA events, a
-    second run), each kernel's launches in the checked run, the peak of
-    `torch.cuda.max_memory_allocated` and g1_bucket_reduce's route. ->
+    second run), each kernel's launches in the checked run and the peak
+    of `torch.cuda.max_memory_allocated`, then the 2^20 MSM's 255-bit /
+    248-bit time. ->
     (results, the checked runs' launches summed)."""
     import numpy as np
     import torch
@@ -2617,20 +2649,23 @@ def generic_msm_phase(setup, dev, card: str) -> tuple:
         if HC.to_affine(point) != want:
             raise AssertionError(f"the generic MSM at n={n} c={c} bits={bits} differs from its oracle")
         (table, table_valid), table_ms = events_ms(lambda: dispatch.fixedbase_table(pts, ok, c))
-        _, msm_ms = events_ms(lambda: msm.msm_fixedbase_device(table, table_valid, scalars, c, GROUPS))
+        _, msm_ms = events_ms(lambda: msm.msm_fixedbase_device(table, table_valid, scalars, c))
         del table, table_valid, got
-        route = "shared memory" if kernels._reduce_in_shared_memory(c) else "global scratch"
         for name, k in launches.items():
             total[name] = total.get(name, 0) + k
         key = f"n{n}_c{c}_b{bits}"
         out[key] = {"n": n, "c": c, "scalar_bits": bits, "msm_device_ms": msm_device_ms,
                     "table_ms": table_ms, "msm_ms": msm_ms, "peak_bytes": peak,
-                    "launches": {name: k for name, k in launches.items() if k},
-                    "reduce_route": route}
+                    "launches": {name: k for name, k in launches.items() if k}}
         log(f"  n=2^{n.bit_length() - 1} c={c} scalar_bits={bits}: equal to the native oracle "
             f"({n_basis} points, scalars folded mod r); msm_device {msm_device_ms:.2f} ms, then apart: "
             f"table {table_ms:.2f} ms, MSM {msm_ms:.2f} ms (CUDA events); launches "
-            f"{out[key]['launches']}; peak {peak / 2**30:.2f} GiB; g1_bucket_reduce: {route} ({card})")
+            f"{out[key]['launches']}; peak {peak / 2**30:.2f} GiB ({card})")
+    full, short = (out.get(f"n{1 << 20}_c12_b{bits}") for bits in (255, 248))
+    if full and short:  # the 255-bit top window's 2^20 members against an empty one
+        out["ratio_255_to_248"] = full["msm_ms"] / short["msm_ms"]
+        log(f"  n=2^20 c=12: MSM 255-bit / 248-bit = {out['ratio_255_to_248']:.3f} "
+            f"({full['msm_ms']:.2f} / {short['msm_ms']:.2f} ms, one process) ({card})")
     missing = [name for name in PATH_KERNELS if total.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the generic MSM path: {missing}")
@@ -2809,10 +2844,16 @@ def run() -> None:
             order, bstart = blob_members(table_valid, random_blobs(rng, n_blobs), C_MAIN)
             check_msm_kernels(f"mainnet c={C_MAIN} B={n_blobs}", table16, order, bstart, C_MAIN,
                               max_err)
+        for name, blob in skewed_blobs().items():
+            order, bstart = blob_members(table_valid, [blob], C_MAIN)
+            check_msm_kernels(f"mainnet c={C_MAIN} B=1, {name}", table16, order, bstart, C_MAIN,
+                              max_err)
         for c, n_blobs in ((4, 2), (12, 1)):
             synth, order, bstart = synthetic_table(points, 4096, c, n_blobs, seed=c)
+            extra = synthetic_partials(points, bstart, order.shape[1], c, chunk_length(*order.shape),
+                                       seed=c)
             check_msm_kernels(f"synthetic c={c} B={n_blobs}", synth, order, bstart, c, max_err,
-                              extra_buckets=synthetic_buckets(points, c, n_blobs, seed=c))
+                              extra_partials=extra)
         q_order, q_bstart = check_real_quotient(setup, table16, table_valid, max_err)
         batch_plain_ms = check_batch_kernels(setup, dev, max_err)
         pairing_checked = check_pairing_kernels(dev, max_err)
@@ -3100,48 +3141,72 @@ def run() -> None:
     entries = []
     with Phase("10 kernel timing"):
         rows = dispatch.to_table_layout(table16)
-        n_members, nb = rows.shape[0], 1 << C_MAIN
+        n_members = rows.shape[0]
+
+        def msm_kernel_times(order, bstart, plain: bool) -> dict:
+            """Both MSM kernels on these members at the path's chunk
+            length, their plain versions' one call and each one's bound
+            from its point ops."""
+            n_blobs = order.shape[0]
+            chunk = chunk_length(n_blobs, n_members)
+            t_acc = time_ms(lambda: kernels.bucket_accumulate(rows, order, bstart, C_MAIN, chunk),
+                            reps=10)
+            partials = kernels.bucket_accumulate(rows, order, bstart, C_MAIN, chunk)
+            partials16 = dispatch.from_table_layout(partials)
+            merged16 = g1_ops.merge_chunks(partials16, bstart, C_MAIN, chunk, n_members)
+            t_red = time_ms(lambda: kernels.bucket_reduce(partials, bstart, C_MAIN, chunk, n_members),
+                            reps=20)  # the merge runs in place: later calls add merged sums again
+            p_acc = p_red = None
+            if plain:
+                p_acc = time_ms(lambda: g1_ops.accumulate_chunks(table16, order, bstart, C_MAIN, chunk),
+                                reps=1, warm=0)
+                p_red = time_ms(lambda: g1_ops.reduce_chunks(partials16, bstart, C_MAIN, chunk,
+                                                             n_members), reps=1, warm=0)
+            # the accumulation reads each member's row and order entry and
+            # bstart once and writes the partials; the reduce reads the
+            # partials of the chunks and bstart and writes B points
+            madds, chunks = accumulate_point_ops(order, bstart)
+            acc_bytes = n_members * n_blobs * 100 + bstart.numel() * 4 + partials.numel() * 4
+            adds, dbls = reduce_point_ops(bstart, n_members, merged16, C_MAIN)
+            red_bytes = chunks * 3 * FP_BYTES + bstart.numel() * 4 + n_blobs * 3 * FP_BYTES
+            log(f"  B={n_blobs}: accumulate {madds} madds + {chunks} lifts ({chunks} chunks of at most "
+                f"{chunk}); reduce {adds} adds + {dbls} doublings of finite points")
+            out = {}
+            for name, ms, plain_ms, nbytes, imads in (
+                ("g1_bucket_accumulate", t_acc, p_acc, acc_bytes, madds * op_imads("madd")),
+                ("g1_bucket_reduce", t_red, p_red, red_bytes,
+                 adds * op_imads("add") + dbls * op_imads("dbl")),
+            ):
+                out[name] = {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, imads), "chunk": chunk}
+                log(f"  {name} B={n_blobs}: kernel {ms:.4f} ms, plain "
+                    f"{'-' if plain_ms is None else f'{plain_ms:.2f}'} ms, bound "
+                    f"{out[name]['bound_ms']:.5f} ms ({card})")
+            return out
+
         msm_times = {}
         for n_blobs in (1, 6):
             order, bstart = blob_members(table_valid, random_blobs(rng, n_blobs), C_MAIN)
-            acc_args = (rows, order, bstart, C_MAIN, GROUPS)
-            buckets = kernels.bucket_accumulate(*acc_args)
-            buckets16 = lb.to_u16_layout(buckets)
-            t_acc = time_ms(lambda: kernels.bucket_accumulate(*acc_args), reps=10)
-            t_red = time_ms(lambda: kernels.bucket_reduce(buckets, C_MAIN, GROUPS), reps=20)
-            p_acc = time_ms(lambda: g1_ops.bucket_accumulate(table16, order, bstart, C_MAIN, GROUPS),
-                            reps=1, warm=0)
-            p_red = time_ms(lambda: g1_ops.bucket_reduce(buckets16, C_MAIN, GROUPS), reps=1, warm=0)
-            # the accumulation reads the table, order and bstart once and
-            # writes the buckets; the reduce reads them and writes B points
-            madds, lifts = accumulate_point_ops(order, bstart)
-            acc_bytes = n_members * 96 + order.numel() * 4 + bstart.numel() * 4
-            acc_bytes += buckets.numel() * 4
-            acc_imads = madds * op_imads("madd")
-            adds, dbls = reduce_point_ops(buckets16, C_MAIN)
-            red_bytes = buckets.numel() * 4 + n_blobs * 3 * FP_BYTES
-            red_imads = adds * op_imads("add") + dbls * op_imads("dbl")
-            log(f"  B={n_blobs}: accumulate {madds} madds + {lifts} lifts; "
-                f"reduce {adds} adds + {dbls} doublings of finite points")
-            for name, ms, plain_ms, nbytes, imads in (
-                ("g1_bucket_accumulate", t_acc, p_acc, acc_bytes, acc_imads),
-                ("g1_bucket_reduce", t_red, p_red, red_bytes, red_imads),
-            ):
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
-                msm_times[(name, n_blobs)] = {
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                }
-                log(f"  {name} B={n_blobs}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-                    f"bound {max(t_bytes, t_ops):.5f} ms")
+            msm_times[n_blobs] = msm_kernel_times(order, bstart, plain=True)
+        # one random blob again beside the blobs whose digits crowd into
+        # one bucket, at B = 1 in one run
+        skew = {"random": msm_kernel_times(*blob_members(table_valid, random_blobs(rng, 1), C_MAIN),
+                                           plain=False)}
+        for name, blob in skewed_blobs().items():
+            skew[name] = msm_kernel_times(*blob_members(table_valid, [blob], C_MAIN), plain=False)
+        for name in skew:
+            ratio = {k: skew[name][k]["ms"] / skew["random"][k]["ms"] for k in skew[name]}
+            skew[name]["ratio_to_random"] = ratio
+            log(f"  B=1 {name}: accumulate {skew[name]['g1_bucket_accumulate']['ms']:.4f} ms "
+                f"({ratio['g1_bucket_accumulate']:.2f}x a random blob's), reduce "
+                f"{skew[name]['g1_bucket_reduce']['ms']:.4f} ms "
+                f"({ratio['g1_bucket_reduce']:.2f}x) ({card})")
+        results["msm_skew"] = skew
         # the accumulation on one real quotient's members (dense 255-bit scalars)
-        acc_args = (rows, q_order, q_bstart, C_MAIN, GROUPS)
-        t_q = time_ms(lambda: kernels.bucket_accumulate(*acc_args), reps=10)
+        q_chunk = chunk_length(1, n_members)
+        t_q = time_ms(lambda: kernels.bucket_accumulate(rows, q_order, q_bstart, C_MAIN, q_chunk), reps=10)
         madds, _ = accumulate_point_ops(q_order, q_bstart)
-        q_bytes = n_members * 96 + q_order.numel() * 4 + q_bstart.numel() * 4 + 3 * 48 * GROUPS * nb
-        t_bytes, t_ops = q_bytes / HBM_BYTES_PER_S * 1e3, madds * op_imads("madd") / IMAD_PER_S * 1e3
-        quotient_acc = {"ms": t_q, "bound_ms": max(t_bytes, t_ops),
-                        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "madds": madds}
+        q_bytes = n_members * 100 + q_bstart.numel() * 4 + g1_ops.chunk_slots(n_members, C_MAIN, q_chunk) * 144
+        quotient_acc = {"ms": t_q, **bound(q_bytes, madds * op_imads("madd")), "madds": madds}
         log(f"  g1_bucket_accumulate on a real quotient: {madds} madds, kernel {t_q:.4f} ms, "
             f"bound {quotient_acc['bound_ms']:.5f} ms")
         for kernel in (kernels.bucket_accumulate, kernels.bucket_reduce):
@@ -3152,10 +3217,10 @@ def run() -> None:
                 "replaces": kernel.replaces,
                 **counted(kernel.name),
                 "max_abs_err": max_err[kernel.name],
-                **msm_times[(kernel.name, 1)],
+                **msm_times[1][kernel.name],
                 "library_ms": None,
                 "blobs": 1,
-                "batch6": msm_times[(kernel.name, 6)],
+                "batch6": msm_times[6][kernel.name],
                 **({"quotient": quotient_acc} if kernel is kernels.bucket_accumulate else {}),
             })
         shapes = {"madd": 2048, "add": 1024, "dbl": 4096}

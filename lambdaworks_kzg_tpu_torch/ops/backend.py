@@ -41,7 +41,6 @@ from ..parallel import msm as pmsm
 from . import codec, dispatch, fr_poly, g1_batch, g1_ops, msm
 from .dispatch import resolve_device
 from . import limbs as lb
-from .msm import GROUPS
 
 
 # the largest calls a CPU backend sends to the native tier
@@ -127,9 +126,7 @@ class TorchBackend:
                 return g1_ops.points_to_host(self.shards.msm(scalars[None], rows=1))[0]
             return g1_ops.points_to_host(self.shards.msm(scalars))
         table = self._table if ops is dispatch else self.fixedbase()[0]
-        return msm.msm_fixedbase(
-            table, self._table_valid, scalars, self.c, GROUPS, ops
-        )
+        return msm.msm_fixedbase(table, self._table_valid, scalars, self.c, ops=ops)
 
     def commit(self, evals):
         """Fr ints in evaluation form -> host Jacobian point."""
@@ -247,7 +244,7 @@ class TorchBackend:
         pts, valid = g1_ops.make_points_host(points)
         return msm.msm(lb.as_limb_tensor(pts, self.device),
                        torch.from_numpy(valid).to(self.device),
-                       msm.scalars_to_tensor(scalars, self.device), c, scalar_bits, GROUPS)
+                       msm.scalars_to_tensor(scalars, self.device), c, scalar_bits)
 
     def decompress_g1_batch(self, compressed) -> list:
         """48-byte compressed points -> host Jacobians, decompressed and

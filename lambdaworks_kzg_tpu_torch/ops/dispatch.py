@@ -5,8 +5,9 @@ The two sides hold points in different layouts: the kernels take
 radix-2^32 int32 limbs, the plain versions radix-2^16 int64 limbs.
 `to_op_layout` / `from_op_layout` convert between the public radix-2^16
 layout and the one the ops of that device take, and `to_table_layout` /
-`from_table_layout` do the same for the fixed-base table, which the
-accumulation kernel reads as 96-byte rows [W N, 2, 12]. Callers convert
+`from_table_layout` do the same for rows of points: the fixed-base table,
+which the accumulation kernel reads as 96-byte rows [W N, 2, 12], and its
+chunk partials, 144-byte rows [B K, 3, 12]. Callers convert
 once per table or bucket array, not once per op. `ops/g1_ops.py` offers
 the same names the MSM calls, with the identity layout, so code written
 against this module runs the plain versions on any device when handed
@@ -67,16 +68,20 @@ def fixedbase_table(points16, valid, c: int):
     return g1_ops.fixedbase_table(points16, valid, c)
 
 
-def bucket_accumulate(table, order, bstart, c: int, groups: int):
+def accumulate_chunks(table, order, bstart, c: int, chunk: int):
+    """Chunk partials: rows [B K, 3, 12] from the kernel on a CUDA device,
+    [3, 24, B K] from the plain version on the CPU."""
     if table.is_cuda:
-        return kernels.bucket_accumulate(table, order, bstart, c, groups)
-    return g1_ops.bucket_accumulate(table, order, bstart, c, groups)
+        return kernels.bucket_accumulate(table, order, bstart, c, chunk)
+    return g1_ops.accumulate_chunks(table, order, bstart, c, chunk)
 
 
-def bucket_reduce(buckets, c: int, groups: int):
-    if buckets.is_cuda:
-        return kernels.bucket_reduce(buckets, c, groups)
-    return g1_ops.bucket_reduce(buckets, c, groups)
+def reduce_chunks(partials, bstart, c: int, chunk: int, n_members: int):
+    """-> [3, *, B] in this device's op layout; the kernel overwrites its
+    partials (the merge runs in place)."""
+    if partials.is_cuda:
+        return kernels.bucket_reduce(partials, bstart, c, chunk, n_members)
+    return g1_ops.reduce_chunks(partials, bstart, c, chunk, n_members)
 
 
 def to_op_layout(x16: torch.Tensor) -> torch.Tensor:
@@ -88,7 +93,8 @@ def from_op_layout(x: torch.Tensor) -> torch.Tensor:
 
 
 def to_table_layout(table16: torch.Tensor) -> torch.Tensor:
-    """[2, 24, W N] public affine table -> the accumulation's layout."""
+    """[C, 24, M] public points (the affine table, chunk partials) -> the
+    kernels' rows [M, C, 12]."""
     if not table16.is_cuda:
         return table16
     return lb.to_u32_layout(table16).permute(2, 0, 1).contiguous()

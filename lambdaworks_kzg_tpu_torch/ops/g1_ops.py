@@ -3,7 +3,10 @@ CUDA kernels (`ops/kernels.py`), and the CPU path. `madd`, `add` and `dbl`
 are the point ops; `bucket_accumulate` and `bucket_reduce` are the
 fixed-base MSM's two stages, written over them as the JAX package writes
 them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
-`_tree_sum_lanes`); `fixedbase_table` builds the MSM's table, as
+`_tree_sum_lanes`), and `accumulate_chunks` and `reduce_chunks` the
+balanced schedule the MSM kernels run instead (chunks of at most L
+members a lane, their partials merged pairwise before the same fold);
+`fixedbase_table` builds the MSM's table, as
 `build_fixedbase_tables` does there. `decompress_xy`, `scalar_mul` and
 `subgroup_mask` are the batched G1 steps of the JAX package's
 `ops/g1_batch.py` (`_xy_from_x` + `_pick_sign`, the `fori_loop`s of
@@ -126,7 +129,7 @@ def madd(p: torch.Tensor, q_aff: torch.Tensor, q_valid: torch.Tensor) -> torch.T
     return _sel_pt(~q_valid, p, out)
 
 
-# -- the fixed-base MSM's stages (plain versions of csrc/msm.cu) -----------
+# -- the fixed-base MSM's stages as the JAX package schedules them ----------
 
 
 def bucket_accumulate(table, order, bstart, c: int, groups: int) -> torch.Tensor:
@@ -209,6 +212,114 @@ def bucket_reduce(buckets: torch.Tensor, c: int, groups: int) -> torch.Tensor:
     (blob, group), then each blob's G group sums added pairwise."""
     sums = fold_reduce(buckets, c)  # [3, L, B G]
     return tree_sum_lanes(sums.reshape(sums.shape[:-1] + (-1, groups)))
+
+
+# -- the balanced schedule of the MSM kernels (plain versions of csrc/msm.cu) --
+#
+# `bucket_accumulate` deals a bucket's members to G lanes, so digits that
+# crowd into one bucket lengthen a lane's chain without bound. The kernels
+# cut each blob's digit-sorted members into chunks of at most L that never
+# cross a bucket boundary, one chunk a lane, and merge each bucket's chunk
+# partials pairwise before the fold. The sums are reordered, so the
+# buckets and the MSM equal the schedule above in affine form only.
+
+SLOT_ALIGN = 128  # a blob's chunk slots: whole blocks of the accumulation kernel
+
+
+def chunk_slots(n_members: int, c: int, chunk: int) -> int:
+    """Chunk slots a blob of n_members takes at L = chunk: bucket j has
+    ceil(k_j / L) <= k_j / L + 1 chunks, so ceil(M / L) + 2^c bounds them
+    for any digits; rounded up to a multiple of SLOT_ALIGN."""
+    k = -(-n_members // chunk) + (1 << c)
+    return -(-k // SLOT_ALIGN) * SLOT_ALIGN
+
+
+def chunk_plan(bstart: torch.Tensor, n_members: int, chunk: int):
+    """bstart [B, 2^c] -> (first [B, 2^c + 1], bend [B, 2^c]), int64:
+    bucket j's chunks are slots first[b, j] .. first[b, j + 1] - 1, chunk
+    t of them holding the sorted members bstart[b, j] + t L .. min(+ L,
+    bend[b, j]) - 1; bucket 0 (weight 0; invalid members) has none, and
+    first[b, 2^c] is the blob's chunk count."""
+    bstart = bstart.long()
+    bend = torch.cat([bstart[:, 1:], bstart.new_full((bstart.shape[0], 1), n_members)], dim=1)
+    chunks = (bend - bstart + chunk - 1) // chunk
+    chunks[:, 0] = 0
+    return torch.cat([chunks.new_zeros(chunks.shape[0], 1), chunks.cumsum(1)], dim=1), bend
+
+
+def chunk_lanes(bstart: torch.Tensor, n_members: int, c: int, chunk: int):
+    """Each chunk slot's (bucket, first member, member count), [B, K]
+    int64 each: the slots past a blob's chunks have count 0."""
+    first, bend = chunk_plan(bstart, n_members, chunk)
+    slots = torch.arange(chunk_slots(n_members, c, chunk), device=bstart.device)
+    slots = slots.expand(bstart.shape[0], -1).contiguous()
+    live = slots < first[:, -1:]
+    bucket = torch.searchsorted(first[:, 1:].contiguous(), slots, right=True).clamp(max=(1 << c) - 1)
+    start = bstart.long().gather(1, bucket) + (slots - first.gather(1, bucket)) * chunk
+    count = torch.where(live, (bend.gather(1, bucket) - start).clamp(max=chunk), 0)
+    return bucket, start, count
+
+
+def accumulate_chunks(table, order, bstart, c: int, chunk: int) -> torch.Tensor:
+    """The balanced bucket accumulation over a batch of blobs.
+
+    table: [2, L, W N] affine rows; order: [B, W N] member indices in
+    digit-sorted order per blob; bstart: [B, 2^c] where bucket j's run
+    starts. Returns chunk partials [3, L, B K], K = chunk_slots(W N, c,
+    chunk): slot s of blob b (lane b K + s) sums its chunk's members in
+    order, one `madd` per round over every lane (the first round lifts);
+    slots past the blob's chunks stay at infinity."""
+    n_blobs, n_members = order.shape
+    _, start, count = chunk_lanes(bstart, n_members, c, chunk)
+    acc = infinity_like((), count.numel(), table.device)
+    order = order.long()
+    for t in range(int(count.max()) if count.numel() else 0):
+        member = order.gather(1, (start + t).clamp(max=n_members - 1))
+        acc = madd(acc, table.index_select(-1, member.reshape(-1)), (count > t).reshape(-1))
+    return acc
+
+
+def merge_schedule(bstart: torch.Tensor, n_members: int, c: int, chunk: int) -> list:
+    """The pairwise merge of each bucket's chunk partials, a tree in chunk
+    order: per level, (left, right) index tensors over the flat [B K]
+    slots. Level l adds slot left + 2^(l-1) into left, for each left at
+    chunk t = 0 mod 2^l of a bucket with more than t + 2^(l-1) chunks; a
+    node with no right child waits for the next level."""
+    first, _ = chunk_plan(bstart, n_members, chunk)
+    bucket, _, count = chunk_lanes(bstart, n_members, c, chunk)
+    n_slots = bucket.shape[1]
+    t = torch.arange(n_slots, device=bstart.device) - first.gather(1, bucket)
+    chunks = first.gather(1, bucket + 1) - first.gather(1, bucket)
+    flat = torch.arange(bucket.numel(), device=bstart.device).reshape(bucket.shape)
+    levels, half = [], 1
+    while True:
+        pick = (count > 0) & (t % (2 * half) == 0) & (t + half < chunks)
+        if not bool(pick.any()):
+            return levels
+        left = flat[pick]
+        levels.append((left, left + half))
+        half *= 2
+
+
+def merge_chunks(partials, bstart, c: int, chunk: int, n_members: int) -> torch.Tensor:
+    """Chunk partials [3, L, B K] -> bucket sums [3, L, B 2^c]: each
+    bucket's partials merged by `merge_schedule`, the root in chunk 0's
+    slot; infinity for an empty bucket and for bucket 0."""
+    out = partials.clone()
+    for left, right in merge_schedule(bstart, n_members, c, chunk):
+        out[..., left] = add(out[..., left], out[..., right])
+    first, _ = chunk_plan(bstart, n_members, chunk)
+    n_blobs, nb = bstart.shape
+    root = first[:, :nb] + torch.arange(n_blobs, device=bstart.device)[:, None] * (out.shape[-1] // n_blobs)
+    buckets = out.index_select(-1, root.reshape(-1).clamp(max=out.shape[-1] - 1))
+    filled = (first[:, 1:] > first[:, :nb]).reshape(-1)
+    return _sel_pt(filled, buckets, torch.zeros_like(buckets))
+
+
+def reduce_chunks(partials, bstart, c: int, chunk: int, n_members: int) -> torch.Tensor:
+    """Chunk partials [3, L, B K] -> [3, L, B]: `merge_chunks`, then
+    `fold_reduce` per blob."""
+    return fold_reduce(merge_chunks(partials, bstart, c, chunk, n_members), c)
 
 
 # -- the fixed-base table (plain version of csrc/table.cu) ------------------

@@ -10,9 +10,10 @@ function); their plain versions are `madd`, `dbl` and `add` of
 of points, with every level of the plain `g1_ops.fold` in one launch;
 `g1_add` is its body on two rows.
 `g1_bucket_accumulate` and `g1_bucket_reduce` (msm.cu) run the fixed-base
-MSM's lock-step madd rounds and its fold reduce with the group tree, each
-in one launch per batch of blobs; their plain versions are
-`g1_ops.bucket_accumulate` and `g1_ops.bucket_reduce`.
+MSM's madd rounds (chunks of at most L members of a bucket, one a lane)
+and its reduce (each bucket's chunk partials merged pairwise, then the
+fold), each in one launch per batch of blobs; their plain versions are
+`g1_ops.accumulate_chunks` and `g1_ops.reduce_chunks`.
 `g1_fixedbase_table` (table.cu) builds the fixed-base table, doublings and
 affine step, in one launch straight into the accumulation's row layout;
 its plain version is `g1_ops.fixedbase_table`. `g1_decompress`,
@@ -64,7 +65,8 @@ name of the building process's own and moved into place whole
 Wrappers take the kernel layout, int32 tensors that hold u32 limbs
 (`limbs.to_u32_layout`): [3, 12, M] Jacobian, [2, 12, M] affine, a bool[M]
 mask, and for the MSM the table as rows [W N, 2, 12] with int32 `order`
-and `bstart`, all contiguous on one CUDA device; the table build takes
+and `bstart`, its chunk partials as rows [B K, 3, 12], all contiguous on
+one CUDA device; the table build takes
 the basis as [2, 12, N] affine with valid bool[N] and returns the rows;
 the batched G1 kernels take x as [12, M], scalars as [8, M] u32 words
 (or [8, 1], one scalar for every lane) and return bool[M] masks; the FFT
@@ -96,23 +98,20 @@ import torch
 from ..constants import num_windows
 from ..utils import build as B
 from . import limbs as lb, pairing_levels, tower_ops
+from .g1_ops import chunk_slots
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("g1.cu", "msm.cu", "table.cu", "g1_batch.cu", "pairing.cu", "fr_poly.cu")
-HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh", "levels.cuh", "fr.cuh")
+HEADERS = ("fp.cuh", "fp_coop.cuh", "g1.cuh", "g1_coop.cuh", "levels.cuh", "fr.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NL = 12  # 32-bit limbs per Fp element in the kernel layout
 FR_NL = 8  # 32-bit limbs per Fr element
 MAX_C = 12  # window bits the MSM and table kernels take (auto_window picks 4, 8, 12)
-MAX_GROUPS = 32  # lane groups g1_bucket_reduce sums in its last block
+MAX_CHUNK = 1024  # members a chunk of g1_bucket_accumulate takes at most
 MAX_FOLD_ROWS = 256  # rows g1_fold takes: K / 2 points a column in shared memory
-# g1_bucket_reduce keeps a block's 3 * 2^(c-1) points of 144 bytes in
-# shared memory when they fit beside its 32 group sums in a block's 227 KB
-_SMEM_PER_BLOCK = 232448
-_POINT_BYTES = 144
 
 _lock = threading.Lock()
 _lib = None
@@ -190,8 +189,8 @@ def _load():
             lib.lwkzg_g1_madd.argtypes = [vp, vp, vp, vp, ci, vp]
             lib.lwkzg_g1_add.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_dbl.argtypes = [vp, vp, ci, vp]
-            lib.lwkzg_g1_bucket_accumulate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-            lib.lwkzg_g1_bucket_reduce.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+            lib.lwkzg_g1_bucket_accumulate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            lib.lwkzg_g1_bucket_reduce.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
             lib.lwkzg_g1_fixedbase_table.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
             lib.lwkzg_fp_sqr_check.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_decompress.argtypes = [vp, vp, vp, vp, ci, vp]
@@ -253,12 +252,6 @@ def _check_c(c: int) -> None:
         raise ValueError(f"window bits c must be in [1, {MAX_C}], got {c}")
 
 
-def _check_window(c: int, groups: int) -> None:
-    _check_c(c)
-    if not 1 <= groups <= MAX_GROUPS or groups & (groups - 1):
-        raise ValueError(f"groups must be a power of two in [1, {MAX_GROUPS}], got {groups}")
-
-
 def _run(name: str, t: torch.Tensor, *args) -> None:
     """Launch on t's device and its current stream (the last argument)."""
     fn = _load()[name]
@@ -314,13 +307,20 @@ def _dbl(k: _Kernel, p: torch.Tensor):
     return out
 
 
+def _check_chunk(c: int, chunk: int) -> None:
+    _check_c(c)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+
+
 def _bucket_accumulate(k: _Kernel, table: torch.Tensor, order: torch.Tensor,
-                       bstart: torch.Tensor, c: int, groups: int):
+                       bstart: torch.Tensor, c: int, chunk: int):
     """table [W N, 2, 12] affine rows; order [B, W N] member indices in
     digit-sorted order, each in [0, W N); bstart [B, 2^c] non-decreasing
     run starts in [0, W N] (as `torch.sort` and `torch.searchsorted` give
-    them) -> buckets [3, 12, B G 2^c]."""
-    _check_window(c, groups)
+    them) -> chunk partials, rows [B K, 3, 12], K = g1_ops.chunk_slots(W
+    N, c, chunk): chunks of at most `chunk` members, one a thread."""
+    _check_chunk(c, chunk)
     dev = table.device
     n_members = table.shape[0]
     _check(table, "table", (n_members, 2, NL), dev)
@@ -329,43 +329,33 @@ def _bucket_accumulate(k: _Kernel, table: torch.Tensor, order: torch.Tensor,
     b = order.shape[0]
     _check(order, "order", (b, n_members), dev)
     _check(bstart, "bstart", (b, 1 << c), dev)
-    m = b * groups << c
-    out = torch.empty((3, NL, m), dtype=torch.int32, device=dev)
-    if m and n_members:
+    slots = chunk_slots(n_members, c, chunk)
+    out = torch.empty((b * slots, 3, NL), dtype=torch.int32, device=dev)
+    if b:
         _run("bucket_accumulate", table, table.data_ptr(), order.data_ptr(), bstart.data_ptr(),
-             out.data_ptr(), n_members, c, groups, b)
+             out.data_ptr(), n_members, c, chunk, slots, b)
         k.launches += 1
-    else:
-        out.zero_()
     return out
 
 
-def _reduce_in_shared_memory(c: int) -> bool:
-    """Whether g1_bucket_reduce holds a block's points in shared memory."""
-    return (3 << (c - 1)) * _POINT_BYTES + MAX_GROUPS * _POINT_BYTES + 16 <= _SMEM_PER_BLOCK
-
-
-def _bucket_reduce(k: _Kernel, buckets: torch.Tensor, c: int, groups: int):
-    """buckets [3, 12, B G 2^c] -> [3, 12, B]: per blob, the fold reduce
-    of each group's buckets and the pairwise sum of its G group sums."""
-    _check_window(c, groups)
-    dev = buckets.device
-    m = buckets.shape[-1]
-    per_blob = groups << c
-    if m % per_blob:
-        raise ValueError(f"bucket lanes ({m}) must be a multiple of groups * 2^c = {per_blob}")
-    b = m // per_blob
-    _check(buckets, "buckets", (3, NL, m), dev)
+def _bucket_reduce(k: _Kernel, partials: torch.Tensor, bstart: torch.Tensor, c: int,
+                   chunk: int, n_members: int):
+    """Chunk partials [B K, 3, 12] of `bucket_accumulate` on blobs of
+    n_members, with their bstart [B, 2^c] -> [3, 12, B]: per blob, each
+    bucket's partials merged pairwise, then the fold reduce. The merge
+    overwrites the partials."""
+    _check_chunk(c, chunk)
+    dev = partials.device
+    b = bstart.shape[0]
+    slots = chunk_slots(n_members, c, chunk)
+    _check(partials, "partials", (b * slots, 3, NL), dev)
+    _check(bstart, "bstart", (b, 1 << c), dev)
     out = torch.empty((3, NL, b), dtype=torch.int32, device=dev)
     if b:
-        group_sums = torch.empty((b * groups, 3 * NL), dtype=torch.int32, device=dev)
-        done = torch.zeros(b, dtype=torch.int32, device=dev)
-        scratch = None
-        if not _reduce_in_shared_memory(c):
-            scratch = torch.empty((b * groups, 3 << (c - 1), 3 * NL), dtype=torch.int32, device=dev)
-        _run("bucket_reduce", buckets, buckets.data_ptr(),
-             None if scratch is None else scratch.data_ptr(),
-             group_sums.data_ptr(), done.data_ptr(), out.data_ptr(), c, groups, b)
+        work = torch.zeros(b, dtype=torch.int32, device=dev)  # a barrier count a blob
+        scratch = torch.empty((b, 3 << (c - 1), 3 * NL), dtype=torch.int32, device=dev)
+        _run("bucket_reduce", partials, partials.data_ptr(), bstart.data_ptr(), work.data_ptr(),
+             scratch.data_ptr(), out.data_ptr(), n_members, c, chunk, slots, b)
         k.launches += 1
     return out
 

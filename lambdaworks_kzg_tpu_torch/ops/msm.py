@@ -2,24 +2,31 @@
 and the generic MSM over any points built on it.
 
 The port of the fixed-base part of the JAX package's `ops/msm.py`
-(`build_fixedbase_tables`, `msm_fixedbase_device`; its fold
-`bucket_reduce` and `_tree_sum_lanes` are `g1_ops.bucket_reduce`, the
-plain version of the reduce kernel, and its table build is
+(`build_fixedbase_tables`, `msm_fixedbase_device`; its accumulation and
+its fold `bucket_reduce` with `_tree_sum_lanes` are
+`g1_ops.bucket_accumulate` and `bucket_reduce`, and its table build is
 `g1_ops.fixedbase_table`, the plain version of the table kernel). The basis is fixed for the life
 of a setup, so each window's shift [2^(c w)] P_i is precomputed once; the
 MSM then feeds all W N (digit, shifted point) pairs into one 2^c-bucket
-grid, split over `groups` lane groups, and needs no Horner combine over
-windows. A batch of blobs shares one sort, one bucket accumulation and
-one reduce.
+grid and needs no Horner combine over windows. A batch of blobs shares
+one sort, one bucket accumulation and one reduce. Each blob's sorted
+members are cut into chunks of at most `chunk` members of one bucket,
+one chunk a lane, and each bucket's chunk partials are merged pairwise
+before the fold (`g1_ops.accumulate_chunks`, `reduce_chunks`, the plain
+versions of the MSM kernels): no digit pattern lengthens a lane's chain,
+where the JAX package's schedule deals a bucket to G lane groups.
 
 The generic MSM (`msm_device`, `msm`; JAX `msm_device` +
 `combine_windows_host`) is a fixed-base MSM over a table built for the
 call: one table build, one sort, one accumulation and one reduce, on
 the same three kernels, and no Horner combine over windows. Its result
 is the same group element as JAX's, so the two compare in affine form.
-JAX's `parts` and top-window alias split (a TPU sort and lock-step
-workaround) have no counterpart; a scalar at or above 2^scalar_bits
-raises where JAX drops its high windows.
+JAX's top-window alias split (the 255-bit top window's few buckets
+spread over free alias buckets) has its counterpart in the chunks, which
+spread any bucket over lanes; its `parts` split (a cap on the packed
+sort key of its TPU sort) has none, since `torch.sort` sorts int32 digits
+of any count. A scalar at or above 2^scalar_bits raises where JAX drops
+its high windows.
 
 Every function takes `ops`, the point-op namespace: `ops/dispatch.py`
 (the default: Hopper kernels for CUDA tensors, plain versions on the
@@ -32,7 +39,19 @@ import torch
 from ..constants import R, num_windows
 from . import dispatch, g1_ops, limbs as lb
 
-GROUPS = 8  # lane groups of the bucket grid, as the JAX DeviceBackend fixes them
+MIN_CHUNK, MAX_CHUNK = 8, 256
+
+
+def chunk_length(n_blobs: int, n_members: int) -> int:
+    """Members a chunk lane of the accumulation takes at most (L) for a
+    batch: 8 up to 2^20 members in all (the commit path, where one
+    thread's chain of L madds bounds the accumulation and the reduce's
+    merge grows with the chunks), then doubling with the members, up to
+    256, so that the chunks stay near 2^17 where the IMADs bound it."""
+    chunk = MIN_CHUNK
+    while chunk < MAX_CHUNK and chunk << 17 < n_blobs * n_members:
+        chunk *= 2
+    return chunk
 
 
 def window_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
@@ -81,39 +100,41 @@ def sort_members(digits: torch.Tensor, c: int):
 
 
 def msm_fixedbase_device(table: torch.Tensor, table_valid: torch.Tensor,
-                         scalars: torch.Tensor, c: int = 8, groups: int = 8,
+                         scalars: torch.Tensor, c: int = 8, chunk: int | None = None,
                          ops=dispatch) -> torch.Tensor:
     """Fixed-base MSM of B blobs -> Jacobian points [3, *, B] in `ops`'
     layout (B = 1 for [16, N] scalars).
 
     table: the affine table in `ops`' table layout (`to_table_layout`);
     scalars: [B, 16, N] or [16, N] plain Fr limbs (int64) on the table's
-    device. Each blob's members are sorted by digit; bucket b's run is
-    dealt round-robin to the lane groups (lane (g, b), stride G), so each
-    group-bucket takes ceil(k_b / G) members (`bucket_accumulate`). The
-    reduce folds every group's buckets and adds the group sums: the window
-    weights are in the table. Nothing is read back to the host."""
+    device. Each blob's members are sorted by digit; bucket j's run is cut
+    into ceil(k_j / chunk) chunks (chunk: `chunk_length` of the batch when
+    None), each summed on a lane of its own (`accumulate_chunks`). The reduce merges each bucket's chunk sums
+    pairwise and folds the buckets: the window weights are in the table.
+    Nothing is read back to the host."""
     if scalars.dim() == 2:
         scalars = scalars[None]
-    return msm_fixedbase_digits(table, table_valid, fixedbase_digits(scalars, c), c, groups, ops)
+    return msm_fixedbase_digits(table, table_valid, fixedbase_digits(scalars, c), c, chunk, ops)
 
 
 def msm_fixedbase_digits(table: torch.Tensor, table_valid: torch.Tensor, digits: torch.Tensor,
-                         c: int = 8, groups: int = 8, ops=dispatch) -> torch.Tensor:
+                         c: int = 8, chunk: int | None = None, ops=dispatch) -> torch.Tensor:
     """`msm_fixedbase_device` from each member's digit: digits [B, M] for
     a table of M members (one digit per table row, in the table's row
     order) -> Jacobian points [3, *, B] in `ops`' layout."""
     digits = torch.where(table_valid, digits, torch.zeros_like(digits))
     order, bstart = sort_members(digits, c)
-    buckets = ops.bucket_accumulate(table, order, bstart, c, groups)
-    return ops.bucket_reduce(buckets, c, groups)
+    if chunk is None:
+        chunk = chunk_length(*order.shape)
+    partials = ops.accumulate_chunks(table, order, bstart, c, chunk)
+    return ops.reduce_chunks(partials, bstart, c, chunk, order.shape[1])
 
 
-def msm_fixedbase(table, table_valid, scalars, c: int = 8, groups: int = 8,
+def msm_fixedbase(table, table_valid, scalars, c: int = 8, chunk: int | None = None,
                   ops=dispatch):
     """Fixed-base MSM -> host Jacobian point (Python ints) for [16, N]
     scalars, or a list of B points for [B, 16, N], in one transfer."""
-    pt = msm_fixedbase_device(table, table_valid, scalars, c, groups, ops)
+    pt = msm_fixedbase_device(table, table_valid, scalars, c, chunk, ops)
     points = g1_ops.points_to_host(ops.from_op_layout(pt))
     return points if scalars.dim() == 3 else points[0]
 
@@ -138,7 +159,7 @@ def check_scalar_bits(scalars: torch.Tensor, scalar_bits: int) -> None:
 
 
 def msm_device(points: torch.Tensor, valid: torch.Tensor, scalars: torch.Tensor, c: int,
-               scalar_bits: int = 255, groups: int = 8, ops=dispatch) -> torch.Tensor:
+               scalar_bits: int = 255, chunk: int | None = None, ops=dispatch) -> torch.Tensor:
     """sum_i k_i P_i -> Jacobian [3, *, 1] in `ops`' layout.
 
     points: [2, 24, N] public affine Montgomery limbs with valid bool[N]
@@ -148,10 +169,11 @@ def msm_device(points: torch.Tensor, valid: torch.Tensor, scalars: torch.Tensor,
     CUDA device), then the fixed-base MSM runs over it."""
     check_scalar_bits(scalars, scalar_bits)
     table, table_valid = ops.fixedbase_table(points, valid, c)
-    return msm_fixedbase_device(table, table_valid, scalars, c, groups, ops)
+    return msm_fixedbase_device(table, table_valid, scalars, c, chunk, ops)
 
 
-def msm(points, valid, scalars, c: int, scalar_bits: int = 255, groups: int = 8, ops=dispatch):
+def msm(points, valid, scalars, c: int, scalar_bits: int = 255, chunk: int | None = None,
+        ops=dispatch):
     """Generic MSM -> host Jacobian point (Python ints)."""
-    pt = msm_device(points, valid, scalars, c, scalar_bits, groups, ops)
+    pt = msm_device(points, valid, scalars, c, scalar_bits, chunk, ops)
     return g1_ops.points_to_host(ops.from_op_layout(pt))[0]

@@ -46,7 +46,6 @@ import torch
 from ..constants import num_windows
 from ..ops import dispatch, g1_ops, msm as msm1
 from ..ops.g1_ops import L
-from ..ops.msm import GROUPS
 from . import distributed
 from .mesh import to_device
 
@@ -177,7 +176,7 @@ class ShardedBasis:
                 mine = blobs[..., p * self.width:(p + 1) * self.width] if self.shard == "points" else blobs
                 table, valid = self.tables[(dev, p)]
                 digits = self._digits(to_device(mine, dev), p)
-                row.append((dev, msm1.msm_fixedbase_digits(table, valid, digits, self.c, GROUPS)))
+                row.append((dev, msm1.msm_fixedbase_digits(table, valid, digits, self.c)))
             partials.append(row)
         lead = self.mesh.lead
         sums = []

@@ -12,6 +12,10 @@ process of its own. After a warm-up it measures:
   - `compute_blob_kzg_proof` on seeded blobs, host clock from the call to
     the proof's bytes, `reps` calls;
   - `compute_blob_kzg_proof_batch` of 6 blobs, ms per proof, `reps` calls;
+  - `blob_to_kzg_commitment` on one blob and `blob_to_kzg_commitment_batch`
+    of 6 (ms a blob), host clock, `reps` calls each;
+  - one proof and one commitment under torch.profiler (kernels, copies,
+    device busy);
   - `compute_kzg_proof` at a root of unity (z = w_1, the in-domain
     quotient), host clock, `reps` calls;
   - `TorchBackend.open_scalars` on one blob's limbs already on the card
@@ -95,6 +99,10 @@ def main() -> int:
     single = host_ms(lambda: ctx.compute_blob_kzg_proof(blobs[1], commitments[1]), args.reps)
     batch = [t / 6 for t in host_ms(lambda: ctx.compute_blob_kzg_proof_batch(blobs, commitments),
                                      args.reps)]
+    commit = host_ms(lambda: ctx.blob_to_kzg_commitment(blobs[3]), args.reps)
+    commit6 = [t / 6 for t in host_ms(lambda: ctx.blob_to_kzg_commitment_batch(blobs), args.reps)]
+    proof_device = device_work(lambda: ctx.compute_blob_kzg_proof(blobs[1], commitments[1]))
+    commit_device = device_work(lambda: ctx.blob_to_kzg_commitment(blobs[3]))
     z_root = ctx.backend.domain.roots_brp_ints[1]
     ctx.compute_kzg_proof(blobs[0], z_root.to_bytes(32, "little"))
     at_root = host_ms(lambda: ctx.compute_kzg_proof(blobs[2], z_root.to_bytes(32, "little")), args.reps)
@@ -130,6 +138,9 @@ def main() -> int:
            "proof_ms": single, "proof_ms_median": statistics.median(single),
            "root_proof_ms": at_root, "root_proof_ms_median": statistics.median(at_root),
            "batch6_ms_per_proof": batch, "batch6_ms_per_proof_median": statistics.median(batch),
+           "commit_ms": commit, "commit_ms_median": statistics.median(commit),
+           "commit6_ms_per_blob": commit6, "commit6_ms_per_blob_median": statistics.median(commit6),
+           "proof_device": proof_device, "commit_device": commit_device,
            "open_scalars_ms": opened, "open_scalars_ms_median": statistics.median(opened),
            "evaluate64_ms": evaluated, "evaluate64_ms_median": statistics.median(evaluated),
            "fr": fr}
@@ -139,7 +150,9 @@ def main() -> int:
           f"batch of 6 median "
           f"{out['batch6_ms_per_proof_median']:.3f} ms a proof, open_scalars median "
           f"{out['open_scalars_ms_median']:.3f} ms, 64 evaluations median "
-          f"{out['evaluate64_ms_median']:.3f} ms", flush=True)
+          f"{out['evaluate64_ms_median']:.3f} ms; commitment median {out['commit_ms_median']:.3f} ms, "
+          f"batch of 6 {out['commit6_ms_per_blob_median']:.3f} ms a blob; a proof's device work "
+          f"{proof_device}, a commitment's {commit_device}", flush=True)
     print(json.dumps(out))
     return 0
 

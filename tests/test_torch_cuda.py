@@ -18,12 +18,12 @@ is marked `cuda` and skips without a card: the kernels have no CPU mode.
 Basis: the first N points of the mainnet Lagrange basis, one of them at
 infinity. For c in {3, 4, 6, 12}, g1_fixedbase_table's rows equal the
 plain table (`g1_ops.fixedbase_table`) limb for limb, and
-g1_bucket_accumulate over three seeded blobs (the last nearly all zero)
-equals `g1_ops.bucket_accumulate` limb for limb, and g1_bucket_reduce
-equals `g1_ops.bucket_reduce` on those buckets and on buckets with
-points at infinity, equal pairs (the doubling branch) and opposite pairs
-(a sum at infinity). At c = 12 the reduce keeps its points in global
-memory instead of shared memory.
+g1_bucket_accumulate over three seeded blobs (the last nearly all zero),
+at chunks of 3 and 16 members, equals `g1_ops.accumulate_chunks`
+limb for limb, and g1_bucket_reduce equals `g1_ops.reduce_chunks` on
+those partials and on partials with points at infinity, equal and
+opposite pairs inside a bucket's merge, and (one chunk a bucket) equal
+and opposite bucket sums across the first fold.
 
 On the mainnet setup: the quotient of a dense seeded blob, computed on
 the card, equals the host quotient, and both MSM kernels equal their
@@ -114,7 +114,7 @@ pytestmark = [
 ]
 
 N = 32
-GROUPS = 4
+CHUNKS = (3, 16)  # members a chunk: many chunks a bucket, and few
 FIXEDBASE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cache",
                          "fixedbase_62bcf72bba2b37b8_c8.npz")
 N_BLOBS = 3
@@ -379,23 +379,37 @@ def _members(table_valid, c, seed):
     return msm.sort_members(torch.where(table_valid, digits, torch.zeros_like(digits)), c)
 
 
-def _special_buckets(points, c, seed):
-    """[3, 24, B G 2^c] Jacobian buckets: Z != 1 on every third lane, and
-    per group one at infinity, one pair equal and one pair opposite
-    across the first fold (lanes j and j + 2^(c-1))."""
+def _special_partials(points, bstart, n_members, c, chunk, seed):
+    """[3, 24, B K] chunk partials of Jacobian points with Z != 1 on every
+    third slot; in buckets of several chunks, chunk 0 at infinity, or
+    chunk 1 equal or opposite to chunk 0 (the merge doubles or cancels);
+    of two one-chunk buckets j and j + 2^(c-1), the first at infinity, or
+    the second equal or opposite to it (the fold's cases)."""
+    first, _ = g1_ops.chunk_plan(bstart.cpu(), n_members, chunk)
+    slots = g1_ops.chunk_slots(n_members, c, chunk)
     g = torch.Generator().manual_seed(seed)
-    m = N_BLOBS * GROUPS << c
-    pick = torch.randint(0, N, (m,), generator=g).to(points.device)
-    bk = g1_ops.lift(points[:, :, pick], torch.ones(m, dtype=torch.bool, device=points.device))
-    lane = torch.arange(m, device=points.device)
-    bk = torch.where((lane % 3 == 0)[None, None], g1_ops.dbl(bk), bk)
+    m = bstart.shape[0] * slots
+    pts = points.cpu()[:, :, torch.randint(0, N, (m,), generator=g)]
+    bk = g1_ops.lift(pts, torch.ones(m, dtype=torch.bool))
+    bk = torch.where((torch.arange(m) % 3 == 0)[None, None], g1_ops.dbl(bk), bk)
     h = 1 << (c - 1)
-    base = torch.arange(0, m, 1 << c, device=points.device)
-    bk[:, :, base + 2] = 0
-    bk[:, :, base + 1 + h] = bk[:, :, base + 1]
-    opp = bk[:, :, base + 3]
-    bk[:, :, base + 3 + h] = torch.stack([opp[0], FP.neg(opp[1]), opp[2]])
-    return bk.contiguous()
+    for b in range(bstart.shape[0]):
+        f = [b * slots + int(x) for x in first[b]]
+        for j in range(1, 1 << c):
+            s0, n = f[j], f[j + 1] - f[j]
+            if n == 1 and j < h and f[j + h + 1] - f[j + h] == 1:
+                s0, s1 = s0, f[j + h]
+            elif n >= 2:
+                s1 = s0 + 1
+            else:
+                continue
+            if j % 3 == 0:
+                bk[:, :, s0] = 0
+            else:
+                bk[:, :, s1] = bk[:, :, s0]
+                if j % 3 == 2:
+                    bk[1, :, s1] = FP.neg(bk[1, :, s0 : s0 + 1])[:, 0]
+    return bk.to(points.device)
 
 
 @pytest.mark.parametrize("c", [3, 4, 6, 12])
@@ -403,21 +417,22 @@ def test_msm_kernels_match_plain_on_card(basis, c):
     points, valid = basis
     table, table_valid = msm.build_fixedbase_tables(points, valid, c)
     order, bstart = _members(table_valid, c, seed=20 + c)
-
-    before = kernels.bucket_accumulate.launches
-    got = kernels.bucket_accumulate(dispatch.to_table_layout(table), order, bstart, c, GROUPS)
-    want = g1_ops.bucket_accumulate(table, order, bstart, c, GROUPS)
-    torch.cuda.synchronize()
-    assert kernels.bucket_accumulate.launches == before + 1
-    assert torch.equal(lb.to_u16_layout(got), want)
-
-    for buckets in (want, _special_buckets(points, c, seed=c)):
-        before = kernels.bucket_reduce.launches
-        got = kernels.bucket_reduce(lb.to_u32_layout(buckets), c, GROUPS)
+    n_members = order.shape[1]
+    for chunk in CHUNKS:
+        want = g1_ops.accumulate_chunks(table, order, bstart, c, chunk)
+        before = kernels.bucket_accumulate.launches
+        got = kernels.bucket_accumulate(dispatch.to_table_layout(table), order, bstart, c, chunk)
         torch.cuda.synchronize()
-        assert kernels.bucket_reduce.launches == before + 1
-        assert tuple(got.shape) == (3, 12, N_BLOBS)
-        assert torch.equal(lb.to_u16_layout(got), g1_ops.bucket_reduce(buckets, c, GROUPS))
+        assert kernels.bucket_accumulate.launches == before + 1
+        assert torch.equal(dispatch.from_table_layout(got), want), chunk
+        for partials in (want, _special_partials(points, bstart, n_members, c, chunk, seed=c)):
+            before = kernels.bucket_reduce.launches
+            got = kernels.bucket_reduce(dispatch.to_table_layout(partials), bstart, c, chunk, n_members)
+            torch.cuda.synchronize()
+            assert kernels.bucket_reduce.launches == before + 1
+            assert tuple(got.shape) == (3, 12, N_BLOBS)
+            assert torch.equal(lb.to_u16_layout(got),
+                               g1_ops.reduce_chunks(partials, bstart, c, chunk, n_members))
 
 
 def _dense_blob(rng, n=4096):
@@ -442,13 +457,16 @@ def test_msm_kernels_match_plain_on_a_real_quotient():
     digits = msm.fixedbase_digits(q, 8)
     assert int(msm.window_digits(q, 8)[0, -1].max()) > 0x40  # the top window is live
     order, bstart = msm.sort_members(torch.where(table_valid, digits, torch.zeros_like(digits)), 8)
-    got = kernels.bucket_accumulate(dispatch.to_table_layout(table16), order, bstart, 8, 8)
-    want = g1_ops.bucket_accumulate(table16, order, bstart, 8, 8)
+    n_members = order.shape[1]
+    chunk = msm.chunk_length(1, n_members)
+    got = kernels.bucket_accumulate(dispatch.to_table_layout(table16), order, bstart, 8, chunk)
+    want = g1_ops.accumulate_chunks(table16, order, bstart, 8, chunk)
     torch.cuda.synchronize()
-    assert torch.equal(lb.to_u16_layout(got), want)
-    reduced = kernels.bucket_reduce(got, 8, 8)
+    assert torch.equal(dispatch.from_table_layout(got), want)
+    reduced = kernels.bucket_reduce(got, bstart, 8, chunk, n_members)
     torch.cuda.synchronize()
-    assert torch.equal(lb.to_u16_layout(reduced), g1_ops.bucket_reduce(want, 8, 8))
+    assert torch.equal(lb.to_u16_layout(reduced),
+                       g1_ops.reduce_chunks(want, bstart, 8, chunk, n_members))
 
 
 def test_compute_blob_kzg_proof_matches_host_msm():

@@ -1,6 +1,6 @@
-"""The port's fixed-base MSM at N = 32, c in {3, 4, 6}, groups = 4 (the
-shapes of tests/test_msm_reduce.py), with a zero scalar and a source
-lane at infinity.
+"""The port's fixed-base MSM at N = 32, c in {3, 4, 6} (the shapes of
+tests/test_msm_reduce.py), chunks of 3 members (the JAX schedule's
+stages at groups = 4), with a zero scalar and a source lane at infinity.
 
 - the table equals the exact per-window shifts [2^(c w)] P_i computed by
   the host oracle, and the MSM equals `host/curve.g1_msm` in affine form,
@@ -10,12 +10,13 @@ lane at infinity.
   {3, 4, 6, 12} with every 7th lane invalid, and its window-axis batch
   affine step equals a per-lane `FP.inv` affine on lanes with Z = 0 and
   Z = 1; the table kernel's wrapper refuses what it does not take;
-- the MSM's two stages (the plain versions of the kernels
-  g1_bucket_accumulate and g1_bucket_reduce): the batched accumulation
-  equals each blob's alone and a round loop of the JAX package's
-  `g1_ops.madd` over the same members, limb for limb; the batched reduce
-  equals each blob's alone and the host oracle, on buckets with
-  infinities, equal pairs (the doubling branch) and opposite pairs;
+- the MSM's two stages as the JAX package schedules them
+  (`g1_ops.bucket_accumulate`, `bucket_reduce`; the kernels run the
+  chunked schedule of tests/test_torch_msm_chunks.py): the batched
+  accumulation equals each blob's alone and a round loop of the JAX
+  package's `g1_ops.madd` over the same members, limb for limb; the
+  batched reduce equals each blob's alone and the host oracle, on buckets
+  with infinities, equal pairs (the doubling branch) and opposite pairs;
 - the generic MSM (`msm.msm`, a fixed-base MSM over a table built for
   the call) equals the JAX host `g1_msm` in affine form at c in {4, 8}
   with points at infinity, zero scalars and r - 1, and
@@ -48,6 +49,7 @@ from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
 
 N = 32
 GROUPS = 4
+CHUNK = 3  # members a chunk lane of the port's MSM takes at most
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,7 +108,7 @@ def test_table_matches_host_oracle(basis, port_tables, c):
 def test_msm_fixedbase_matches_host_oracle(basis, port_tables, c):
     pts_aff, scalars, _, _ = basis
     table, table_valid = port_tables[c]
-    got = msm.msm_fixedbase(table, table_valid, msm.scalars_to_tensor(scalars), c=c, groups=GROUPS)
+    got = msm.msm_fixedbase(table, table_valid, msm.scalars_to_tensor(scalars), c=c, chunk=CHUNK)
     assert HC.points_eq(HC.FP_OPS, got, HC.g1_msm(scalars, pts_aff))
 
 
@@ -121,7 +123,7 @@ def test_window_digits_match_jax():
 
 def test_all_zero_scalars_give_infinity(basis, port_tables):
     table, table_valid = port_tables[4]
-    got = msm.msm_fixedbase(table, table_valid, msm.scalars_to_tensor([0] * N), c=4, groups=GROUPS)
+    got = msm.msm_fixedbase(table, table_valid, msm.scalars_to_tensor([0] * N), c=4, chunk=CHUNK)
     assert HC.is_infinity(HC.FP_OPS, got)
 
 
@@ -134,7 +136,7 @@ def test_table_and_msm_match_jax(basis, port_tables, c):
     assert np.array_equal(mine.numpy(), np.asarray(table).astype(np.int64))
     assert np.array_equal(mine_valid.numpy(), np.asarray(table_valid))
     want = JM.msm_fixedbase(table, table_valid, JM.scalars_to_device(scalars), c=c, groups=GROUPS)
-    got = msm.msm_fixedbase(mine, mine_valid, msm.scalars_to_tensor(scalars), c=c, groups=GROUPS)
+    got = msm.msm_fixedbase(mine, mine_valid, msm.scalars_to_tensor(scalars), c=c, chunk=CHUNK)
     assert HC.to_affine(HC.FP_OPS, got) == HC.to_affine(HC.FP_OPS, want)
 
 
@@ -159,7 +161,7 @@ def test_msm_fixedbase_batch_matches_host_oracle(basis, port_tables, c):
     table, table_valid = port_tables[c]
     blobs = _blob_scalars(3, seed=c)
     scalars = torch.stack([msm.scalars_to_tensor(s) for s in blobs])
-    got = msm.msm_fixedbase(table, table_valid, scalars, c=c, groups=GROUPS)
+    got = msm.msm_fixedbase(table, table_valid, scalars, c=c, chunk=CHUNK)
     assert len(got) == 3
     for pt, s in zip(got, blobs):
         assert HC.points_eq(HC.FP_OPS, pt, HC.g1_msm(s, pts_aff))
@@ -265,24 +267,26 @@ def test_bucket_reduce_matches_jax_fold_and_tree(basis):
 
 def test_msm_kernel_wrappers_refuse_what_they_do_not_take(port_tables):
     """CPU tensors route to the plain versions through dispatch and never
-    reach a kernel; the wrappers refuse them, and a window or group count
+    reach a kernel; the wrappers refuse them, and a window or chunk length
     their kernels do not take."""
     table, table_valid = port_tables[4]
     order, bstart = _members(table_valid, _blob_scalars(1, seed=3), 4)
+    n_members = order.shape[1]
     kernels.reset_counts()
-    buckets = dispatch.bucket_accumulate(table, order, bstart, 4, GROUPS)
-    assert torch.equal(buckets, g1_ops.bucket_accumulate(table, order, bstart, 4, GROUPS))
-    assert torch.equal(dispatch.bucket_reduce(buckets, 4, GROUPS),
-                       g1_ops.bucket_reduce(buckets, 4, GROUPS))
+    partials = dispatch.accumulate_chunks(table, order, bstart, 4, CHUNK)
+    assert torch.equal(partials, g1_ops.accumulate_chunks(table, order, bstart, 4, CHUNK))
+    assert torch.equal(dispatch.reduce_chunks(partials, bstart, 4, CHUNK, n_members),
+                       g1_ops.reduce_chunks(partials, bstart, 4, CHUNK, n_members))
     rows = lb.to_u32_layout(table).permute(2, 0, 1).contiguous()
+    part_rows = lb.to_u32_layout(partials).permute(2, 0, 1).contiguous()
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.bucket_accumulate(rows, order, bstart, 4, GROUPS)
+        kernels.bucket_accumulate(rows, order, bstart, 4, CHUNK)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.bucket_reduce(lb.to_u32_layout(buckets), 4, GROUPS)
+        kernels.bucket_reduce(part_rows, bstart, 4, CHUNK, n_members)
     with pytest.raises(ValueError, match="window bits"):
-        kernels.bucket_reduce(lb.to_u32_layout(buckets), 13, GROUPS)
-    with pytest.raises(ValueError, match="groups"):
-        kernels.bucket_accumulate(rows, order, bstart, 4, 3)
+        kernels.bucket_reduce(part_rows, bstart, 13, CHUNK, n_members)
+    with pytest.raises(ValueError, match="chunk"):
+        kernels.bucket_accumulate(rows, order, bstart, 4, 0)
     assert [k.launches for k in kernels.ALL] == [0] * len(kernels.ALL)
 
 
@@ -361,7 +365,7 @@ def test_generic_msm_matches_host_oracle(basis, c):
     pts_aff, scalars = _generic_inputs(basis, 6, seed=c)
     points, valid = g1_ops.make_points_host(pts_aff)
     got = msm.msm(lb.as_limb_tensor(points), torch.from_numpy(valid), msm.scalars_to_tensor(scalars),
-                  c, groups=GROUPS)
+                  c, chunk=CHUNK)
     assert HC.to_affine(HC.FP_OPS, got) == HC.to_affine(HC.FP_OPS, HC.g1_msm(scalars, pts_aff))
 
 
