@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds the seventeen kernels and the three field checks from
+  2. nvcc builds the eighteen kernels and the three field checks from
      lambdaworks_kzg_tpu_torch/csrc (one nvcc per source, all at once,
      linked into one library), and beside it g++ the native tier
      (csrc/native/bls12_381.cpp, native.py); ptxas' report, and per pairing kernel its
@@ -41,7 +41,12 @@ Phases, each printed with its seconds:
      quotient (a dense seeded blob at a seeded z, evaluated and divided on
      the card and equal to the host's): both MSM kernels against their
      plain versions on its members, and its MSM on the kernels against
-     the host oracle g1_msm in affine form; g1_decompress on the 4096
+     the host oracle g1_msm in affine form; g1_window_combine against
+     g1_ops.combine_windows at c = 4, 8 and 12 on the window sums of one
+     MSM (all finite, Z != 1) and of three (a window at infinity, a
+     window equal and one opposite to the doubled accumulator), each
+     shape timed on finite sums;
+     g1_decompress on the 4096
      mainnet monomial x's and on non-square and edge x's, g1_scalar_mul
      on 2048 lanes of per-lane 255-bit scalars (0, r, r - 1 among them)
      and on 4096 lanes of the broadcast 1/4096, and in the conversion's
@@ -110,13 +115,14 @@ Phases, each printed with its seconds:
      makes, and no host pairing runs; each batch of n >= 2 that passes
      its input checks launches g1_decompress and g1_subgroup_mask once,
      fr_evaluate once (its blob evaluations),
-     g1_fixedbase_table, g1_bucket_accumulate and g1_bucket_reduce three
-     times (one generic MSM per linear combination) and each pairing
-     kernel once; seeded batches of 6 and 64 blobs, committed and proved
-     on the card, verify true, and false with proofs 0 and 1 swapped,
-     twice each, timed, and one true batch of each size split into its
-     stages; a generic MSM of a blob over the 4096 Lagrange points equals
-     its commitment;
+     g1_bucket_accumulate, g1_bucket_reduce and g1_window_combine three
+     times (one generic MSM per linear combination; no table) and each
+     pairing kernel once; seeded batches of 6 and 64 blobs, committed and
+     proved on the card, verify true, and false with proofs 0 and 1
+     swapped, twice each, timed, one true batch of each size split into
+     its stages, and the batch of 6's three generic MSMs split into sort,
+     accumulate, reduce and combine (device time under the profiler); a generic MSM of a blob
+     over the 4096 Lagrange points equals its commitment;
  8b. the 140 verify vectors again on the host pairing tier,
      EIP4844Context(..., config=KZGConfig(device_pairing=False)): the same
      verdicts, timed, with exactly phase 8's vector launches less one
@@ -154,8 +160,9 @@ Phases, each printed with its seconds:
      2 and 4096 of the mainnet inverse FFT, g1_subgroup_mask on 4096, 128
      and 12 points, the two field checks on 4096 elements, and both
      pairing kernels at B = 2 (with phase 2's level counts and ptxas
-     figures), and the Fr kernels at phase 3's times; plain times are
-     phase 3's at the same shapes where it ran them; then
+     figures), and the Fr kernels and g1_window_combine at phase 3's
+     times; plain times are phase 3's at the same shapes where it ran
+     them; then
      utils/profiling.py's roofline table (g1_madd, g1_add,
      g1_dbl chained in one CUDA graph at 8192 lanes, the plain Fp product),
      and g1_fold at phase 3's times;
@@ -171,7 +178,10 @@ Phases, each printed with its seconds:
      g1_bucket_reduce launches and, where P > 1, D g1_fold launches (one
      fold a row) and nothing else; a generic sharded MSM of a blob over the
      4096 Lagrange points equals its commitment by points, windows and
-     auto; the 23 verify_blob_kzg_proof_batch vectors, and phase 8's
+     auto, each in its exact launches and no table (by points an
+     accumulation and a reduce a shard and the fold, by windows one a
+     shard, and one g1_window_combine); the 23 verify_blob_kzg_proof_batch
+     vectors, and phase 8's
      seeded batches of 6 and 64 verified true and false, each in its
      exact launches (the 64's linear combinations sharded); batches of 6
      timed with CUDA events (a logical mesh is one card doing every
@@ -223,13 +233,17 @@ Phases, each printed with its seconds:
      g1_fold launch, each
      equal to those phases' results in every rank, and prints its times
      and launches; a failed rank fails the phase;
- 15. the generic MSM (ops/msm.msm_device) at the JAX package's bench
-     shapes: n = 2^16 at c = 8, n = 2^20 at c = 12, and n = 2^20 at
-     c = 12 with 248-bit scalars, over the 4096 mainnet Lagrange points
-     tiled, equal in affine form to the native tier's 4096-point MSM of
-     the scalars folded per point mod r; per shape the table build and
-     the MSM apart (CUDA events), each kernel's launches and the peak
-     allocated memory, and the 2^20 MSM's 255-bit / 248-bit ratio;
+ 15. the generic MSM (ops/msm.msm_device, JAX's windowed one: the
+     window sums on the MSM kernels, then g1_window_combine; no table)
+     at the JAX package's bench shapes: n = 2^16 at c = 8, n = 2^20 at
+     c = 12, and n = 2^20 at c = 12 with 248-bit scalars, over the 4096
+     mainnet Lagrange points tiled, equal in affine form to the native
+     tier's 4096-point MSM of the scalars folded per point mod r; per
+     shape its ms (CUDA events), its stages (sort, accumulate, reduce,
+     combine; device time under the profiler), its launches (one of each kernel) and the peak allocated
+     memory, then the route before it (a table build and the fixed-base
+     MSM over it) timed and measured the same way in the same process,
+     and the 2^20 MSM's 255-bit / 248-bit ratio;
  16. the fuzz harnesses (lambdaworks_kzg_tpu_torch/fuzz): FUZZ_ITERS
      iterations of fuzz_differential.py on the degree-4 setup through a
      CPU context and the card's context (tier on, LWKZG_NATIVE=0, and
@@ -252,8 +266,8 @@ made one table launch and no g1_dbl launch, phases 6 and 9 each call's
 launches (the MSM kernels once, and a proof's Fr kernels), and the Fr
 part of phase 9's split, phase 8 the launches of each vector
 and batch, 8b none of the pairing kernels, phases 11 and 12 each call's,
-phase 14 that the path launched each of DIST_KERNELS, phase 15 each
-of PATH_KERNELS.
+phase 14 that the path launched each of DIST_KERNELS, phase 15 one of
+each of GENERIC_KERNELS per shape.
 The line before the last is {"kernels": [...]}, with each kernel's
 launches on the ten paths; the last is {"ok": true, "device": {...}}. Any
 failure ends the run with a non-zero exit and without those lines.
@@ -541,6 +555,13 @@ CHECK_LANES = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 1024, 2048, 4096)
 EDGE_LANES = (1, 12, 31, 33, 128)
 C_MAIN = 8  # the mainnet path's window bits
 PATH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table")
+# the generic MSM (JAX's windowed one): its windows' sums, then their
+# Horner combine; no table
+GENERIC_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_window_combine")
+GENERIC_LAUNCHES = dict.fromkeys(GENERIC_KERNELS, 1)
+# phase 3's combines: (window bits, MSMs), windows for 255-bit scalars;
+# c = 4 is a batch verification's, 8 and 12 phase 15's
+COMBINE_SHAPES = tuple((c, b) for c in (4, 8, 12) for b in (1, 3))
 # a batch's Fr part: one evaluation and one quotient on the plain limbs;
 # a proof at a root of unity: the in-domain quotient on them; a batch
 # verification's blob evaluations
@@ -553,7 +574,8 @@ FR_PATH_KERNELS = FR_KERNELS[1:]  # fr_to_mont is on no path
 FR_BLOBS = (1, 6, 64)  # phase 3's batches at the blob domain: a proof, a block, a batch verification
 FR_ROOT_SEED = 4847  # phase 3's seeded in-domain index
 PROVE_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", *FR_PATH_KERNELS)
-MESH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table", "g1_fold")
+MESH_KERNELS = ("g1_bucket_accumulate", "g1_bucket_reduce", "g1_fixedbase_table", "g1_fold",
+                "g1_window_combine")
 # phase 3's folds: (rows K, lanes B), K = 2, 3, 4 on 12 lanes, then the
 # meshes' own (the (2, 2) mesh's rows of 3 blobs, the (1, 4) mesh's 6)
 FOLD_SHAPES = ((2, 12), (3, 12), (4, 12), (2, 3), (4, 6))
@@ -567,8 +589,8 @@ PAIRING_LAUNCHES = {"pairing_miller_loop": 1, "pairing_final_exp": 1}
 # one verify_blob_kzg_proof_batch of n >= 2 blobs whose inputs pass the
 # checks, on a card: one batched decompression and subgroup check, the
 # blob evaluations, three generic MSMs, one pairing check
-VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, "g1_fixedbase_table": 3,
-                         "g1_bucket_accumulate": 3, "g1_bucket_reduce": 3, **FR_EVAL_LAUNCHES,
+VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1,
+                         **{name: 3 for name in GENERIC_KERNELS}, **FR_EVAL_LAUNCHES,
                          **PAIRING_LAUNCHES}
 # the same batch on the host pairing tier: no pairing kernel
 HOST_TIER = {name: -n for name, n in PAIRING_LAUNCHES.items()}
@@ -604,7 +626,7 @@ CAPI_VECTOR_COUNT = 208
 CAPI_SIZES = {"blob": 131072, "blobs": 131072, "z": 32, "y": 32, "commitment": 48,
               "commitments": 48, "proof": 48, "proofs": 48}
 CAPI_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce",
-                "pairing_miller_loop", "pairing_final_exp", "g1_decompress", "g1_subgroup_mask",
+                "g1_window_combine", "pairing_miller_loop", "pairing_final_exp", "g1_decompress", "g1_subgroup_mask",
                 *FR_PATH_KERNELS)
 MSM_LAUNCHES = {"g1_bucket_accumulate": 1, "g1_bucket_reduce": 1}
 C_KZG_OK, C_KZG_BADARGS = 0, 1
@@ -614,7 +636,7 @@ NATIVE_REPS = 5  # phase 13's calls per way, in turns
 # ranks on one card), the kernels every world's ranks launch in all
 DIST_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 DIST_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce", "g1_fold",
-                "g1_decompress", "g1_subgroup_mask", "pairing_miller_loop", "pairing_final_exp",
+                "g1_window_combine", "g1_decompress", "g1_subgroup_mask", "pairing_miller_loop", "pairing_final_exp",
                 "fr_evaluate")
 DIST_TIMEOUT_S = 240
 # phase 15: the generic MSM at the JAX package's bench shapes one card runs
@@ -904,8 +926,9 @@ def device_work(fn) -> dict:
     is the schedule's warm-up step, which readies the card's tracing (a
     cold window has been seen to miss its first kernel and copy) ->
     {"kernels": launches, "copies": copies and memsets, "busy_ms": their
-    device time, "names": the kernels' names}, or None where the profiler
-    saw no device work."""
+    device time, "names": the kernels' names, "ms_by_name": each kernel's
+    and copy's device time}, or None where the profiler saw no device
+    work."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -915,7 +938,7 @@ def device_work(fn) -> dict:
             fn()
             torch.cuda.synchronize()
             prof.step()
-    out = {"kernels": 0, "copies": 0, "busy_ms": 0.0, "names": []}
+    out = {"kernels": 0, "copies": 0, "busy_ms": 0.0, "names": [], "ms_by_name": {}}
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
             continue
@@ -925,6 +948,7 @@ def device_work(fn) -> dict:
         copy = ev.key.startswith(("Memcpy", "Memset"))
         out["copies" if copy else "kernels"] += ev.count
         out["busy_ms"] += us / 1e3
+        out["ms_by_name"][ev.key] = out["ms_by_name"].get(ev.key, 0.0) + us / 1e3
         if not copy:
             out["names"].append(ev.key)
     return out if out["kernels"] else None
@@ -1114,6 +1138,103 @@ def check_msm_kernels(label: str, table16, order, bstart, c: int, max_err: dict,
         got = kernels.bucket_reduce(dispatch.to_table_layout(partials), bstart, c, chunk, n_members)
         check("g1_bucket_reduce", f"{label}, {what}", lb.to_u16_layout(got),
               g1_ops.reduce_chunks(partials, bstart, c, chunk, n_members))
+
+
+def combine_sums(points, c: int, msms: int, seed: int, special: bool):
+    """Window sums [3, 24, B W] (W = num_windows(c, 255)) of B = msms
+    MSMs from the setup's points, Z != 1 on every other lane. special:
+    window W - 3 of MSM 0 at infinity, and with B = 3 MSM 1's window
+    W - 2 equal to 2^c S_{W-1} (the combine's first add doubles) and MSM
+    2's opposite to it (infinity); else every window finite, so that no
+    add meets infinity or the same x. -> (sums, W)."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.constants import num_windows
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops
+    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+
+    w = num_windows(c, 255)
+    lanes = msms * w
+    g = torch.Generator().manual_seed(seed)
+    pick = torch.randint(0, points.shape[-1], (lanes,), generator=g).to(points.device)
+    jac = g1_ops.lift(points[:, :, pick], torch.ones(lanes, dtype=torch.bool, device=points.device))
+    jac = torch.where((torch.arange(lanes, device=points.device) % 2 == 0)[None, None],
+                      g1_ops.dbl(jac), jac)
+    if special:
+        jac[..., w - 3] = 0
+        for b, negate in ((1, False), (2, True))[: msms - 1]:
+            top = jac[..., b * w + w - 1 : b * w + w]
+            for _ in range(c):
+                top = g1_ops.dbl(top)
+            if negate:
+                top = torch.stack([top[0], FP.neg(top[1]), top[2]])
+            jac[..., b * w + w - 2] = top[..., 0]
+    return jac.contiguous(), w
+
+
+def check_window_combine(points, max_err: dict) -> dict:
+    """g1_window_combine against g1_ops.combine_windows on the card, limb
+    for limb, at COMBINE_SHAPES: one MSM on finite sums, three on
+    `combine_sums`' special ones; each shape's kernel timed (CUDA events)
+    on finite sums beside the plain version's one call (the checked one)
+    and the bound of its c (W - 1) doublings and W - 1 adds a MSM.
+    -> {"c{c}_b{B}": ...}."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb
+
+    out = {}
+    for c, msms in COMBINE_SHAPES:
+        label = f"c={c} B={msms}"
+        sums, w = combine_sums(points, c, msms, seed=10 * c + msms, special=msms > 1)
+        sums32 = lb.to_u32_layout(sums)
+        got = kernels.window_combine(sums32, c, w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = g1_ops.combine_windows(sums, c, w)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        max_err["g1_window_combine"] = max(max_err["g1_window_combine"],
+                                           same(f"g1_window_combine {label}", lb.to_u16_layout(got),
+                                                want))
+        if not torch.equal(dispatch.combine_windows(sums32, c, w), got):
+            raise AssertionError(f"g1_window_combine {label}: dispatch's route differs")
+        if msms > 1:  # timed on finite sums, as every shape is
+            sums32 = lb.to_u32_layout(combine_sums(points, c, msms, seed=c, special=False)[0])
+        ms = time_ms(lambda: kernels.window_combine(sums32, c, w), reps=10)
+        nbytes = msms * (w + 1) * 3 * FP_BYTES
+        imads = msms * (w - 1) * (c * op_imads("dbl") + op_imads("add"))
+        out[f"c{c}_b{msms}"] = {"c": c, "msms": msms, "windows": w, "ms": ms,
+                                "plain_ms": plain_ms, **bound(nbytes, imads),
+                                "chain": {"dbl": c * (w - 1), "add": w - 1}}
+        log(f"  g1_window_combine {label} (W = {w}; a chain of {c * (w - 1)} doublings and "
+            f"{w - 1} adds): equal to plain, limb for limb, on {'special' if msms > 1 else 'finite'} "
+            f"sums; kernel {ms:.4f} ms on finite sums, plain {plain_ms:.1f} ms, bound "
+            f"{out[f'c{c}_b{msms}']['bound_ms']:.5f} ms (operations)")
+    return out
+
+
+MSM_STAGE_KERNELS = {"accumulate": "g1_bucket_accumulate", "reduce": "g1_bucket_reduce",
+                     "combine": "g1_window_combine"}
+
+
+def msm_stages(fn) -> dict:
+    """fn(), one generic MSM (`msm.msm_device`), under the profiler
+    (`device_work`) -> its device time in ms by stage: "accumulate",
+    "reduce" and "combine" the three MSM kernels' own, "sort" that of
+    every other kernel and copy of the call (the scalar check, digits,
+    sort, run bounds, the points' rows). Device time only: the host's
+    launches between them are in the call's CUDA-event ms."""
+    work = device_work(fn)
+    if work is None:
+        raise AssertionError("the profiler saw no device work in a generic MSM")
+    out = dict.fromkeys(("sort", *MSM_STAGE_KERNELS), 0.0)
+    for name, ms in work["ms_by_name"].items():
+        out[next((s for s, k in MSM_STAGE_KERNELS.items() if k in name), "sort")] += ms
+    missing = [k for s, k in MSM_STAGE_KERNELS.items() if not out[s]]
+    if missing:
+        raise AssertionError(f"the profiler's record of a generic MSM lacks {missing}")
+    return out
 
 
 def accumulate_point_ops(order, bstart):
@@ -1831,6 +1952,52 @@ def verify_split(ctx, blobs, commitments, proofs) -> dict:
     return {name: (t[i + 1] - t[i]) * 1e3 for i, name in enumerate(names)}
 
 
+def batch_msm_inputs(ctx, blobs, commitments, proofs) -> list:
+    """The three generic MSMs of verify_blob_kzg_proof_batch on these
+    blobs, as KZG.verify_batch forms them: [(scalars, affine points)] of
+    n, n and n + 1 points."""
+    from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+    from lambdaworks_kzg_tpu_torch.utils import hashing as H
+
+    n = len(blobs)
+    points = ctx.backend.decompress_g1_batch(list(commitments) + list(proofs))
+    zs = [H.compute_challenge(b, c, ctx.n) for b, c in zip(blobs, commitments)]
+    ys = ctx.backend.evaluate_blobs(blobs, zs)
+    r = H.compute_r_powers(list(commitments), zs, ys, list(proofs), ctx.n)
+    proof_aff = [HC.to_affine(pt) for pt in points[n:]]
+    commit_aff = [HC.to_affine(pt) for pt in points[:n]] + [HC.to_affine(HC.G1_GENERATOR)]
+    return [(r, proof_aff), ([a * z % R for a, z in zip(r, zs)], proof_aff),
+            (r + [(-sum(a * y for a, y in zip(r, ys))) % R], commit_aff)]
+
+
+def verify_msm_stages(ctx, blobs, commitments, proofs, card: str) -> list:
+    """A batch verification's three generic MSMs on the card, each
+    `msm.msm_device` at the window the backend picks, equal to
+    backend.msm's point and split by `msm_stages` (device time under the
+    profiler); -> [{"points", "c", stage ms}]."""
+    import torch
+
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+    from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, limbs as lb, msm
+    from lambdaworks_kzg_tpu_torch.ops.backend import auto_window
+
+    dev = ctx.backend.device
+    out = []
+    for scalars, affine in batch_msm_inputs(ctx, blobs, commitments, proofs):
+        c = auto_window(len(affine))
+        pts, valid = g1_ops.make_points_host(affine)
+        pts, valid = lb.as_limb_tensor(pts, dev), torch.from_numpy(valid).to(dev)
+        k = msm.scalars_to_tensor(scalars, dev)
+        point = g1_ops.points_to_host(dispatch.from_op_layout(msm.msm_device(pts, valid, k, c)))[0]
+        if HC.to_affine(point) != HC.to_affine(ctx.backend.msm(scalars, affine)):
+            raise AssertionError("msm_device differs from backend.msm on a batch verification's MSM")
+        stages = msm_stages(lambda: msm.msm_device(pts, valid, k, c))
+        out.append({"points": len(affine), "c": c, **stages})
+        log(f"  generic MSM of {len(affine)} points, c={c}: device ms by stage {stages} ({card})")
+    return out
+
+
 def host_conversion(path: str) -> dict:
     """A setup file converted by the port's host oracles, as a cache's
     arrays: each G1 point decompressed and subgroup-checked in Python
@@ -1876,26 +2043,31 @@ def mesh_batch_launches(mesh) -> dict:
     return {"g1_bucket_accumulate": d * p, "g1_bucket_reduce": d * p, "g1_fold": d * (p > 1)}
 
 
-def mesh_generic_launches(mesh, n_points: int, sharded: bool) -> dict:
-    """One generic MSM on a mesh: unsharded on the lead device (one table,
-    one accumulation, one reduce), or over row 0 (a table per device of
-    the row, a shard per point of the axis, the fold)."""
+def mesh_generic_launches(mesh, sharded: bool, shard: str = "points", windows: int = 0) -> dict:
+    """One generic MSM on a mesh (parallel/msm.py), no table: unsharded
+    on the lead device (an accumulation, a reduce, a combine), or over
+    row 0 by points (an accumulation and a reduce a shard, the row's fold
+    where P > 1, the combine) or by windows (an accumulation and a reduce
+    for each shard that holds some of the `windows`, the combine)."""
     if not sharded:
-        return {"g1_fixedbase_table": 1, "g1_bucket_accumulate": 1, "g1_bucket_reduce": 1}
+        return dict(GENERIC_LAUNCHES)
     p = mesh.shape["points"]
-    return {"g1_fixedbase_table": len(set(mesh.devices[0])), "g1_bucket_accumulate": p,
-            "g1_bucket_reduce": p, "g1_fold": int(p > 1)}
+    if shard == "windows":
+        shards = -(-windows // -(-windows // p))
+        return {"g1_bucket_accumulate": shards, "g1_bucket_reduce": shards, "g1_window_combine": 1}
+    return {"g1_bucket_accumulate": p, "g1_bucket_reduce": p, "g1_fold": int(p > 1),
+            "g1_window_combine": 1}
 
 
 def mesh_verify_launches(mesh, n_blobs: int) -> dict:
     """One verify_blob_kzg_proof_batch of n >= 2 blobs that pass their
     checks, on a mesh: its decompression, subgroup check and pairing check
     on the lead device, and three generic MSMs (n, n and n + 1 points),
-    sharded above max(16, 2 P) points (TorchBackend.msm)."""
+    sharded by points above max(16, 2 P) points (TorchBackend.msm)."""
     want = {"g1_decompress": 1, "g1_subgroup_mask": 1, **FR_EVAL_LAUNCHES, **PAIRING_LAUNCHES}
     for k in (n_blobs, n_blobs, n_blobs + 1):
         sharded = k > max(16, 2 * mesh.shape["points"])
-        for name, n in mesh_generic_launches(mesh, k, sharded).items():
+        for name, n in mesh_generic_launches(mesh, sharded).items():
             want[name] = want.get(name, 0) + n
     return want
 
@@ -1940,6 +2112,7 @@ def check_mesh(setup, dev, commit_set, prove_set, verify_batches) -> dict:
     from lambdaworks_kzg_tpu_torch.ops import codec, limbs as lb
     from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend
     from lambdaworks_kzg_tpu_torch.parallel import make_mesh, sharded_msm
+    from lambdaworks_kzg_tpu_torch.parallel.msm import resolve_shard
     from lambdaworks_kzg_tpu_torch.parallel.ntt import sharded_ntt_ints
     from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_commitment_vector
 
@@ -2001,7 +2174,8 @@ def check_mesh(setup, dev, commit_set, prove_set, verify_batches) -> dict:
             before = launch_counts()
             pt = sharded_msm(mesh, points, valid, scalars, C_MAIN, shard)
             expect_launches(f"{label}: sharded_msm by {shard}", before,
-                            mesh_generic_launches(mesh, n, sharded=True))
+                            mesh_generic_launches(mesh, True, resolve_shard(mesh, n, shard),
+                                                  num_windows(C_MAIN, 255)))
             if HC.compress_g1(pt) != commit_batch[0]:
                 raise AssertionError(f"{label}: sharded_msm by {shard} differs from the commitment")
         before = launch_counts()
@@ -2426,14 +2600,8 @@ def native_phase(ctx, blobs, commitments, proofs, card: str) -> dict:
                                          for pt in ctx.backend.decompress_g1_batch(compressed)]),
     }, NATIVE_REPS)
     n = ctx.n
-    points = ctx.backend.decompress_g1_batch(compressed)
     zs = [H.compute_challenge(b, c, n) for b, c in zip(blobs, commitments)]
-    ys = ctx.backend.evaluate_blobs(blobs, zs)
-    r = H.compute_r_powers(list(commitments), zs, ys, list(proofs), n)
-    proof_aff = [HC.to_affine(pt) for pt in points[6:]]
-    commit_aff = [HC.to_affine(pt) for pt in points[:6]] + [HC.to_affine(HC.G1_GENERATOR)]
-    msms = [(r, proof_aff), ([a * z % R for a, z in zip(r, zs)], proof_aff),
-            (r + [(-sum(a * y for a, y in zip(r, ys))) % R], commit_aff)]
+    msms = batch_msm_inputs(ctx, blobs, commitments, proofs)
     _, out["msm_6_6_7"] = in_turns({
         "native": lambda: host_ms(lambda: [native.g1_msm_affine([k % R for k in sc], pts)
                                            for sc, pts in msms]),
@@ -2604,17 +2772,21 @@ def distributed_phase(commit_set, verify_set, ntt_set, card: str) -> tuple:
 
 
 def generic_msm_phase(setup, dev, card: str) -> tuple:
-    """Phase 15: `ops/msm.msm_device` at GENERIC_MSM_SHAPES on tensors on
-    the card, over the 4096 mainnet Lagrange points tiled n / 4096 times,
-    with seeded scalars below 2^scalar_bits (r for 255). The oracle shares
-    no MSM code: the 4096-point MSM of each point's scalars summed mod r,
-    on the native tier, compared in affine form. Tiling sends equal points
-    into one bucket, so the accumulation's doubling fix-up runs hard.
-    Prints per shape the table build and the MSM apart (CUDA events, a
-    second run), each kernel's launches in the checked run and the peak
-    of `torch.cuda.max_memory_allocated`, then the 2^20 MSM's 255-bit /
-    248-bit time. ->
-    (results, the checked runs' launches summed)."""
+    """Phase 15: `ops/msm.msm_device` (JAX's windowed generic MSM: the
+    window sums, then one g1_window_combine; no table) at
+    GENERIC_MSM_SHAPES on tensors on the card, over the 4096 mainnet
+    Lagrange points tiled n / 4096 times, with seeded scalars below
+    2^scalar_bits (r for 255). The oracle shares no MSM code: the
+    4096-point MSM of each point's scalars summed mod r, on the native
+    tier, compared in affine form. Tiling sends equal points into one
+    bucket, so the accumulation's doubling fix-up runs hard. Per shape:
+    the checked run's ms, launches and peak of
+    `torch.cuda.max_memory_allocated`, then the MSM again, and its device
+    time by stage under the profiler (`msm_stages`); then the route before it, the table
+    build (`dispatch.fixedbase_table`) and `msm_fixedbase_device` over
+    it, timed apart with its own peak and result, for the comparison in
+    one process; then the 2^20 MSM's 255-bit / 248-bit time. -> (results,
+    the checked runs' launches summed)."""
     import numpy as np
     import torch
 
@@ -2628,6 +2800,10 @@ def generic_msm_phase(setup, dev, card: str) -> tuple:
     points = lb.as_limb_tensor(setup.lagrange_points, dev)
     valid = torch.from_numpy(setup.lagrange_valid.copy()).to(dev)
     out, total = {}, {}
+
+    def affine_of(pt):
+        return HC.to_affine(g1_ops.points_to_host(dispatch.from_op_layout(pt))[0])
+
     for n, c, bits in GENERIC_MSM_SHAPES:
         tiles = n // n_basis
         rng = np.random.default_rng(n + bits)
@@ -2645,28 +2821,41 @@ def generic_msm_phase(setup, dev, card: str) -> tuple:
         got, msm_device_ms = events_ms(lambda: msm.msm_device(pts, ok, scalars, c, scalar_bits=bits))
         launches = launch_counts()  # and ends here
         peak = torch.cuda.max_memory_allocated()
-        point = g1_ops.points_to_host(dispatch.from_op_layout(got))[0]
-        if HC.to_affine(point) != want:
+        if affine_of(got) != want:
             raise AssertionError(f"the generic MSM at n={n} c={c} bits={bits} differs from its oracle")
+        expect_launches(f"the generic MSM at n={n}", dict.fromkeys(launches, 0), GENERIC_LAUNCHES)
+        del got
+        _, again_ms = events_ms(lambda: msm.msm_device(pts, ok, scalars, c, scalar_bits=bits))
+        stages = msm_stages(lambda: msm.msm_device(pts, ok, scalars, c, scalar_bits=bits))
+        # the route before this one, for comparison: a table for the call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         (table, table_valid), table_ms = events_ms(lambda: dispatch.fixedbase_table(pts, ok, c))
-        _, msm_ms = events_ms(lambda: msm.msm_fixedbase_device(table, table_valid, scalars, c))
-        del table, table_valid, got
+        old, msm_ms = events_ms(lambda: msm.msm_fixedbase_device(table, table_valid, scalars, c))
+        old_peak = torch.cuda.max_memory_allocated()
+        if affine_of(old) != want:
+            raise AssertionError(f"the table route at n={n} differs from its oracle")
+        del table, table_valid, old
         for name, k in launches.items():
             total[name] = total.get(name, 0) + k
         key = f"n{n}_c{c}_b{bits}"
-        out[key] = {"n": n, "c": c, "scalar_bits": bits, "msm_device_ms": msm_device_ms,
-                    "table_ms": table_ms, "msm_ms": msm_ms, "peak_bytes": peak,
-                    "launches": {name: k for name, k in launches.items() if k}}
+        out[key] = {"n": n, "c": c, "scalar_bits": bits, "msm_device_ms": [msm_device_ms, again_ms],
+                    "stages_device_ms": stages, "peak_bytes": peak,
+                    "launches": {name: k for name, k in launches.items() if k},
+                    "table_route": {"table_ms": table_ms, "msm_ms": msm_ms,
+                                    "total_ms": table_ms + msm_ms, "peak_bytes": old_peak}}
         log(f"  n=2^{n.bit_length() - 1} c={c} scalar_bits={bits}: equal to the native oracle "
-            f"({n_basis} points, scalars folded mod r); msm_device {msm_device_ms:.2f} ms, then apart: "
-            f"table {table_ms:.2f} ms, MSM {msm_ms:.2f} ms (CUDA events); launches "
-            f"{out[key]['launches']}; peak {peak / 2**30:.2f} GiB ({card})")
+            f"({n_basis} points, scalars folded mod r); msm_device {msm_device_ms:.2f} / "
+            f"{again_ms:.2f} ms (CUDA events), stages {stages}, launches {out[key]['launches']}, "
+            f"peak {peak / 2**30:.3f} GiB; the table route: table {table_ms:.2f} ms + MSM "
+            f"{msm_ms:.2f} ms, peak {old_peak / 2**30:.3f} GiB ({card})")
     full, short = (out.get(f"n{1 << 20}_c12_b{bits}") for bits in (255, 248))
-    if full and short:  # the 255-bit top window's 2^20 members against an empty one
-        out["ratio_255_to_248"] = full["msm_ms"] / short["msm_ms"]
-        log(f"  n=2^20 c=12: MSM 255-bit / 248-bit = {out['ratio_255_to_248']:.3f} "
-            f"({full['msm_ms']:.2f} / {short['msm_ms']:.2f} ms, one process) ({card})")
-    missing = [name for name in PATH_KERNELS if total.get(name, 0) == 0]
+    if full and short:  # the 255-bit top window against a full one at 248 bits
+        out["ratio_255_to_248"] = full["msm_device_ms"][1] / short["msm_device_ms"][1]
+        log(f"  n=2^20 c=12: msm_device 255-bit / 248-bit = {out['ratio_255_to_248']:.3f} "
+            f"({full['msm_device_ms'][1]:.2f} / {short['msm_device_ms'][1]:.2f} ms, one process) "
+            f"({card})")
+    missing = [name for name in GENERIC_KERNELS if total.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the generic MSM path: {missing}")
     return out, total
@@ -2855,6 +3044,7 @@ def run() -> None:
             check_msm_kernels(f"synthetic c={c} B={n_blobs}", synth, order, bstart, c, max_err,
                               extra_partials=extra)
         q_order, q_bstart = check_real_quotient(setup, table16, table_valid, max_err)
+        combine_checked = check_window_combine(points, max_err)
         batch_plain_ms = check_batch_kernels(setup, dev, max_err)
         pairing_checked = check_pairing_kernels(dev, max_err)
         fr_checked = check_fr_kernels(dev, max_err)
@@ -3020,6 +3210,7 @@ def run() -> None:
             f"ms per call: {results['verify_batch_ms']}; verify path launches {verify_launches}")
         results["verify_split"] = {count: verify_split(ctx, *batch) for count, batch in batches.items()}
         log(f"  one true batch's stages, ms: {results['verify_split']}")
+        results["verify_msm_stages"] = verify_msm_stages(ctx, *batches[6], card)
         missing = [name for name in VERIFY_BATCH_LAUNCHES if verify_launches[name] == 0]
         stray = [name for name, n in verify_launches.items() if n and name not in VERIFY_BATCH_LAUNCHES]
         if missing or stray:
@@ -3223,6 +3414,15 @@ def run() -> None:
                 "batch6": msm_times[6][kernel.name],
                 **({"quotient": quotient_acc} if kernel is kernels.bucket_accumulate else {}),
             })
+        # the generic MSM's combine at phase 3's times; the entry's own
+        # numbers are a batch verification's (c = 4, one MSM a launch)
+        main = combine_checked["c4_b1"]
+        entries.append({"name": kernels.window_combine.name, "route": "cuda",
+                        "source": f"{PKG}/csrc/msm.cu", "replaces": kernels.window_combine.replaces,
+                        **counted(kernels.window_combine.name),
+                        "max_abs_err": max_err[kernels.window_combine.name],
+                        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                        "library_ms": None, "c": 4, "msms": 1, "shapes": combine_checked})
         shapes = {"madd": 2048, "add": 1024, "dbl": 4096}
         for op, M in shapes.items():
             # random lanes: the rare exceptional lanes would make every

@@ -59,12 +59,14 @@ G2_GENERATOR_Y = (
 TRUSTED_SETUP_NUM_G1_POINTS = FIELD_ELEMENTS_PER_BLOB
 NUM_G2_POINTS = 65
 
-# The fixed-base MSM splits a 256-bit scalar into windows of c bits
+# The MSMs split a scalar into windows of c bits: the fixed-base MSM's
+# tables cover 256 bits, the generic MSM's windows its scalar bound
 
 
-def num_windows(c: int) -> int:
-    """Windows of c bits that cover a 256-bit scalar."""
-    return (256 + c - 1) // c
+def num_windows(c: int, scalar_bits: int = 256) -> int:
+    """Windows of c bits that cover a scalar below 2^scalar_bits:
+    ceil(scalar_bits / c)."""
+    return (scalar_bits + c - 1) // c
 
 
 PRIMITIVE_ROOT_OF_UNITY = 7

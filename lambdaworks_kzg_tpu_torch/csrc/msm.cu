@@ -1,5 +1,5 @@
-// The fixed-base MSM's two hot stages for Hopper (sm_90a), each one launch
-// per batch of blobs:
+// The MSMs' hot stages for Hopper (sm_90a), each one launch per batch of
+// blobs:
 //
 //   g1_bucket_accumulate <- the lock-step accumulation while_loop of
 //       lambdaworks_kzg_tpu/ops/msm.py::msm_fixedbase_device (:787-852),
@@ -8,10 +8,16 @@
 //   g1_bucket_reduce <- the fold reduce and group tree of the same function,
 //       ops/msm.py::_bucket_reduce_fold (:598) and _tree_sum_lanes (:447),
 //       whose adds and doublings are the Pallas add and dbl.
+//   g1_window_combine <- the generic MSM's Horner step over its window
+//       sums, ops/msm.py::combine_windows_host (:671), Python ints on the
+//       host there.
 //
-// Their plain versions are ops/g1_ops.py accumulate_chunks and
-// reduce_chunks: both kernels equal them limb for limb, Z included, and
-// an MSM equals the JAX package's in affine form.
+// Their plain versions are ops/g1_ops.py accumulate_chunks, reduce_chunks
+// and combine_windows: the kernels equal them limb for limb, Z included,
+// and an MSM equals the JAX package's in affine form. The fixed-base MSM
+// runs the first two over the table's rows; the generic MSM runs them
+// over its N points, one blob a window (the blob's members are the N
+// points, its digits that window's), then the combine.
 //
 // The work split. JAX deals each bucket's members round-robin to G lane
 // groups, so a lane's chain is ceil(k_j / G) madds, and digits that crowd
@@ -76,6 +82,16 @@
 //   no lane groups left: they spread the old accumulation, and a fold per
 //   group only added work and a group tree to the chain.
 //
+// g1_window_combine: each MSM's W window sums -> sum_w 2^(c w) S_w by
+// Horner (acc = S_{W-1}, then per window c doublings and an add), one
+// MSM a pair of fpc groups on the cooperative field (~1,570 cycles a
+// dependent product against fp.cuh's ~2,930), four MSMs a warp. The
+// chain is c (W - 1) doublings (4 products deep each) and W - 1 adds (8
+// deep): 248 to 252 doublings for 255-bit scalars at c = 4, 8 or 12,
+// ~1,200 to 1,500 dependent products whatever the design, so the kernel
+// is latency-bound at any B; a batch puts its MSMs on other pairs at no
+// cost to the chain.
+//
 // What bounds them on the card: a random blob at c = 8 is ~128,500 madds
 // (~46 us of IMADs at the card's peak against ~4 us of bytes) and ~16,000
 // merge adds at L = 8 with a ~509-add fold. At B = 1 both kernels stay
@@ -101,6 +117,7 @@ constexpr int kPair = 2 * fpc::kT;    // threads of a cooperative lane
 constexpr int kThreadBlock = 128;     // the accumulation: 128 lanes a block
 constexpr int kReduceBlock = 512;     // the reduce: 64 workers a block
 constexpr int kWorkers = kReduceBlock / kPair;
+constexpr int kCombineBlock = 32;     // the combine: a warp, four MSMs
 constexpr int kRowVecs = 6;           // a table row: x, y = 24 words = 6 x 16 bytes
 constexpr int kPointVecs = 9;         // a Jacobian row: X, Y, Z = 36 words
 constexpr int kPoint = 3 * fp::NL;
@@ -394,6 +411,25 @@ __global__ void __launch_bounds__(kReduceBlock, 1)
   }
 }
 
+// One MSM a pair of groups, windows of MSM b at columns b W .. b W + W - 1
+// of the [3, 12, B W] sums; a pair past the last MSM runs the last one's
+// chain again and stores nothing (every thread of the warp runs every
+// field op).
+__global__ void __launch_bounds__(kCombineBlock)
+    g1_window_combine_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out,
+                             int B, int W, int c) {
+  const int m = blockIdx.x * (kCombineBlock / kPair) + threadIdx.x / kPair;
+  const bool live = m < B;
+  const int b = live ? m : B - 1;
+  const int M = B * W;
+  CJac acc = g1c::load_cjac(sums, M, b * W + W - 1);
+  for (int w = W - 2; w >= 0; --w) {
+    for (int d = 0; d < c; ++d) acc = dbl_pt(acc);
+    acc = add_pts(acc, g1c::load_cjac(sums, M, b * W + w), true);
+  }
+  if (live && !fpc::second()) g1c::store_cjac(out, B, b, acc);
+}
+
 }  // namespace
 
 // Launchers: raw device pointers, sizes and a cudaStream_t. Each returns
@@ -435,4 +471,14 @@ extern "C" int lwkzg_g1_bucket_reduce(void* partials, const void* bstart, void* 
                                                     dim3(groups * per_blob), dim3(kReduceBlock),
                                                     args, 0, (cudaStream_t)stream);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// sums [3, 12, B W] -> out [3, 12, B]
+extern "C" int lwkzg_g1_window_combine(const void* sums, void* out, int B, int W, int c,
+                                       void* stream) {
+  constexpr int per_block = kCombineBlock / kPair;
+  g1_window_combine_kernel<<<(B + per_block - 1) / per_block, kCombineBlock, 0,
+                             (cudaStream_t)stream>>>((const uint32_t*)sums, (uint32_t*)out, B, W,
+                                                     c);
+  return (int)cudaGetLastError();
 }

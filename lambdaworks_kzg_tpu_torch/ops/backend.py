@@ -11,7 +11,7 @@ batched evaluation, one batched quotient and one such MSM of the
 quotients, which stay on the device until the MSM's result comes back.
 Batch verification decompresses its points in one batched pass
 (`decompress_g1_batch`) and forms its linear combinations with the
-generic MSM (`msm`), both on the device.
+generic MSM (`msm`: JAX's windowed MSM, no table), both on the device.
 
 On a (data, points) mesh (`parallel/`) the backend keeps one table per
 (device, shard) of the points axis instead (`parallel.msm.ShardedBasis`),
@@ -20,7 +20,8 @@ proof batch runs the batch step: its blobs over the data axis, each
 blob's MSM over the points axis, folded by one g1_fold launch a row,
 gathered on the lead device (the mesh's first), where the Fr layer, the
 decompression and the pairing check stay. The generic MSM is sharded
-from max(16, 2 P) points on, padded with invalid points to P 2^k.
+by points from max(16, 2 P) points on, padded with invalid points to
+P 2^k, its window sums combined on the lead device.
 
 A backend on the CPU sends small work to the native C++ tier
 (`native.py`) where the JAX package does (its `ops/backend.py:233-240,
@@ -85,8 +86,7 @@ class TorchBackend:
             self.device = mesh.lead
             points = lb.as_limb_tensor(setup.lagrange_points)
             valid = torch.from_numpy(np.array(setup.lagrange_valid, dtype=bool))
-            self.shards = pmsm.ShardedBasis(mesh, points, valid, self.c, "points",
-                                            fixedbase=fixedbase)
+            self.shards = pmsm.ShardedBasis(mesh, points, valid, self.c, fixedbase=fixedbase)
         else:
             self.device = resolve_device(device)
             if fixedbase is None:

@@ -5,10 +5,12 @@ The two sides hold points in different layouts: the kernels take
 radix-2^32 int32 limbs, the plain versions radix-2^16 int64 limbs.
 `to_op_layout` / `from_op_layout` convert between the public radix-2^16
 layout and the one the ops of that device take, and `to_table_layout` /
-`from_table_layout` do the same for rows of points: the fixed-base table,
-which the accumulation kernel reads as 96-byte rows [W N, 2, 12], and its
-chunk partials, 144-byte rows [B K, 3, 12]. Callers convert
-once per table or bucket array, not once per op. `ops/g1_ops.py` offers
+`from_table_layout` do the same for rows of points: the fixed-base table
+or the generic MSM's points, which the accumulation kernel reads as
+96-byte rows [M, 2, 12], and its chunk partials, 144-byte rows [B K, 3,
+12]. Callers convert once per table or bucket array, not once per op.
+`combine_windows` takes the reduce's window sums in the op layout as
+they come. `ops/g1_ops.py` offers
 the same names the MSM calls, with the identity layout, so code written
 against this module runs the plain versions on any device when handed
 `g1_ops`.
@@ -82,6 +84,15 @@ def reduce_chunks(partials, bstart, c: int, chunk: int, n_members: int):
     if partials.is_cuda:
         return kernels.bucket_reduce(partials, bstart, c, chunk, n_members)
     return g1_ops.reduce_chunks(partials, bstart, c, chunk, n_members)
+
+
+def combine_windows(sums, c: int, windows: int):
+    """Window sums [3, *, B W] in this device's op layout (MSM b's window
+    w at b W + w) -> [3, *, B]: one g1_window_combine launch on a CUDA
+    device, the plain Horner chain on the CPU."""
+    if sums.is_cuda:
+        return kernels.window_combine(sums, c, windows)
+    return g1_ops.combine_windows(sums, c, windows)
 
 
 def to_op_layout(x16: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""G1 point operations in plain PyTorch: the plain versions of the ten
-CUDA kernels (`ops/kernels.py`), and the CPU path. `madd`, `add` and `dbl`
-are the point ops; `bucket_accumulate` and `bucket_reduce` are the
-fixed-base MSM's two stages, written over them as the JAX package writes
-them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
+"""G1 point operations in plain PyTorch: the plain versions of the CUDA
+kernels' G1 functions (`ops/kernels.py`), and the CPU path. `madd`, `add`
+and `dbl` are the point ops; `bucket_accumulate` and `bucket_reduce` are
+the fixed-base MSM's two stages, written over them as the JAX package
+writes them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
 `_tree_sum_lanes`), and `accumulate_chunks` and `reduce_chunks` the
 balanced schedule the MSM kernels run instead (chunks of at most L
 members a lane, their partials merged pairwise before the same fold);
+`combine_windows` is the generic MSM's Horner step over its window sums
+(JAX `combine_windows_host`);
 `fixedbase_table` builds the MSM's table, as
 `build_fixedbase_tables` does there. `decompress_xy`, `scalar_mul` and
 `subgroup_mask` are the batched G1 steps of the JAX package's
@@ -81,18 +83,51 @@ def dbl(p: torch.Tensor) -> torch.Tensor:
     return torch.stack(jacobian_dbl(FP, *p.unbind(-3)), dim=-3)
 
 
-def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Complete Jacobian + Jacobian addition (add-2007-bl + selects)."""
-    X1, Y1, Z1 = p.unbind(-3)
-    X3, Y3, Z3, H, Rr = jacobian_add_core(FP, X1, Y1, Z1, *q.unbind(-3))
+def _gather_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[..., C, L, B] -> [C, L, len(idx)]: the lanes idx of the flat
+    (leading, B) lane order."""
+    c, limbs, b = x.shape[-3:]
+    flat = x.reshape(-1, c, limbs, b).permute(1, 2, 0, 3).reshape(c, limbs, -1)
+    return flat.index_select(-1, idx)
+
+
+def _scatter_lanes(part: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tensor:
+    """[C, L, len(idx)] lanes -> [*shape] zeros elsewhere (`_gather_lanes`' inverse)."""
+    c, limbs, b = shape[-3:]
+    flat = part.new_zeros(c, limbs, torch.Size(shape[:-3]).numel() * b)
+    flat[..., idx] = part
+    return flat.reshape(c, limbs, -1, b).permute(2, 0, 1, 3).reshape(shape)
+
+
+def _finite_sum(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p + q on lanes where neither is at infinity (add-2007-bl; the
+    same x doubles, or gives infinity)."""
+    X3, Y3, Z3, H, Rr = jacobian_add_core(FP, *p.unbind(-3), *q.unbind(-3))
     out = torch.stack([X3, Y3, Z3], dim=-3)
-    p_inf = FP.is_zero(Z1)
-    q_inf = FP.is_zero(q[..., 2, :, :])
-    same_x = ~p_inf & ~q_inf & FP.is_zero(H)
+    same_x = FP.is_zero(H)
     if bool(same_x.any()):
         r_zero = FP.is_zero(Rr)
         out = _sel_pt(same_x & r_zero, dbl(p), out)
         out = _sel_pt(same_x & ~r_zero, torch.zeros_like(out), out)
+    return out
+
+
+def _on_live_lanes(live: torch.Tensor, fn, p: torch.Tensor, *others) -> torch.Tensor:
+    """fn(p, *others) on the lanes where `live` holds, zeros elsewhere
+    (lanes the caller overwrites): only the live lanes are gathered,
+    computed and scattered back, so that sums of mostly infinite buckets
+    cost what their finite lanes cost."""
+    assert all(o.shape[:-3] == p.shape[:-3] and o.shape[-1] == p.shape[-1] for o in others)
+    idx = torch.nonzero(live.reshape(-1)).reshape(-1)
+    part = fn(_gather_lanes(p, idx), *(_gather_lanes(o, idx) for o in others))
+    return _scatter_lanes(part, idx, p.shape[:-3] + (3,) + p.shape[-2:])
+
+
+def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Complete Jacobian + Jacobian addition (add-2007-bl + selects)."""
+    p_inf = FP.is_zero(p[..., 2, :, :])
+    q_inf = FP.is_zero(q[..., 2, :, :])
+    out = _on_live_lanes(~p_inf & ~q_inf, _finite_sum, p, q)
     out = _sel_pt(p_inf, q, out)
     return _sel_pt(q_inf, p, out)
 
@@ -111,19 +146,25 @@ def fold(points: torch.Tensor) -> torch.Tensor:
     return points[0]
 
 
-def madd(p: torch.Tensor, q_aff: torch.Tensor, q_valid: torch.Tensor) -> torch.Tensor:
-    """Complete mixed addition: Jacobian p + affine q (madd-2007-bl).
-    Lanes with q_valid False pass p through."""
-    X1, Y1, Z1 = p.unbind(-3)
-    X2, Y2 = q_aff.unbind(-3)
-    X3, Y3, Z3, H, Rr = jacobian_madd_core(FP, X1, Y1, Z1, X2, Y2)
+def _finite_mixed_sum(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
+    """p + affine q on lanes where q is valid and p not at infinity
+    (madd-2007-bl; the same x doubles, or gives infinity)."""
+    X3, Y3, Z3, H, Rr = jacobian_madd_core(FP, *p.unbind(-3), *q_aff.unbind(-3))
     out = torch.stack([X3, Y3, Z3], dim=-3)
-    p_inf = FP.is_zero(Z1)
-    same_x = q_valid & ~p_inf & FP.is_zero(H)
+    same_x = FP.is_zero(H)
     if bool(same_x.any()):
         r_zero = FP.is_zero(Rr)
         out = _sel_pt(same_x & r_zero, dbl(p), out)
         out = _sel_pt(same_x & ~r_zero, torch.zeros_like(out), out)
+    return out
+
+
+def madd(p: torch.Tensor, q_aff: torch.Tensor, q_valid: torch.Tensor) -> torch.Tensor:
+    """Complete mixed addition: Jacobian p + affine q (madd-2007-bl).
+    Lanes with q_valid False pass p through."""
+    p_inf = FP.is_zero(p[..., 2, :, :])
+    out = _on_live_lanes(q_valid & ~p_inf, _finite_mixed_sum, p, q_aff)
+    X2, Y2 = q_aff.unbind(-3)
     q_jac = torch.stack([X2, Y2, FP.one_like(X2)], dim=-3)
     out = _sel_pt(p_inf & q_valid, q_jac, out)
     return _sel_pt(~q_valid, p, out)
@@ -320,6 +361,21 @@ def reduce_chunks(partials, bstart, c: int, chunk: int, n_members: int) -> torch
     """Chunk partials [3, L, B K] -> [3, L, B]: `merge_chunks`, then
     `fold_reduce` per blob."""
     return fold_reduce(merge_chunks(partials, bstart, c, chunk, n_members), c)
+
+
+def combine_windows(sums: torch.Tensor, c: int, windows: int) -> torch.Tensor:
+    """Window sums [3, L, B W] of B MSMs (MSM b's window w at lane b W +
+    w) -> [3, L, B]: sum_w 2^(c w) S_w by Horner, acc = S_{W-1}, then for
+    w = W - 2 .. 0 c doublings and acc = add(acc, S_w). JAX
+    `combine_windows_host` on tensors; the plain version of the kernel
+    g1_window_combine, whose chain it is step for step."""
+    sums = sums.reshape(sums.shape[:-1] + (-1, windows))
+    acc = sums[..., windows - 1]
+    for w in range(windows - 2, -1, -1):
+        for _ in range(c):
+            acc = dbl(acc)
+        acc = add(acc, sums[..., w])
+    return acc.contiguous()
 
 
 # -- the fixed-base table (plain version of csrc/table.cu) ------------------
@@ -537,6 +593,10 @@ def to_op_layout(x16: torch.Tensor) -> torch.Tensor:
 
 def from_op_layout(x: torch.Tensor) -> torch.Tensor:
     return x
+
+
+def to_table_layout(table16: torch.Tensor) -> torch.Tensor:
+    return table16
 
 
 def from_table_layout(table: torch.Tensor) -> torch.Tensor:

@@ -2,18 +2,24 @@
 `csrc/g1_batch.cu`, `csrc/pairing.cu`, `csrc/fr_poly.cu`), their build and
 their wrappers.
 
-`g1_madd` and `g1_dbl` (g1.cu) and `g1_add` (g1_batch.cu) replace the TPU
-kernels `madd`, `dbl` and `add` of `lambdaworks_kzg_tpu/ops/pallas_g1_v2.py`
-(and the v1-layout kernels of `ops/pallas_g1.py`, which compute the same
-function); their plain versions are `madd`, `dbl` and `add` of
-`ops/g1_ops.py`. `g1_fold` (g1_batch.cu) folds a mesh's partials, K rows
-of points, with every level of the plain `g1_ops.fold` in one launch;
-`g1_add` is its body on two rows.
-`g1_bucket_accumulate` and `g1_bucket_reduce` (msm.cu) run the fixed-base
-MSM's madd rounds (chunks of at most L members of a bucket, one a lane)
-and its reduce (each bucket's chunk partials merged pairwise, then the
-fold), each in one launch per batch of blobs; their plain versions are
-`g1_ops.accumulate_chunks` and `g1_ops.reduce_chunks`.
+The paths run the TPU kernels `madd`, `add` and `dbl` of
+`lambdaworks_kzg_tpu/ops/pallas_g1_v2.py` (and the v1-layout kernels of
+`ops/pallas_g1.py`, which compute the same function) inside the MSM,
+table, batched G1 and fold kernels below. `g1_madd` and `g1_dbl` (g1.cu)
+and `g1_add` (g1_batch.cu) compute the three alone, on no path, checked
+against `madd`, `dbl` and `add` of `ops/g1_ops.py`. `g1_fold`
+(g1_batch.cu) folds a mesh's partials, K rows of points, with every level
+of the plain `g1_ops.fold` in one launch; `g1_add` is its body on two
+rows.
+`g1_bucket_accumulate` and `g1_bucket_reduce` (msm.cu) run the MSMs' madd
+rounds (chunks of at most L members of a bucket, one a lane) and their
+reduce (each bucket's chunk partials merged pairwise, then the fold),
+each in one launch per batch of blobs: the fixed-base MSM's blobs over
+its table's rows, the generic MSM's windows over its points;
+`g1_window_combine` (msm.cu) runs the generic MSM's Horner step over each
+MSM's window sums, one launch per batch of MSMs. Their plain versions are
+`g1_ops.accumulate_chunks`, `g1_ops.reduce_chunks` and
+`g1_ops.combine_windows`.
 `g1_fixedbase_table` (table.cu) builds the fixed-base table, doublings and
 affine step, in one launch straight into the accumulation's row layout;
 its plain version is `g1_ops.fixedbase_table`. `g1_decompress`,
@@ -64,9 +70,10 @@ name of the building process's own and moved into place whole
 
 Wrappers take the kernel layout, int32 tensors that hold u32 limbs
 (`limbs.to_u32_layout`): [3, 12, M] Jacobian, [2, 12, M] affine, a bool[M]
-mask, and for the MSM the table as rows [W N, 2, 12] with int32 `order`
-and `bstart`, its chunk partials as rows [B K, 3, 12], all contiguous on
-one CUDA device; the table build takes
+mask, and for the MSM the table (or the generic MSM's points) as rows
+[M, 2, 12] with int32 `order` and `bstart`, its chunk partials as rows
+[B K, 3, 12], all contiguous on one CUDA device, and the combine the
+window sums [3, 12, B W]; the table build takes
 the basis as [2, 12, N] affine with valid bool[N] and returns the rows;
 the batched G1 kernels take x as [12, M], scalars as [8, M] u32 words
 (or [8, 1], one scalar for every lane) and return bool[M] masks; the FFT
@@ -191,6 +198,7 @@ def _load():
             lib.lwkzg_g1_dbl.argtypes = [vp, vp, ci, vp]
             lib.lwkzg_g1_bucket_accumulate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
             lib.lwkzg_g1_bucket_reduce.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            lib.lwkzg_g1_window_combine.argtypes = [vp, vp, ci, ci, ci, vp]
             lib.lwkzg_g1_fixedbase_table.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
             lib.lwkzg_fp_sqr_check.argtypes = [vp, vp, vp, ci, vp]
             lib.lwkzg_g1_decompress.argtypes = [vp, vp, vp, vp, ci, vp]
@@ -211,6 +219,7 @@ def _load():
                 "madd": lib.lwkzg_g1_madd, "add": lib.lwkzg_g1_add, "dbl": lib.lwkzg_g1_dbl,
                 "bucket_accumulate": lib.lwkzg_g1_bucket_accumulate,
                 "bucket_reduce": lib.lwkzg_g1_bucket_reduce,
+                "window_combine": lib.lwkzg_g1_window_combine,
                 "fixedbase_table": lib.lwkzg_g1_fixedbase_table,
                 "sqr_check": lib.lwkzg_fp_sqr_check,
                 "decompress": lib.lwkzg_g1_decompress,
@@ -356,6 +365,23 @@ def _bucket_reduce(k: _Kernel, partials: torch.Tensor, bstart: torch.Tensor, c: 
         scratch = torch.empty((b, 3 << (c - 1), 3 * NL), dtype=torch.int32, device=dev)
         _run("bucket_reduce", partials, partials.data_ptr(), bstart.data_ptr(), work.data_ptr(),
              scratch.data_ptr(), out.data_ptr(), n_members, c, chunk, slots, b)
+        k.launches += 1
+    return out
+
+
+def _window_combine(k: _Kernel, sums: torch.Tensor, c: int, windows: int):
+    """Window sums [3, 12, B W] Jacobian, MSM b's window w at lane b W + w
+    -> [3, 12, B]: sum_w 2^(c w) S_w per MSM by Horner (c doublings and
+    an add a window, from S_{W-1} down), as `g1_ops.combine_windows`."""
+    _check_c(c)
+    lanes = sums.shape[-1]
+    if windows < 1 or lanes % windows:
+        raise ValueError(f"{lanes} window sums do not split into MSMs of {windows} windows")
+    _check(sums, "sums", (3, NL, lanes), sums.device)
+    b = lanes // windows
+    out = torch.empty((3, NL, b), dtype=torch.int32, device=sums.device)
+    if b:
+        _run("window_combine", sums, sums.data_ptr(), out.data_ptr(), b, windows, c)
         k.launches += 1
     return out
 
@@ -661,6 +687,10 @@ dbl = _Kernel("g1_dbl", f"{_V2}:392", _dbl)
 bucket_accumulate = _Kernel("g1_bucket_accumulate", f"{_V2}:353", _bucket_accumulate)
 # the add of the fold reduce and group tree (ops/msm.py:598-621, :447-477)
 bucket_reduce = _Kernel("g1_bucket_reduce", f"{_V2}:376", _bucket_reduce)
+# the Horner step over windows of the generic MSM: combine_windows_host
+# (ops/msm.py:671), and the same step of _bucket_reduce_fold (:618-620)
+window_combine = _Kernel("g1_window_combine", "lambdaworks_kzg_tpu/ops/msm.py:671",
+                         _window_combine)
 # the doubling scan and affine step of the table build (ops/msm.py:714-750)
 fixedbase_table = _Kernel("g1_fixedbase_table", f"{_V2}:392", _fixedbase_table)
 # the square root and sign choice of decompression (XLA field ops in
@@ -686,9 +716,9 @@ fr_evaluate = _Kernel("fr_evaluate", f"{_FR}:66", _fr_evaluate)
 fr_quotient = _Kernel("fr_quotient", f"{_FR}:82", _fr_quotient)
 fr_quotient_in_domain = _Kernel("fr_quotient_in_domain", f"{_FR}:94", _fr_quotient_in_domain)
 fr_to_mont = _Kernel("fr_to_mont", "lambdaworks_kzg_tpu/ops/field_ops.py:97", _fr_to_mont)
-ALL = (madd, add, dbl, fold, bucket_accumulate, bucket_reduce, fixedbase_table, decompress,
-       scalar_mul, subgroup_mask, fft_stage, miller_loop, final_exp, fr_to_mont, fr_evaluate,
-       fr_quotient, fr_quotient_in_domain)
+ALL = (madd, add, dbl, fold, bucket_accumulate, bucket_reduce, window_combine, fixedbase_table,
+       decompress, scalar_mul, subgroup_mask, fft_stage, miller_loop, final_exp, fr_to_mont,
+       fr_evaluate, fr_quotient, fr_quotient_in_domain)
 # a check of the field's square, off every path (the TPU kernels' _sqr_acc)
 sqr_check = _Kernel("fp_sqr_check", "lambdaworks_kzg_tpu/ops/pallas_g1.py:142", _sqr_check)
 # a check of the cooperative field, off every path (the TPU kernels' _KernelFp)

@@ -7,13 +7,18 @@ The port runs SPMD: every process calls the same entry points in the same
 order, drives its own local devices as the single-process mesh does
 (`parallel/mesh.py`), and exchanges only small results. A mesh from
 `global_mesh` holds the rank that owns each cell; on it,
-`parallel.msm.ShardedBasis` builds tables for this process's cells only,
-runs only their shards, folds its partials on `dispatch.fold` (one
-g1_fold launch on a card), and makes one all_gather of a [3, 12, B] int32
-Jacobian partial per process (`all_gather_points`), which every process
-folds in rank order: every process returns the same points, the whole
-batch. The Fr layer, decompression and the pairing check run in every
-process on its own lead device.
+`parallel.msm` runs this process's cells only and folds each row's
+partials on `dispatch.fold` (one g1_fold launch on a card), then makes
+one all_gather per call of its int32 Jacobian partials
+(`all_gather_points`), which every process folds in rank order:
+- the fixed-base MSM (`ShardedBasis`, tables for this process's cells
+  only): a [3, 12, B] point a batch;
+- the generic MSM (JAX's `_local_window_sums` steps): the window sums
+  [3, 12, B W], infinity at the rows and windows of other processes,
+  then one Horner combine (`dispatch.combine_windows`).
+Every process returns the same points, the whole batch. The Fr layer,
+decompression and the pairing check run in every process on its own
+lead device.
 
 Usage (one call per process, before building meshes):
 

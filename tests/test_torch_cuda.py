@@ -23,7 +23,13 @@ at chunks of 3 and 16 members, equals `g1_ops.accumulate_chunks`
 limb for limb, and g1_bucket_reduce equals `g1_ops.reduce_chunks` on
 those partials and on partials with points at infinity, equal and
 opposite pairs inside a bucket's merge, and (one chunk a bucket) equal
-and opposite bucket sums across the first fold.
+and opposite bucket sums across the first fold. For c in {4, 8, 12},
+g1_window_combine equals `g1_ops.combine_windows` on the window sums of
+1 and 3 MSMs (Z != 1, a window at infinity, a window equal and one
+opposite to the doubled accumulator), and the generic MSM of three MSMs
+over the basis tiled twice runs one launch of each MSM kernel and the
+combine and none of the table, equal to its plain version limb for limb
+and to the host oracle.
 
 On the mainnet setup: the quotient of a dense seeded blob, computed on
 the card, equals the host quotient, and both MSM kernels equal their
@@ -435,6 +441,68 @@ def test_msm_kernels_match_plain_on_card(basis, c):
                                g1_ops.reduce_chunks(partials, bstart, c, chunk, n_members))
 
 
+def _window_sums(points, c, msms, seed):
+    """Window sums [3, 24, B W] (W = num_windows(c, 255)) of B = msms
+    MSMs from the basis, Z != 1 on every other lane, window W - 3 of MSM 0
+    at infinity; with B = 3, MSM 1's window W - 2 equal to 2^c S_{W-1}
+    (the first add doubles) and MSM 2's opposite to it (infinity)."""
+    w = msm.num_windows(c, 255)
+    lanes = msms * w
+    g = torch.Generator().manual_seed(seed)
+    pts = points.cpu()[:, :, torch.randint(4, N, (lanes,), generator=g)]  # past the dead lane 3
+    jac = g1_ops.lift(pts, torch.ones(lanes, dtype=torch.bool))
+    jac = torch.where((torch.arange(lanes) % 2 == 0)[None, None], g1_ops.dbl(jac), jac)
+    jac[..., w - 3] = 0
+    for b, negate in ((1, False), (2, True))[: msms - 1]:
+        top = jac[..., b * w + w - 1 : b * w + w]
+        for _ in range(c):
+            top = g1_ops.dbl(top)
+        if negate:
+            top = torch.stack([top[0], FP.neg(top[1]), top[2]])
+        jac[..., b * w + w - 2] = top[..., 0]
+    return jac.to(points.device), w
+
+
+@pytest.mark.parametrize("msms", [1, 3])
+@pytest.mark.parametrize("c", [4, 8, 12])
+def test_window_combine_kernel_matches_plain_on_card(basis, c, msms):
+    points, _ = basis
+    sums, w = _window_sums(points, c, msms, seed=c + msms)
+    before = kernels.window_combine.launches
+    got = kernels.window_combine(lb.to_u32_layout(sums), c, w)
+    torch.cuda.synchronize()
+    assert kernels.window_combine.launches == before + 1
+    assert tuple(got.shape) == (3, 12, msms)
+    want = g1_ops.combine_windows(sums, c, w)
+    assert torch.equal(lb.to_u16_layout(got), want)
+    assert torch.equal(dispatch.combine_windows(lb.to_u32_layout(sums), c, w), got)
+
+
+@pytest.mark.parametrize("c,bits", [(4, 255), (8, 248), (12, 255)])
+def test_generic_msm_kernels_match_plain_on_card(basis, c, bits):
+    """msm_batch_device of three MSMs over the basis tiled twice (equal
+    points), one of them all zero: the kernels (sort, accumulate, reduce,
+    combine) equal the plain versions on the card limb for limb, one
+    launch each, and the host oracle in affine form; no table."""
+    points, valid = basis
+    pts, ok = points.repeat(1, 1, 2), valid.repeat(2)
+    rng = random.Random(c + bits)
+    top = min(R, 1 << bits)
+    ks = [[rng.randrange(top) for _ in range(2 * N)] for _ in range(2)] + [[0] * (2 * N)]
+    scalars = torch.stack([msm.scalars_to_tensor(k, "cuda") for k in ks])
+    used = (kernels.fixedbase_table, kernels.bucket_accumulate, kernels.bucket_reduce,
+            kernels.window_combine)
+    before = [k.launches for k in used]
+    got = msm.msm_batch_device(pts, ok, scalars, c, bits)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(used, before)] == [0, 1, 1, 1]
+    want = msm.msm_batch_device(pts, ok, scalars, c, bits, ops=g1_ops)
+    assert torch.equal(lb.to_u16_layout(got), want)
+    affine = [HC.to_affine(pt) for pt in g1_ops.points_to_host(g1_ops.lift(pts, ok))]
+    for pt, k in zip(g1_ops.points_to_host(want), ks):
+        assert HC.to_affine(pt) == HC.to_affine(HC.g1_msm(k, affine))
+
+
 def _dense_blob(rng, n=4096):
     return b"".join(rng.randrange(R).to_bytes(32, "little") for _ in range(n))
 
@@ -699,12 +767,11 @@ def test_generic_msm_matches_host_msm_on_card():
     ks = [rng.randrange(R) for _ in pts]
     ks[0], ks[1] = 0, R - 1
     ctx_backend = EIP4844Context(setup, device="cuda").backend
-    before = [k.launches for k in (kernels.fixedbase_table, kernels.bucket_accumulate,
-                                   kernels.bucket_reduce)]
+    used = (kernels.fixedbase_table, kernels.bucket_accumulate, kernels.bucket_reduce,
+            kernels.window_combine)
+    before = [k.launches for k in used]
     got = ctx_backend.msm(ks, pts)
-    after = [k.launches for k in (kernels.fixedbase_table, kernels.bucket_accumulate,
-                                  kernels.bucket_reduce)]
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert [k.launches - b for k, b in zip(used, before)] == [0, 1, 1, 1]
     assert HC.to_affine(got) == HC.to_affine(HC.g1_msm(ks, pts))
     with pytest.raises(ValueError, match="2\\^248"):
         ctx_backend.msm([1 << 250], pts[2:3], scalar_bits=248)

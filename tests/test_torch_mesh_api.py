@@ -33,7 +33,7 @@ def test_entry_points_on_a_mesh_match_jax(dev_pair, monkeypatch):
     jax_ctx, plain = dev_pair
     backend = TorchBackend(plain.setup, "cpu", fixedbase=plain.backend.fixedbase(),
                            mesh=cpu_mesh(2, 4))
-    assert backend.device == torch.device("cpu") and backend.shards.shard == "points"
+    assert backend.device == torch.device("cpu") and backend.shards.width == 32 // 4
     ctx = EIP4844Context(plain.setup, backend=backend)
     rng = random.Random(7)
     blobs = [_rand_blob(rng) for _ in range(3)]

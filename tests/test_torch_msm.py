@@ -17,8 +17,9 @@ stages at groups = 4), with a zero scalar and a source lane at infinity.
   package's `g1_ops.madd` over the same members, limb for limb; the
   batched reduce equals each blob's alone and the host oracle, on buckets
   with infinities, equal pairs (the doubling branch) and opposite pairs;
-- the generic MSM (`msm.msm`, a fixed-base MSM over a table built for
-  the call) equals the JAX host `g1_msm` in affine form at c in {4, 8}
+- the generic MSM (`msm.msm`, JAX's windowed MSM: window sums, then
+  their Horner combine; tests/test_torch_msm_windows.py holds its
+  stages) equals the JAX host `g1_msm` in affine form at c in {4, 8}
   with points at infinity, zero scalars and r - 1, and
   `TorchBackend.msm` does at its own window; a scalar at or above
   2^scalar_bits raises;
@@ -393,13 +394,12 @@ def test_backend_msm_matches_host_oracle_and_checks_scalar_bits(basis, port_tabl
 
 @pytest.mark.parametrize("scalar_bits", [255, 248])
 def test_generic_msm_at_c12_on_tiled_points_matches_host_oracle(basis, scalar_bits):
-    """The generic MSM's window at 2^20 points (c = 12: 22 windows, the
-    reduce's global-scratch route on the card) at 64 points: the basis
-    (one point at infinity) tiled twice, so equal points share buckets
-    and the accumulation's doubling branch runs; scalars below
-    2^scalar_bits, with a zero. ~10 s each: the plain reduce of 8 x 4096
-    buckets takes ~5 s at any size, the plain table and accumulation
-    grow with the points."""
+    """The generic MSM's window at 2^20 points (c = 12: 22 or 21 window
+    blobs of 4096 buckets, the reduce's global-scratch route on the card)
+    at 64 points: the basis (one point at infinity) tiled twice, so equal
+    points share buckets and the accumulation's doubling branch runs;
+    scalars below 2^scalar_bits, with a zero. ~10 s each, most of it the
+    plain combine's 252 doublings."""
     pts_aff = list(basis[0]) * 2
     rng = random.Random(scalar_bits)
     scalars = [rng.randrange(min(R, 1 << scalar_bits)) for _ in pts_aff]

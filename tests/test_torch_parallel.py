@@ -7,10 +7,11 @@ the sharding, the padding and the folds, not any scaling.
 - `make_mesh` chooses the axes as JAX `parallel/mesh.make_mesh` does on
   its 8 virtual CPU devices (tests/conftest.py), and raises where a mesh
   would need more devices than it is given, or CUDA that is absent;
-- `sharded_msm` on meshes (1, 1), (2, 4) and (1, 8), by points, windows
-  and auto, equals the JAX host oracle `g1_msm` in affine form, with an
-  invalid point and a zero scalar among the lanes, W = 86 windows (c = 3)
-  not divisible by 4 or 8, an all-zero vector giving infinity, and a
+- `sharded_msm` (JAX's windowed generic MSM, no table) on meshes (1, 1),
+  (2, 4) and (1, 8), by points, windows and auto, equals the JAX host
+  oracle `g1_msm` in affine form, with an invalid point and a zero
+  scalar among the lanes, W = 85 windows (c = 3, 255-bit scalars) not
+  divisible by 4 or 8, an all-zero vector giving infinity, and a
   scalar at or above 2^scalar_bits raising; `batch_msm` of 3 blobs on
   (2, 4) (padded to 4) equals it blob by blob, and so does the generic
   MSM of a backend on (2, 4) above its sharding threshold;
@@ -29,9 +30,10 @@ The slice as a whole runs in tests/test_torch_mesh_api.py.
 The plain table build takes ~4 s at any size on one thread here, so the
 module builds each basis's tables once, by the host oracle (Python
 ints, as `tests/test_torch_prove.py` does), in place of
-`dispatch.fixedbase_table`; the plain build itself is held against the
-kernel on the card (tests/test_torch_cuda.py) and through every
-unsharded MSM test. The `slow` tests hold the port's sharded MSM and NTT
+`dispatch.fixedbase_table`, for the backends' fixed-base shards; the
+plain build itself is held against the kernel on the card
+(tests/test_torch_cuda.py). The generic MSM builds no table: each call
+pays the plain combine's chain, ~4-5 s at c = 3 on one thread. The `slow` tests hold the port's sharded MSM and NTT
 against JAX's `parallel` on its (2, 4) CPU mesh (minutes of XLA
 compile)."""
 
@@ -59,7 +61,7 @@ from lambdaworks_kzg_tpu_torch.parallel.ntt import sharded_ntt_ints
 from .test_torch_prove import N_DEV, _host_table, dev_contexts
 
 SHAPES = [(1, 1), (2, 4), (1, 8)]
-C_BITS = 3  # 86 windows: not divisible by 4 or 8, and the cheapest plain reduce
+C_BITS = 3  # 85 windows at 255 bits: not divisible by 4 or 8, and the cheapest plain reduce
 
 
 def cpu_mesh(data, points):
@@ -160,9 +162,9 @@ def test_sharded_msm_matches_host_oracle(basis, shape, shard):
     scalars[5] = 0
     got = sharded_msm(mesh, points, valid, msm.scalars_to_tensor(scalars), C_BITS, shard)
     assert HC.to_affine(got) == _oracle(scalars, affine)
-    # N / P is far below 2^14: auto shards the windows, W = 86 padded to P wd
+    # N / P is far below 2^14: auto shards the windows, W = 85 not a multiple of P
     assert pmsm.resolve_shard(mesh, N_DEV, "auto") == "windows"
-    assert shape[1] == 1 or num_windows(C_BITS) % shape[1]
+    assert shape[1] == 1 or num_windows(C_BITS, 255) % shape[1]
 
 
 def test_sharded_msm_edge_cases(basis):
@@ -235,7 +237,7 @@ def test_msm_across_ranks_folds_the_gathered_rows_once(basis, monkeypatch):
 
     def basis_of(rank):
         mesh = Mesh(((cpu, cpu),), ranks=((0, 1),), rank=rank)
-        return pmsm.ShardedBasis(mesh, points, valid, C_BITS, "points")
+        return pmsm.ShardedBasis(mesh, points, valid, C_BITS)
 
     monkeypatch.setattr(distributed, "all_gather_points", lambda out: out[None])
     partner = basis_of(1).msm(tensor)
