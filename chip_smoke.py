@@ -43,9 +43,10 @@ Phases, each printed with its seconds:
      plain versions on its members, and its MSM on the kernels against
      the host oracle g1_msm in affine form; g1_window_combine against
      g1_ops.combine_windows at c = 4, 8 and 12 on the window sums of one
-     MSM (all finite, Z != 1) and of three (a window at infinity, a
-     window equal and one opposite to the doubled accumulator), each
-     shape timed on finite sums;
+     MSM (all finite, Z != 1) and of three (combine_cases.combine_edge_sums:
+     windows and a whole run at infinity, Horner, comb and last adds of
+     equal and of opposite points), each shape timed on finite sums, its
+     critical path logged (doublings, adds, products deep);
      g1_decompress on the 4096
      mainnet monomial x's and on non-square and edge x's, g1_scalar_mul
      on 2048 lanes of per-lane 255-bit scalars (0, r, r - 1 among them)
@@ -115,12 +116,13 @@ Phases, each printed with its seconds:
      makes, and no host pairing runs; each batch of n >= 2 that passes
      its input checks launches g1_decompress and g1_subgroup_mask once,
      fr_evaluate once (its blob evaluations),
-     g1_bucket_accumulate, g1_bucket_reduce and g1_window_combine three
-     times (one generic MSM per linear combination; no table) and each
+     g1_bucket_accumulate, g1_bucket_reduce and g1_window_combine once
+     (its three linear combinations one batch of generic MSMs over the
+     union of its points; no table) and each
      pairing kernel once; seeded batches of 6 and 64 blobs, committed and
      proved on the card, verify true, and false with proofs 0 and 1
      swapped, twice each, timed, one true batch of each size split into
-     its stages, and the batch of 6's three generic MSMs split into sort,
+     its stages, and the batch of 6's batch of generic MSMs split into sort,
      accumulate, reduce and combine (device time under the profiler); a generic MSM of a blob
      over the 4096 Lagrange points equals its commitment;
  8b. the 140 verify vectors again on the host pairing tier,
@@ -216,7 +218,8 @@ Phases, each printed with its seconds:
      LWKZG_NATIVE=0, the mainnet conversion's G2 stage both ways, and
      the three sizes a CPU backend sends to the tier, natively and on the
      card: 12 decompressions (g1_decompress + g1_subgroup_mask), the three
-     generic MSMs of a batch of 6 (6, 6 and 7 points), 6 blob evaluations
+     linear combinations of a batch of 6 (natively one MSM of 6, 6 and 7
+     points each; on the card one batch of three over 13), 6 blob evaluations
      (on the card one fr_evaluate launch); each in
      turns, medians of 5, equal results;
  14. parallel/distributed.py: `python3 chip_smoke.py --rank ...` processes
@@ -588,10 +591,9 @@ FFT_STAGE_LENGTHS = (2, 64, 4096)  # checked in phase 3: first, a middle and las
 PAIRING_LAUNCHES = {"pairing_miller_loop": 1, "pairing_final_exp": 1}
 # one verify_blob_kzg_proof_batch of n >= 2 blobs whose inputs pass the
 # checks, on a card: one batched decompression and subgroup check, the
-# blob evaluations, three generic MSMs, one pairing check
-VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1,
-                         **{name: 3 for name in GENERIC_KERNELS}, **FR_EVAL_LAUNCHES,
-                         **PAIRING_LAUNCHES}
+# blob evaluations, one batch of three generic MSMs, one pairing check
+VERIFY_BATCH_LAUNCHES = {"g1_decompress": 1, "g1_subgroup_mask": 1, **GENERIC_LAUNCHES,
+                         **FR_EVAL_LAUNCHES, **PAIRING_LAUNCHES}
 # the same batch on the host pairing tier: no pairing kernel
 HOST_TIER = {name: -n for name, n in PAIRING_LAUNCHES.items()}
 NTT_N = 4096  # the blob domain
@@ -1142,34 +1144,41 @@ def check_msm_kernels(label: str, table16, order, bstart, c: int, max_err: dict,
 
 def combine_sums(points, c: int, msms: int, seed: int, special: bool):
     """Window sums [3, 24, B W] (W = num_windows(c, 255)) of B = msms
-    MSMs from the setup's points, Z != 1 on every other lane. special:
-    window W - 3 of MSM 0 at infinity, and with B = 3 MSM 1's window
-    W - 2 equal to 2^c S_{W-1} (the combine's first add doubles) and MSM
-    2's opposite to it (infinity); else every window finite, so that no
-    add meets infinity or the same x. -> (sums, W)."""
+    MSMs, Z != 1 on every other lane. special (B = 3): the combine's edge
+    sums (utils.combine_cases.combine_edge_sums: a window and
+    a whole run at infinity, Horner, comb and last adds of equal and of
+    opposite points); else from the setup's points, every window finite.
+    -> (sums, W)."""
     import torch
 
     from lambdaworks_kzg_tpu_torch.constants import num_windows
     from lambdaworks_kzg_tpu_torch.ops import g1_ops
-    from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+    from lambdaworks_kzg_tpu_torch.utils import combine_cases
 
     w = num_windows(c, 255)
+    if special:
+        return combine_cases.combine_edge_sums(c, w, seed, points.device), w
     lanes = msms * w
     g = torch.Generator().manual_seed(seed)
     pick = torch.randint(0, points.shape[-1], (lanes,), generator=g).to(points.device)
     jac = g1_ops.lift(points[:, :, pick], torch.ones(lanes, dtype=torch.bool, device=points.device))
     jac = torch.where((torch.arange(lanes, device=points.device) % 2 == 0)[None, None],
                       g1_ops.dbl(jac), jac)
-    if special:
-        jac[..., w - 3] = 0
-        for b, negate in ((1, False), (2, True))[: msms - 1]:
-            top = jac[..., b * w + w - 1 : b * w + w]
-            for _ in range(c):
-                top = g1_ops.dbl(top)
-            if negate:
-                top = torch.stack([top[0], FP.neg(top[1]), top[2]])
-            jac[..., b * w + w - 2] = top[..., 0]
     return jac.contiguous(), w
+
+
+def combine_chain(c: int, w: int) -> dict:
+    """The combine's critical path on its runs (g1_ops.combine_runs): the
+    top run's c (W - 1) doublings (3 products deep on four groups) and its
+    Horner adds, then the last add (5 deep each); beside it Horner's on a
+    pair of groups (4 and 8 deep), the kernel before."""
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops
+
+    starts = g1_ops.combine_runs(w, c)
+    adds = w - starts[-1] - 1 + (len(starts) > 1)
+    return {"runs": [b - a for a, b in zip(starts, starts[1:] + [w])], "dbl": c * (w - 1),
+            "add": adds, "products_deep": 3 * c * (w - 1) + 5 * adds,
+            "horner_products_deep": 4 * c * (w - 1) + 8 * (w - 1)}
 
 
 def check_window_combine(points, max_err: dict) -> dict:
@@ -1177,8 +1186,9 @@ def check_window_combine(points, max_err: dict) -> dict:
     for limb, at COMBINE_SHAPES: one MSM on finite sums, three on
     `combine_sums`' special ones; each shape's kernel timed (CUDA events)
     on finite sums beside the plain version's one call (the checked one)
-    and the bound of its c (W - 1) doublings and W - 1 adds a MSM.
-    -> {"c{c}_b{B}": ...}."""
+    and the bound of its c (W - 1) doublings and W - 1 adds a MSM (the
+    function's fewest point ops); its critical path (`combine_chain`)
+    logged. -> {"c{c}_b{B}": ...}."""
     import torch
 
     from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb
@@ -1204,13 +1214,15 @@ def check_window_combine(points, max_err: dict) -> dict:
         ms = time_ms(lambda: kernels.window_combine(sums32, c, w), reps=10)
         nbytes = msms * (w + 1) * 3 * FP_BYTES
         imads = msms * (w - 1) * (c * op_imads("dbl") + op_imads("add"))
+        chain = combine_chain(c, w)
         out[f"c{c}_b{msms}"] = {"c": c, "msms": msms, "windows": w, "ms": ms,
-                                "plain_ms": plain_ms, **bound(nbytes, imads),
-                                "chain": {"dbl": c * (w - 1), "add": w - 1}}
-        log(f"  g1_window_combine {label} (W = {w}; a chain of {c * (w - 1)} doublings and "
-            f"{w - 1} adds): equal to plain, limb for limb, on {'special' if msms > 1 else 'finite'} "
-            f"sums; kernel {ms:.4f} ms on finite sums, plain {plain_ms:.1f} ms, bound "
-            f"{out[f'c{c}_b{msms}']['bound_ms']:.5f} ms (operations)")
+                                "plain_ms": plain_ms, **bound(nbytes, imads), "chain": chain}
+        log(f"  g1_window_combine {label} (W = {w}; runs of {chain['runs']} windows; "
+            f"critical path {chain['dbl']} doublings and {chain['add']} adds, "
+            f"{chain['products_deep']} products deep, Horner's {chain['horner_products_deep']}): "
+            f"equal to plain, limb for limb, on {'edge' if msms > 1 else 'finite'} sums; kernel "
+            f"{ms:.4f} ms on finite sums, plain {plain_ms:.1f} ms, bound "
+            f"{out[f'c{c}_b{msms}']['bound_ms']:.6f} ms (operations)")
     return out
 
 
@@ -1924,9 +1936,9 @@ def verify_split(ctx, blobs, commitments, proofs) -> dict:
     """The stages of one verify_blob_kzg_proof_batch timed apart on the host
     clock, each ending in a transfer to the host: the batched
     decompression and subgroup check, the challenges (host hashing), the
-    blob evaluations on the card, the three generic MSMs alone, and
-    KZG.verify_batch (the same MSMs and the context's pairing check)."""
-    from lambdaworks_kzg_tpu_torch.constants import R
+    blob evaluations on the card, the batch of three generic MSMs alone
+    (one msm_batch call), and KZG.verify_batch (the same MSMs and the
+    context's pairing check)."""
     from lambdaworks_kzg_tpu_torch.host import curve as HC
     from lambdaworks_kzg_tpu_torch.utils import hashing as H
 
@@ -1939,24 +1951,33 @@ def verify_split(ctx, blobs, commitments, proofs) -> dict:
     ys = backend.evaluate_scalars(backend.blob_scalars(blobs), zs)
     t.append(time.perf_counter())
     rs = H.compute_r_powers(commitments, zs, ys, proofs, ctx.n)
-    aff = [HC.to_affine(p) for p in points]
-    backend.msm(rs, aff[n:])
-    backend.msm([r * z % R for r, z in zip(rs, zs)], aff[n:])
-    backend.msm(rs + [(-sum(r * y for r, y in zip(rs, ys))) % R],
-                aff[:n] + [HC.to_affine(HC.G1_GENERATOR)])
+    backend.msm_batch(*verify_rows(rs, zs, ys, [HC.to_affine(p) for p in points[n:]],
+                                   [HC.to_affine(p) for p in points[:n]]))
     t.append(time.perf_counter())
     if not ctx.kzg.verify_batch(points[:n], zs, ys, points[n:], rs):
         raise AssertionError("the split batch verification rejected a true batch")
     t.append(time.perf_counter())
-    names = ("decompress_ms", "challenges_ms", "evaluate_ms", "three_msm_ms", "msm_and_pairing_ms")
+    names = ("decompress_ms", "challenges_ms", "evaluate_ms", "msm_batch_ms", "msm_and_pairing_ms")
     return {name: (t[i + 1] - t[i]) * 1e3 for i, name in enumerate(names)}
 
 
-def batch_msm_inputs(ctx, blobs, commitments, proofs) -> list:
-    """The three generic MSMs of verify_blob_kzg_proof_batch on these
-    blobs, as KZG.verify_batch forms them: [(scalars, affine points)] of
-    n, n and n + 1 points."""
+def verify_rows(rs, zs, ys, proof_aff, commit_aff):
+    """KZG.verify_batch's one batch of MSMs: (rows, points) over [proofs,
+    commitments, G1], rows r^i and r^i z_i on the proofs, r^i on the
+    commitments with -sum r^i y_i on G1."""
     from lambdaworks_kzg_tpu_torch.constants import R
+    from lambdaworks_kzg_tpu_torch.host import curve as HC
+
+    zero = [0] * len(rs)
+    rows = [rs + zero + [0], [r * z % R for r, z in zip(rs, zs)] + zero + [0],
+            zero + rs + [(-sum(r * y for r, y in zip(rs, ys))) % R]]
+    return rows, proof_aff + commit_aff + [HC.to_affine(HC.G1_GENERATOR)]
+
+
+def batch_msm_inputs(ctx, blobs, commitments, proofs):
+    """The batch of generic MSMs of verify_blob_kzg_proof_batch on these
+    blobs, as KZG.verify_batch forms it -> (rows, points): three rows over
+    2 n + 1 points (n, n and n + 1 of them weighted)."""
     from lambdaworks_kzg_tpu_torch.host import curve as HC
     from lambdaworks_kzg_tpu_torch.utils import hashing as H
 
@@ -1965,17 +1986,16 @@ def batch_msm_inputs(ctx, blobs, commitments, proofs) -> list:
     zs = [H.compute_challenge(b, c, ctx.n) for b, c in zip(blobs, commitments)]
     ys = ctx.backend.evaluate_blobs(blobs, zs)
     r = H.compute_r_powers(list(commitments), zs, ys, list(proofs), ctx.n)
-    proof_aff = [HC.to_affine(pt) for pt in points[n:]]
-    commit_aff = [HC.to_affine(pt) for pt in points[:n]] + [HC.to_affine(HC.G1_GENERATOR)]
-    return [(r, proof_aff), ([a * z % R for a, z in zip(r, zs)], proof_aff),
-            (r + [(-sum(a * y for a, y in zip(r, ys))) % R], commit_aff)]
+    return verify_rows(r, zs, ys, [HC.to_affine(pt) for pt in points[n:]],
+                       [HC.to_affine(pt) for pt in points[:n]])
 
 
-def verify_msm_stages(ctx, blobs, commitments, proofs, card: str) -> list:
-    """A batch verification's three generic MSMs on the card, each
-    `msm.msm_device` at the window the backend picks, equal to
-    backend.msm's point and split by `msm_stages` (device time under the
-    profiler); -> [{"points", "c", stage ms}]."""
+def verify_msm_stages(ctx, blobs, commitments, proofs, card: str) -> dict:
+    """A batch verification's batch of generic MSMs on the card,
+    `msm.msm_batch_device` at the window backend.msm_batch picks (that of
+    the widest row, n + 1 points), equal to backend.msm_batch's points and
+    split by `msm_stages` (device time under the profiler) -> {"points",
+    "msms", "c", stage ms}."""
     import torch
 
     from lambdaworks_kzg_tpu_torch.host import curve as HC
@@ -1983,19 +2003,19 @@ def verify_msm_stages(ctx, blobs, commitments, proofs, card: str) -> list:
     from lambdaworks_kzg_tpu_torch.ops.backend import auto_window
 
     dev = ctx.backend.device
-    out = []
-    for scalars, affine in batch_msm_inputs(ctx, blobs, commitments, proofs):
-        c = auto_window(len(affine))
-        pts, valid = g1_ops.make_points_host(affine)
-        pts, valid = lb.as_limb_tensor(pts, dev), torch.from_numpy(valid).to(dev)
-        k = msm.scalars_to_tensor(scalars, dev)
-        point = g1_ops.points_to_host(dispatch.from_op_layout(msm.msm_device(pts, valid, k, c)))[0]
-        if HC.to_affine(point) != HC.to_affine(ctx.backend.msm(scalars, affine)):
-            raise AssertionError("msm_device differs from backend.msm on a batch verification's MSM")
-        stages = msm_stages(lambda: msm.msm_device(pts, valid, k, c))
-        out.append({"points": len(affine), "c": c, **stages})
-        log(f"  generic MSM of {len(affine)} points, c={c}: device ms by stage {stages} ({card})")
-    return out
+    rows, affine = batch_msm_inputs(ctx, blobs, commitments, proofs)
+    c = auto_window(len(blobs) + 1)
+    pts, valid = g1_ops.make_points_host(affine)
+    pts, valid = lb.as_limb_tensor(pts, dev), torch.from_numpy(valid).to(dev)
+    k = torch.stack([msm.scalars_to_tensor(row, dev) for row in rows])
+    got = g1_ops.points_to_host(dispatch.from_op_layout(msm.msm_batch_device(pts, valid, k, c)))
+    want = ctx.backend.msm_batch(rows, affine)
+    if [HC.to_affine(p) for p in got] != [HC.to_affine(p) for p in want]:
+        raise AssertionError("msm_batch_device differs from backend.msm_batch on a batch verification")
+    stages = msm_stages(lambda: msm.msm_batch_device(pts, valid, k, c))
+    log(f"  the batch of {len(rows)} generic MSMs over {len(affine)} points, c={c}: device ms by "
+        f"stage {stages} ({card})")
+    return {"points": len(affine), "msms": len(rows), "c": c, **stages}
 
 
 def host_conversion(path: str) -> dict:
@@ -2062,13 +2082,20 @@ def mesh_generic_launches(mesh, sharded: bool, shard: str = "points", windows: i
 def mesh_verify_launches(mesh, n_blobs: int) -> dict:
     """One verify_blob_kzg_proof_batch of n >= 2 blobs that pass their
     checks, on a mesh: its decompression, subgroup check and pairing check
-    on the lead device, and three generic MSMs (n, n and n + 1 points),
-    sharded by points above max(16, 2 P) points (TorchBackend.msm)."""
+    on the lead device, and one batch of three generic MSMs (the widest
+    row n + 1 points), over the mesh's rows by points above max(16, 2 P)
+    such points (TorchBackend.msm_batch: an accumulation and a reduce a
+    shard, a fold a row where P > 1, one combine), else on the lead
+    device."""
     want = {"g1_decompress": 1, "g1_subgroup_mask": 1, **FR_EVAL_LAUNCHES, **PAIRING_LAUNCHES}
-    for k in (n_blobs, n_blobs, n_blobs + 1):
-        sharded = k > max(16, 2 * mesh.shape["points"])
-        for name, n in mesh_generic_launches(mesh, sharded).items():
-            want[name] = want.get(name, 0) + n
+    d, p = mesh.shape["data"], mesh.shape["points"]
+    if n_blobs + 1 > max(16, 2 * p):
+        batch = {"g1_bucket_accumulate": d * p, "g1_bucket_reduce": d * p, "g1_fold": d * (p > 1),
+                 "g1_window_combine": 1}
+    else:
+        batch = dict(GENERIC_LAUNCHES)
+    for name, n in batch.items():
+        want[name] = want.get(name, 0) + n
     return want
 
 
@@ -2548,7 +2575,7 @@ def native_phase(ctx, blobs, commitments, proofs, card: str) -> dict:
     """Phase 13: the native tier on the card's host. verify_kzg_proof on
     the default context with the tier on and with LWKZG_NATIVE=0, the G2
     stage of a mainnet conversion both ways, and the three sizes a CPU
-    backend sends to the tier (12 decompressions, the three generic MSMs
+    backend sends to the tier (12 decompressions, the three linear combinations
     of a batch of 6, 6 blob evaluations) natively and on the card, each
     in turns, medians of NATIVE_REPS, equal results."""
     from lambdaworks_kzg_tpu_torch import native
@@ -2601,11 +2628,12 @@ def native_phase(ctx, blobs, commitments, proofs, card: str) -> dict:
     }, NATIVE_REPS)
     n = ctx.n
     zs = [H.compute_challenge(b, c, n) for b, c in zip(blobs, commitments)]
-    msms = batch_msm_inputs(ctx, blobs, commitments, proofs)
-    _, out["msm_6_6_7"] = in_turns({
-        "native": lambda: host_ms(lambda: [native.g1_msm_affine([k % R for k in sc], pts)
-                                           for sc, pts in msms]),
-        "card": lambda: host_ms(lambda: [HC.to_affine(ctx.backend.msm(sc, pts)) for sc, pts in msms]),
+    rows, affine = batch_msm_inputs(ctx, blobs, commitments, proofs)
+    weighted = [[(k % R, pt) for k, pt in zip(row, affine) if k % R] for row in rows]
+    _, out["msm_6_6_7"] = in_turns({  # the card's: one batch of three MSMs over 13 points
+        "native": lambda: host_ms(lambda: [native.g1_msm_affine(*map(list, zip(*pairs)))
+                                           for pairs in weighted]),
+        "card": lambda: host_ms(lambda: [HC.to_affine(p) for p in ctx.backend.msm_batch(rows, affine)]),
     }, NATIVE_REPS)
     roots = ctx.backend.domain.roots_brp_le
     _, out["evaluate_6"] = in_turns({  # the card's: one fr_evaluate launch
@@ -2613,7 +2641,8 @@ def native_phase(ctx, blobs, commitments, proofs, card: str) -> dict:
         "card": lambda: host_ms(lambda: ctx.backend.evaluate_blobs(blobs, zs)),
     }, NATIVE_REPS)
     for key, what in (("decompress_12", "12 decompressions (+ subgroup checks)"),
-                      ("msm_6_6_7", "the three generic MSMs of a batch of 6 (6, 6, 7 points)"),
+                      ("msm_6_6_7", "the three linear combinations of a batch of 6 (natively 6, 6, 7 "
+                                    "points; on the card one batch of three MSMs over 13)"),
                       ("evaluate_6", "6 blob evaluations (fr_evaluate on the card)")):
         log(f"  {what}: native {out[key]['native']['median_ms']:.3f} ms, card "
             f"{out[key]['card']['median_ms']:.3f} ms (medians of {NATIVE_REPS}, equal results)")
@@ -3415,14 +3444,14 @@ def run() -> None:
                 **({"quotient": quotient_acc} if kernel is kernels.bucket_accumulate else {}),
             })
         # the generic MSM's combine at phase 3's times; the entry's own
-        # numbers are a batch verification's (c = 4, one MSM a launch)
-        main = combine_checked["c4_b1"]
+        # numbers are a batch verification's (c = 4, three MSMs a launch)
+        main = combine_checked["c4_b3"]
         entries.append({"name": kernels.window_combine.name, "route": "cuda",
                         "source": f"{PKG}/csrc/msm.cu", "replaces": kernels.window_combine.replaces,
                         **counted(kernels.window_combine.name),
                         "max_abs_err": max_err[kernels.window_combine.name],
                         **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-                        "library_ms": None, "c": 4, "msms": 1, "shapes": combine_checked})
+                        "library_ms": None, "c": 4, "msms": 3, "shapes": combine_checked})
         shapes = {"madd": 2048, "add": 1024, "dbl": 4096}
         for op, M in shapes.items():
             # random lanes: the rare exceptional lanes would make every

@@ -82,15 +82,33 @@
 //   no lane groups left: they spread the old accumulation, and a fold per
 //   group only added work and a group tree to the chain.
 //
-// g1_window_combine: each MSM's W window sums -> sum_w 2^(c w) S_w by
-// Horner (acc = S_{W-1}, then per window c doublings and an add), one
-// MSM a pair of fpc groups on the cooperative field (~1,570 cycles a
-// dependent product against fp.cuh's ~2,930), four MSMs a warp. The
-// chain is c (W - 1) doublings (4 products deep each) and W - 1 adds (8
-// deep): 248 to 252 doublings for 255-bit scalars at c = 4, 8 or 12,
-// ~1,200 to 1,500 dependent products whatever the design, so the kernel
-// is latency-bound at any B; a batch puts its MSMs on other pairs at no
-// cost to the chain.
+// g1_window_combine: each MSM's W window sums -> sum_w 2^(c w) S_w, one
+// block an MSM on the four-group point ops (g1c::cjac_dbl4: 3 products
+// and 6 sums deep; cjac_add4: 5 and 5), a warp a unit (four groups,
+// mirrored on both halves of the warp, so that every thread of it runs
+// every field op). The W windows are cut into G runs of consecutive
+// windows, run j (windows lo_j .. top_j) on unit j: a Horner chain over
+// its windows, T_j, then c lo_j doublings more, D_j = 2^(c lo_j) T_j. The
+// sum of D_0 .. D_(G-2) is a left comb in run order, P_j = P_(j-1) + D_j
+// on unit j, each P_j handed on through shared memory behind a flag (no
+// block barrier, so the top run's chain never waits on them); unit G - 1
+// adds P_(G-2) to D_(G-1) last. Every unit doubles up to its top window,
+// so the runs below the top one have the slack for their Horner adds and
+// the comb's: the partition (combine_runs) closes run j at the last window
+// whose chain, at ~1.5 doublings an add, ends the comb's adds above it
+// before the top run's doublings do, so the runs lengthen downwards (46,
+// 12, 4, 2 windows at c = 4) and the top run is 1 or 2 windows. The
+// critical path is the top run's: c (W - 1) doublings, its Horner add if
+// it has two windows, and the last add: 3 c (W - 1) + 5 or 10 products
+// (761 at c = 12, 766 at c = 4), against Horner's 4 c (W - 1) + 8 (W - 1)
+// on a pair (1,176 to 1,512). Units are warps of one SM: four
+// (kCombineUnits), one a scheduler. With more, each product slows (on an
+// H100 equal runs on 16 warps took 1.34 ms at c = 4, on 4 warps 0.98);
+// these graded runs take 0.86 / 0.83 / 0.84 ms at c = 4 / 8 / 12, one run
+// (Horner on four groups) 1.25 / 1.05 / 1.01, scripts/bench_msm_kernels.py. A
+// doubling is ~3.5 us, ~2,300 cycles a product level with its sums and
+// exchanges. The kernel is latency-bound at any B: a batch's MSMs run on
+// blocks of their own.
 //
 // What bounds them on the card: a random blob at c = 8 is ~128,500 madds
 // (~46 us of IMADs at the card's peak against ~4 us of bytes) and ~16,000
@@ -117,7 +135,7 @@ constexpr int kPair = 2 * fpc::kT;    // threads of a cooperative lane
 constexpr int kThreadBlock = 128;     // the accumulation: 128 lanes a block
 constexpr int kReduceBlock = 512;     // the reduce: 64 workers a block
 constexpr int kWorkers = kReduceBlock / kPair;
-constexpr int kCombineBlock = 32;     // the combine: a warp, four MSMs
+constexpr int kCombineUnits = 4;      // the combine: runs (warps) a block at most
 constexpr int kRowVecs = 6;           // a table row: x, y = 24 words = 6 x 16 bytes
 constexpr int kPointVecs = 9;         // a Jacobian row: X, Y, Z = 36 words
 constexpr int kPoint = 3 * fp::NL;
@@ -411,23 +429,87 @@ __global__ void __launch_bounds__(kReduceBlock, 1)
   }
 }
 
-// One MSM a pair of groups, windows of MSM b at columns b W .. b W + W - 1
-// of the [3, 12, B W] sums; a pair past the last MSM runs the last one's
-// chain again and stores nothing (every thread of the warp runs every
-// field op).
-__global__ void __launch_bounds__(kCombineBlock)
-    g1_window_combine_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out,
-                             int B, int W, int c) {
-  const int m = blockIdx.x * (kCombineBlock / kPair) + threadIdx.x / kPair;
-  const bool live = m < B;
-  const int b = live ? m : B - 1;
-  const int M = B * W;
-  CJac acc = g1c::load_cjac(sums, M, b * W + W - 1);
-  for (int w = W - 2; w >= 0; --w) {
-    for (int d = 0; d < c; ++d) acc = dbl_pt(acc);
-    acc = add_pts(acc, g1c::load_cjac(sums, M, b * W + w), true);
+// The combine's point ops, one copy each (as the reduce's)
+__device__ __noinline__ CJac add4_pts(CJac p, CJac q) { return g1c::cjac_add4(p, q); }
+__device__ __noinline__ CJac dbl4_pt(CJac p) { return g1c::cjac_dbl4(p); }
+
+// The combine's partition: run starts lo[0] = 0 < lo[1] < .. for W windows
+// at c bits on at most kCombineUnits runs -> the run count G, on the host
+// once a launch. In half doublings (an add ~3): the top run's doublings
+// end at 2 c (W - 1); run j closes at the last window t whose chain ends
+// 3 (kCombineUnits - 1 - j) before that (c t doublings and t - lo_j Horner
+// adds); at least one window a run, and one left for the top run.
+// ops/g1_ops.combine_runs is the same rule (tests/test_torch_msm_windows.py
+// compiles this one and holds the two together).
+inline int combine_runs(int W, int c, int* lo) {
+  int g = 1;
+  lo[0] = 0;
+  while (g < kCombineUnits && lo[g - 1] <= W - 2) {
+    const int j = g - 1;
+    const int limit = 2 * c * (W - 1) - 3 * (kCombineUnits - 1 - j);
+    int t = (limit + 3 * lo[j]) / (2 * c + 3);
+    t = t < W - 2 ? t : W - 2;
+    t = t > lo[j] ? t : lo[j];
+    lo[g++] = t + 1;
   }
-  if (live && !fpc::second()) g1c::store_cjac(out, B, b, acc);
+  return g;
+}
+
+struct CombineRuns {
+  int lo[kCombineUnits + 1];  // run j's windows lo[j] .. lo[j + 1] - 1; lo[G] = W
+};
+
+// MSM b = blockIdx.x, its windows at columns b W .. b W + W - 1 of the [3,
+// 12, B W] sums; unit j = warp j runs run j of `runs`. part[j] holds P_j
+// once ready[j] is set.
+__global__ void __launch_bounds__(kCombineUnits * 32)
+    g1_window_combine_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out,
+                             int B, int W, int c, const CombineRuns runs) {
+  __shared__ uint32_t part[kCombineUnits][kPoint];
+  __shared__ int ready[kCombineUnits];
+  const int b = blockIdx.x, j = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int G = blockDim.x >> 5;
+  if (threadIdx.x < kCombineUnits) ready[threadIdx.x] = 0;
+  __syncthreads();  // once, before any chain: the flags clear
+  const int M = B * W;
+  const int first = runs.lo[j], top = runs.lo[j + 1] - 1;
+  CJac acc = g1c::load_cjac(sums, M, b * W + top);
+  for (int w = top - 1; w >= first; --w) {
+    for (int d = 0; d < c; ++d) acc = dbl4_pt(acc);
+    acc = add4_pts(acc, g1c::load_cjac(sums, M, b * W + w));
+  }
+  for (int d = c * first; d > 0; --d) acc = dbl4_pt(acc);
+  const int o = fpc::rank() * fpc::kS;
+  if (j > 0) {  // P_j = P_(j-1) + D_j
+    if (lane == 0) {
+      while (*(volatile int*)&ready[j - 1] == 0) __nanosleep(32);
+      __threadfence_block();
+    }
+    __syncwarp();
+    CJac left;
+#pragma unroll
+    for (int s = 0; s < fpc::kS; ++s) {
+      left.X.v[s] = part[j - 1][o + s];
+      left.Y.v[s] = part[j - 1][fp::NL + o + s];
+      left.Z.v[s] = part[j - 1][2 * fp::NL + o + s];
+    }
+    acc = add4_pts(left, acc);
+  }
+  if (j + 1 < G) {
+    if (lane < fpc::kT) {
+#pragma unroll
+      for (int s = 0; s < fpc::kS; ++s) {
+        part[j][o + s] = acc.X.v[s];
+        part[j][fp::NL + o + s] = acc.Y.v[s];
+        part[j][2 * fp::NL + o + s] = acc.Z.v[s];
+      }
+      __threadfence_block();
+    }
+    __syncwarp();
+    if (lane == 0) *(volatile int*)&ready[j] = 1;
+  } else if (lane < fpc::kT) {
+    g1c::store_cjac(out, B, b, acc);
+  }
 }
 
 }  // namespace
@@ -473,12 +555,13 @@ extern "C" int lwkzg_g1_bucket_reduce(void* partials, const void* bstart, void* 
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// sums [3, 12, B W] -> out [3, 12, B]
+// sums [3, 12, B W] -> out [3, 12, B] on combine_runs' runs, a warp each
 extern "C" int lwkzg_g1_window_combine(const void* sums, void* out, int B, int W, int c,
                                        void* stream) {
-  constexpr int per_block = kCombineBlock / kPair;
-  g1_window_combine_kernel<<<(B + per_block - 1) / per_block, kCombineBlock, 0,
-                             (cudaStream_t)stream>>>((const uint32_t*)sums, (uint32_t*)out, B, W,
-                                                     c);
+  CombineRuns runs;
+  const int G = combine_runs(W, c, runs.lo);
+  runs.lo[G] = W;
+  g1_window_combine_kernel<<<B, 32 * G, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)sums, (uint32_t*)out, B, W, c, runs);
   return (int)cudaGetLastError();
 }

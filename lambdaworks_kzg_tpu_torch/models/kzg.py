@@ -12,8 +12,9 @@ through `ops/pairing_ops.pairings_verify_host_points` (one launch of each
 pairing kernel), on the CPU through the host tier: the native pairing,
 or with the tier off `host/pairing.py` (Python ints), both of which beat
 the plain PyTorch tower there; `device_pairing=True` or `False` forces
-one tier. The batch check's three linear combinations go through
-`backend.msm` (the generic MSM on the device, `ops/backend.py`).
+one tier. The batch check's three linear combinations go through one
+`backend.msm_batch` call (a batch of generic MSMs on the device,
+`ops/backend.py`).
 """
 
 import torch
@@ -28,8 +29,8 @@ from ..utils.config import DEFAULT_CONFIG
 
 class KZG:
     """The checks of one setup, from its [1]_2 and [s]_2; `backend`
-    supplies `msm(scalars, points_affine)` for the batch check and its
-    `device`, where the device pairing tier runs."""
+    supplies `msm_batch(scalar_rows, points_affine)` for the batch check
+    and its `device`, where the device pairing tier runs."""
 
     def __init__(self, setup, backend, config=None):
         self.backend = backend
@@ -79,15 +80,19 @@ class KZG:
         """The random linear combination check, one pairing:
         e(sum r^i proof_i, [s]_2) == e(sum r^i (C_i - [y_i]G1 + z_i proof_i), [1]_2),
         with sum r^i [y_i]G1 folded into the commitments' combination as
-        one more point."""
+        one more point. The three combinations are one `msm_batch` call over
+        [proofs, commitments, G1]: rows r^i and r^i z_i on the proofs, r^i
+        on the commitments with -sum r^i y_i on G1, zeros elsewhere (JAX
+        makes three `msm` calls; a departure ROADMAP.md records)."""
         g2_one, g2_s = self._g2()
-        msm = self.backend.msm
-        proof_aff = [C.to_affine(p) for p in proofs]
-        commitment_aff = [C.to_affine(c) for c in commitments]
+        n = len(proofs)
+        zero = [0] * n
         neg_y_sum = (-sum(r * y for r, y in zip(r_powers, ys))) % R
-        proof_lincomb = msm(list(r_powers), proof_aff)
-        proof_z_lincomb = msm([r * z % R for r, z in zip(r_powers, zs)], proof_aff)
-        c_minus_y_lincomb = msm(list(r_powers) + [neg_y_sum],
-                                commitment_aff + [C.to_affine(C.G1_GENERATOR)])
+        points = ([C.to_affine(p) for p in proofs] + [C.to_affine(c) for c in commitments]
+                  + [C.to_affine(C.G1_GENERATOR)])
+        rows = [list(r_powers) + zero + [0],
+                [r * z % R for r, z in zip(r_powers, zs)] + zero + [0],
+                zero + list(r_powers) + [neg_y_sum]]
+        proof_lincomb, proof_z_lincomb, c_minus_y_lincomb = self.backend.msm_batch(rows, points)
         rhs = C.point_add(c_minus_y_lincomb, proof_z_lincomb)
         return self._pairings_verify(rhs, g2_one, proof_lincomb, g2_s)

@@ -10,8 +10,9 @@ the results, and opens a batch (proof and y for each blob) through one
 batched evaluation, one batched quotient and one such MSM of the
 quotients, which stay on the device until the MSM's result comes back.
 Batch verification decompresses its points in one batched pass
-(`decompress_g1_batch`) and forms its linear combinations with the
-generic MSM (`msm`: JAX's windowed MSM, no table), both on the device.
+(`decompress_g1_batch`) and forms its three linear combinations with one
+batch of generic MSMs over the union of its points (`msm_batch`: JAX's
+windowed MSM, no table), both on the device.
 
 On a (data, points) mesh (`parallel/`) the backend keeps one table per
 (device, shard) of the points axis instead (`parallel.msm.ShardedBasis`),
@@ -214,37 +215,53 @@ class TorchBackend:
 
     def msm(self, scalars, points_affine, scalar_bits: int = 255):
         """sum_i k_i P_i over host affine points ((x, y) or None) -> host
-        Jacobian point, on this device: the generic MSM at the window
-        `auto_window` picks for len(points). Scalars are taken mod r;
-        ValueError for one at or above 2^scalar_bits after that. On a mesh,
-        above max(16, 2 P) points, the MSM is sharded by points over row 0
-        of the data axis (`parallel.msm.sharded_msm`); below, it runs here,
-        on the lead device, where the JAX package takes its host tier. Up
-        to NATIVE_MSM_MAX points on a CPU backend, `native.g1_msm_affine`
-        computes it."""
+        Jacobian point: `msm_batch` of the one row. Scalars are taken mod
+        r; ValueError for one at or above 2^scalar_bits after that."""
+        return self.msm_batch([scalars], points_affine, scalar_bits)[0]
+
+    def msm_batch(self, scalar_rows, points_affine, scalar_bits: int = 255) -> list:
+        """sum_i k_{b,i} P_i for each row b of scalars over one list of host
+        affine points ((x, y) or None) -> B host Jacobian points: on this
+        device one `msm.msm_batch_device` call (one sort, accumulation,
+        reduce and combine for all rows) at the window `auto_window` picks
+        for the widest row (the most points a row weights); on a mesh, above
+        max(16, 2 P) such points, `parallel.msm.batch_msm` over its rows
+        (points padded with invalid lanes to a power-of-two multiple of the
+        points axis), below that here, on the lead device, where the JAX
+        package takes its host tier; on a CPU backend up to NATIVE_MSM_MAX
+        such points, one `native.g1_msm_affine` a row over its weighted
+        points. A zero scalar costs the device no madd (bucket 0). Scalars
+        are taken mod r; ValueError for one at or above 2^scalar_bits after
+        that."""
         points = list(points_affine)
-        scalars = list(scalars)
-        if len(points) != len(scalars):
+        rows = [list(row) for row in scalar_rows]
+        if any(len(row) != len(points) for row in rows):
             raise ValueError("scalar and point counts differ")
-        if not points:
-            return HC.INFINITY
-        if self._native(len(points), NATIVE_MSM_MAX):
-            msm.check_scalar_bits(msm.scalars_to_tensor(scalars), scalar_bits)
-            aff = native.g1_msm_affine([k % R for k in scalars], points)
-            return HC.INFINITY if aff is None else HC.from_affine(aff)
-        c = auto_window(len(points))
-        if self.mesh is not None and len(points) > max(16, 2 * self.mesh.shape["points"]):
-            # invalid lanes to a power-of-two multiple of the points axis
+        if not points or not rows:
+            return [HC.INFINITY] * len(rows)
+        width = max(sum(1 for k in row if k % R) for row in rows)
+        if self._native(width, NATIVE_MSM_MAX):
+            out = []
+            for row in rows:
+                msm.check_scalar_bits(msm.scalars_to_tensor(row), scalar_bits)
+                used = [i for i, k in enumerate(row) if k % R]
+                aff = native.g1_msm_affine([row[i] % R for i in used],
+                                           [points[i] for i in used]) if used else None
+                out.append(HC.INFINITY if aff is None else HC.from_affine(aff))
+            return out
+        c = auto_window(width)
+        scalars = torch.stack([msm.scalars_to_tensor(row, self.device) for row in rows])
+        if self.mesh is not None and width > max(16, 2 * self.mesh.shape["points"]):
             p_axis = self.mesh.shape["points"]
             pad = p_axis * _ceil_pow2(-(-len(points) // p_axis)) - len(points)
             pts, valid = g1_ops.make_points_host(points + [None] * pad)
-            return pmsm.sharded_msm(self.mesh, lb.as_limb_tensor(pts), torch.from_numpy(valid),
-                                    msm.scalars_to_tensor(scalars + [0] * pad, self.device),
-                                    c, "points", scalar_bits)
+            padded = torch.cat([scalars, scalars.new_zeros(scalars.shape[:-1] + (pad,))], dim=-1)
+            return pmsm.batch_msm(self.mesh, lb.as_limb_tensor(pts), torch.from_numpy(valid), padded,
+                                  c, scalar_bits)
         pts, valid = g1_ops.make_points_host(points)
-        return msm.msm(lb.as_limb_tensor(pts, self.device),
-                       torch.from_numpy(valid).to(self.device),
-                       msm.scalars_to_tensor(scalars, self.device), c, scalar_bits)
+        out = msm.msm_batch_device(lb.as_limb_tensor(pts, self.device),
+                                   torch.from_numpy(valid).to(self.device), scalars, c, scalar_bits)
+        return g1_ops.points_to_host(dispatch.from_op_layout(out))
 
     def decompress_g1_batch(self, compressed) -> list:
         """48-byte compressed points -> host Jacobians, decompressed and

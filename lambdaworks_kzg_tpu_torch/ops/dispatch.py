@@ -89,7 +89,7 @@ def reduce_chunks(partials, bstart, c: int, chunk: int, n_members: int):
 def combine_windows(sums, c: int, windows: int):
     """Window sums [3, *, B W] in this device's op layout (MSM b's window
     w at b W + w) -> [3, *, B]: one g1_window_combine launch on a CUDA
-    device, the plain Horner chain on the CPU."""
+    device, its plain version (the same runs of windows) on the CPU."""
     if sums.is_cuda:
         return kernels.window_combine(sums, c, windows)
     return g1_ops.combine_windows(sums, c, windows)

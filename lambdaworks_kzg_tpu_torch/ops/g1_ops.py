@@ -6,8 +6,8 @@ writes them (`ops/msm.py` `msm_fixedbase_device`, `_bucket_reduce_fold`,
 `_tree_sum_lanes`), and `accumulate_chunks` and `reduce_chunks` the
 balanced schedule the MSM kernels run instead (chunks of at most L
 members a lane, their partials merged pairwise before the same fold);
-`combine_windows` is the generic MSM's Horner step over its window sums
-(JAX `combine_windows_host`);
+`combine_windows` is the generic MSM's sum of its window sums (JAX
+`combine_windows_host`) on the combine kernel's schedule of runs;
 `fixedbase_table` builds the MSM's table, as
 `build_fixedbase_tables` does there. `decompress_xy`, `scalar_mul` and
 `subgroup_mask` are the batched G1 steps of the JAX package's
@@ -363,19 +363,63 @@ def reduce_chunks(partials, bstart, c: int, chunk: int, n_members: int) -> torch
     return fold_reduce(merge_chunks(partials, bstart, c, chunk, n_members), c)
 
 
+COMBINE_UNITS = 4  # g1_window_combine's runs at most: warps of a block (csrc/msm.cu kCombineUnits)
+
+
+def combine_runs(windows: int, c: int) -> list:
+    """The combine's partition of W windows at c bits into at most
+    COMBINE_UNITS runs of consecutive windows -> their starts [0, lo_1, ..]
+    (the kernel's combine_runs, csrc/msm.cu). In half doublings (an add
+    ~3): the top run's doublings end at 2 c (W - 1); run j closes at the
+    last window t whose chain, c t doublings and t - lo_j Horner adds, ends
+    3 (COMBINE_UNITS - 1 - j) before that, so that the comb's adds above it
+    are done in time; at least one window a run, and one left for the top
+    run."""
+    lo = [0]
+    while len(lo) < COMBINE_UNITS and lo[-1] <= windows - 2:
+        j = len(lo) - 1
+        limit = 2 * c * (windows - 1) - 3 * (COMBINE_UNITS - 1 - j)
+        t = (limit + 3 * lo[j]) // (2 * c + 3)
+        lo.append(max(lo[j], min(t, windows - 2)) + 1)
+    return lo
+
+
 def combine_windows(sums: torch.Tensor, c: int, windows: int) -> torch.Tensor:
     """Window sums [3, L, B W] of B MSMs (MSM b's window w at lane b W +
-    w) -> [3, L, B]: sum_w 2^(c w) S_w by Horner, acc = S_{W-1}, then for
-    w = W - 2 .. 0 c doublings and acc = add(acc, S_w). JAX
-    `combine_windows_host` on tensors; the plain version of the kernel
-    g1_window_combine, whose chain it is step for step."""
-    sums = sums.reshape(sums.shape[:-1] + (-1, windows))
-    acc = sums[..., windows - 1]
+    w) -> [3, L, B]: sum_w 2^(c w) S_w, as JAX `combine_windows_host`
+    gives it in affine form, on the kernel g1_window_combine's schedule,
+    of which this is the plain version step for step, Z included.
+
+    The W windows are cut into G runs (`combine_runs`). Run j,
+    windows lo_j .. top_j, is a Horner chain, acc = S_top, then for w =
+    top - 1 .. lo_j c doublings and acc = add(acc, S_w), then c lo_j
+    doublings more: D_j = 2^(c lo_j) T_j. The G runs are one lane axis,
+    their doublings lined up at their ends: at window position w every run
+    with top > w doubles c times (one `dbl` call a step over all runs, a
+    select keeping the runs not yet started) and the run holding w adds
+    S_w. Then the left comb P_0 = D_0, P_j = add(P_(j-1), D_j) (the last
+    add the top run's)."""
+    lo = combine_runs(windows, c)
+    runs = len(lo)
+    msms = sums.shape[-1] // windows
+    dev = sums.device
+    top = torch.tensor(lo[1:] + [windows], device=dev) - 1
+    msm_base = torch.arange(msms, device=dev)[:, None] * windows
+    acc = sums[..., (msm_base + top).reshape(-1)]  # lane b G + j: run j of MSM b
+    top_lanes = top.repeat(msms)
     for w in range(windows - 2, -1, -1):
+        started = top_lanes > w
         for _ in range(c):
-            acc = dbl(acc)
-        acc = add(acc, sums[..., w])
-    return acc.contiguous()
+            acc = _sel_pt(started, dbl(acc), acc)
+        j = max(i for i in range(runs) if lo[i] <= w)
+        if w < int(top[j]):
+            lane = torch.arange(msms, device=dev) * runs + j
+            acc[..., lane] = add(acc[..., lane], sums[..., msm_base[:, 0] + w])
+    acc = acc.reshape(acc.shape[:-1] + (msms, runs))
+    out = acc[..., 0]
+    for j in range(1, runs):
+        out = add(out, acc[..., j])
+    return out.contiguous()
 
 
 # -- the fixed-base table (plain version of csrc/table.cu) ------------------

@@ -16,8 +16,9 @@ rounds (chunks of at most L members of a bucket, one a lane) and their
 reduce (each bucket's chunk partials merged pairwise, then the fold),
 each in one launch per batch of blobs: the fixed-base MSM's blobs over
 its table's rows, the generic MSM's windows over its points;
-`g1_window_combine` (msm.cu) runs the generic MSM's Horner step over each
-MSM's window sums, one launch per batch of MSMs. Their plain versions are
+`g1_window_combine` (msm.cu) sums each MSM's window sums, a block an MSM
+(runs of windows on warps of four groups, their doublings side by side),
+one launch per batch of MSMs. Their plain versions are
 `g1_ops.accumulate_chunks`, `g1_ops.reduce_chunks` and
 `g1_ops.combine_windows`.
 `g1_fixedbase_table` (table.cu) builds the fixed-base table, doublings and
@@ -371,8 +372,9 @@ def _bucket_reduce(k: _Kernel, partials: torch.Tensor, bstart: torch.Tensor, c: 
 
 def _window_combine(k: _Kernel, sums: torch.Tensor, c: int, windows: int):
     """Window sums [3, 12, B W] Jacobian, MSM b's window w at lane b W + w
-    -> [3, 12, B]: sum_w 2^(c w) S_w per MSM by Horner (c doublings and
-    an add a window, from S_{W-1} down), as `g1_ops.combine_windows`."""
+    -> [3, 12, B]: sum_w 2^(c w) S_w per MSM, a block an MSM, its windows
+    in runs (`g1_ops.combine_runs`) a warp each, as `g1_ops.combine_windows`
+    schedules them."""
     _check_c(c)
     lanes = sums.shape[-1]
     if windows < 1 or lanes % windows:
@@ -687,8 +689,8 @@ dbl = _Kernel("g1_dbl", f"{_V2}:392", _dbl)
 bucket_accumulate = _Kernel("g1_bucket_accumulate", f"{_V2}:353", _bucket_accumulate)
 # the add of the fold reduce and group tree (ops/msm.py:598-621, :447-477)
 bucket_reduce = _Kernel("g1_bucket_reduce", f"{_V2}:376", _bucket_reduce)
-# the Horner step over windows of the generic MSM: combine_windows_host
-# (ops/msm.py:671), and the same step of _bucket_reduce_fold (:618-620)
+# the sum over windows of the generic MSM: combine_windows_host
+# (ops/msm.py:671), and the same Horner step of _bucket_reduce_fold (:618-620)
 window_combine = _Kernel("g1_window_combine", "lambdaworks_kzg_tpu/ops/msm.py:671",
                          _window_combine)
 # the doubling scan and affine step of the table build (ops/msm.py:714-750)

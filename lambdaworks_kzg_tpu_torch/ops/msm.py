@@ -22,7 +22,7 @@ The generic MSM (`msm_device`, `msm_batch_device`, `msm`; JAX
 MSM is a blob of its own over the N points themselves: its members are
 the N points, its digits window w's, its 2^c buckets window w's, and the
 reduce gives its window sum S_w = sum_b b B_{w,b} (JAX `bucket_reduce`'s
-[3, L, W]). `ops.combine_windows` then runs the Horner step sum_w
+[3, L, W]). `ops.combine_windows` then sums sum_w
 2^(c w) S_w (one g1_window_combine launch on a card). B MSMs over one
 point set take B W blobs in one sort, one accumulation, one reduce and
 one combine. The result is the same group element as JAX's, so the two
@@ -196,7 +196,7 @@ def msm_batch_device(points: torch.Tensor, valid: torch.Tensor, scalars: torch.T
     points: [2, 24, N] public affine Montgomery limbs with valid bool[N]
     (an invalid point counts as infinity); scalars: [B, 16, N] plain Fr
     limbs, each below 2^scalar_bits. The B W = B num_windows(c,
-    scalar_bits) window sums (`window_sums`), then the Horner combine of
+    scalar_bits) window sums (`window_sums`), then the combine of
     each MSM's W sums (`ops.combine_windows`: one g1_window_combine launch
     on a CUDA device). Only the scalar check's verdict comes back to the
     host."""

@@ -15,7 +15,7 @@ one all_gather per call of its int32 Jacobian partials
   only): a [3, 12, B] point a batch;
 - the generic MSM (JAX's `_local_window_sums` steps): the window sums
   [3, 12, B W], infinity at the rows and windows of other processes,
-  then one Horner combine (`dispatch.combine_windows`).
+  then one combine (`dispatch.combine_windows`).
 Every process returns the same points, the whole batch. The Fr layer,
 decompression and the pairing check run in every process on its own
 lead device.

@@ -8,7 +8,7 @@ anything waits.
 The generic MSM (`make_msm_step`, `sharded_msm`, `make_batch_msm_step`,
 `batch_msm`) is JAX's windowed one, `_local_window_sums` and its steps:
 a shard computes window sums (`msm.window_sums`, one blob a window over
-its points) and one Horner combine on the lead device
+its points) and one combine on the lead device
 (`dispatch.combine_windows`, one g1_window_combine launch) turns them
 into points. No table is built.
 
@@ -233,7 +233,7 @@ def _window_sums(mesh, points, valid, scalars: torch.Tensor, c: int, shard: str,
 def _generic_msm(mesh, points, valid, scalars: torch.Tensor, c: int, shard: str, scalar_bits: int,
                  rows: int) -> torch.Tensor:
     """[B, 16, N] scalars -> Jacobian [3, L, B] public on the lead device:
-    the window sums (`_window_sums`), then one Horner combine of them all
+    the window sums (`_window_sums`), then one combine of them all
     on the lead device."""
     msm1.check_scalar_bits(scalars, scalar_bits)
     shard = resolve_shard(mesh, valid.shape[0], shard)

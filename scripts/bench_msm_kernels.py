@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Time the fixed-base MSM's two kernels on the card at the commit path's
-shapes (the mainnet table, c = 8) for the tree under test.
+shapes (the mainnet table, c = 8), and the generic MSM's combine
+(g1_window_combine) at c = 4, 8 and 12 for 255-bit scalars and B = 1, 3,
+for the tree under test.
 
     python3 scripts/bench_msm_kernels.py [--root DIR] [--chunks 4,8,16] [--reps N]
+                                         [--only msm|combine]
 
 --root points at a checkout of the port (default: this repository), so
 one call can time an older tree beside this one: unpack it with
@@ -19,6 +22,9 @@ groups (8). Each shape also gets the whole `msm.msm_fixedbase_device`
 queued behind a spin on the card (the reduce runs its merge in place, so
 its later calls merge merged sums: the same adds). Prints the card's name
 and power limit, then one JSON line.
+
+The combine's window sums are the table's points, lifted, every other one
+doubled (Z != 1), all finite; it is timed on the tree's own schedule.
 """
 
 import argparse
@@ -53,6 +59,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=HERE)
     parser.add_argument("--chunks", default="4,8,16")
+    parser.add_argument("--only", choices=("msm", "combine"))
     parser.add_argument("--reps", type=int, default=10)
     args = parser.parse_args()
     root = os.path.abspath(args.root)
@@ -91,7 +98,7 @@ def main() -> int:
         "ones_b1": [(1).to_bytes(32, "little") * 4096],
     }
     out = {"root": os.path.relpath(root, HERE), "card": card, "chunked": chunked}
-    for name, blobs in shapes.items():
+    for name, blobs in shapes.items() if args.only != "combine" else ():
         scalars = scalars_of(blobs)
         order, bstart = members(scalars)
         row = {}
@@ -115,8 +122,32 @@ def main() -> int:
             warm=1)
         out[name] = row
         print(name, json.dumps(row), flush=True)
+    if args.only != "msm":
+        out["combine"] = time_combine(table16[..., table_valid], args, dev)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def time_combine(table16, args, dev) -> dict:
+    """g1_window_combine at c = 4, 8, 12 (255-bit windows) and B = 1, 3 on
+    finite sums, on the tree's schedule -> {"c4_b1": {"windows", "ms"}, ...}."""
+    import torch
+    from lambdaworks_kzg_tpu_torch.ops import g1_ops, kernels, limbs as lb
+
+    gen = torch.Generator().manual_seed(22)
+    out = {}
+    for c in (4, 8, 12):
+        w = -(-255 // c)
+        for msms in (1, 3):
+            lanes = msms * w
+            pick = torch.randint(0, table16.shape[-1], (lanes,), generator=gen).to(dev)
+            jac = g1_ops.lift(table16[:, :, pick], torch.ones(lanes, dtype=torch.bool, device=dev))
+            jac = torch.where((torch.arange(lanes, device=dev) % 2 == 0)[None, None], g1_ops.dbl(jac), jac)
+            sums = lb.to_u32_layout(jac.contiguous())
+            row = {"windows": w, "ms": time_ms(lambda: kernels.window_combine(sums, c, w), args.reps)}
+            out[f"c{c}_b{msms}"] = row
+            print(f"combine c={c} B={msms}", json.dumps(row), flush=True)
+    return out
 
 
 if __name__ == "__main__":

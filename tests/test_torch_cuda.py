@@ -25,8 +25,9 @@ those partials and on partials with points at infinity, equal and
 opposite pairs inside a bucket's merge, and (one chunk a bucket) equal
 and opposite bucket sums across the first fold. For c in {4, 8, 12},
 g1_window_combine equals `g1_ops.combine_windows` on the window sums of
-1 and 3 MSMs (Z != 1, a window at infinity, a window equal and one
-opposite to the doubled accumulator), and the generic MSM of three MSMs
+1 MSM (finite, Z != 1) and of 3 (`utils.combine_cases.combine_edge_sums`:
+windows and runs at infinity, Horner, comb and last adds of equal and of
+opposite points), also at small shapes of one to four runs, and the generic MSM of three MSMs
 over the basis tiled twice runs one launch of each MSM kernel and the
 combine and none of the table, equal to its plain version limb for limb
 and to the host oracle.
@@ -111,7 +112,7 @@ from lambdaworks_kzg_tpu_torch.ops import (codec, dispatch, fp2_ops, fr_poly, g1
 from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend
 from lambdaworks_kzg_tpu_torch.ops.field_ops import FP, FR
 from lambdaworks_kzg_tpu_torch.parallel import make_mesh
-from lambdaworks_kzg_tpu_torch.utils import hashing as H
+from lambdaworks_kzg_tpu_torch.utils import combine_cases, hashing as H
 
 pytestmark = [
     pytest.mark.cuda,
@@ -443,23 +444,17 @@ def test_msm_kernels_match_plain_on_card(basis, c):
 
 def _window_sums(points, c, msms, seed):
     """Window sums [3, 24, B W] (W = num_windows(c, 255)) of B = msms
-    MSMs from the basis, Z != 1 on every other lane, window W - 3 of MSM 0
-    at infinity; with B = 3, MSM 1's window W - 2 equal to 2^c S_{W-1}
-    (the first add doubles) and MSM 2's opposite to it (infinity)."""
+    MSMs: at B = 1 from the basis, all finite, Z != 1 on every other lane;
+    at B = 3 `combine_cases.combine_edge_sums` (windows and whole runs at
+    infinity, Horner, comb and last adds of equal and of opposite
+    points)."""
     w = msm.num_windows(c, 255)
-    lanes = msms * w
+    if msms == 3:
+        return combine_cases.combine_edge_sums(c, w, seed, points.device), w
     g = torch.Generator().manual_seed(seed)
-    pts = points.cpu()[:, :, torch.randint(4, N, (lanes,), generator=g)]  # past the dead lane 3
-    jac = g1_ops.lift(pts, torch.ones(lanes, dtype=torch.bool))
-    jac = torch.where((torch.arange(lanes) % 2 == 0)[None, None], g1_ops.dbl(jac), jac)
-    jac[..., w - 3] = 0
-    for b, negate in ((1, False), (2, True))[: msms - 1]:
-        top = jac[..., b * w + w - 1 : b * w + w]
-        for _ in range(c):
-            top = g1_ops.dbl(top)
-        if negate:
-            top = torch.stack([top[0], FP.neg(top[1]), top[2]])
-        jac[..., b * w + w - 2] = top[..., 0]
+    pts = points.cpu()[:, :, torch.randint(4, N, (w,), generator=g)]  # past the dead lane 3
+    jac = g1_ops.lift(pts, torch.ones(w, dtype=torch.bool))
+    jac = torch.where((torch.arange(w) % 2 == 0)[None, None], g1_ops.dbl(jac), jac)
     return jac.to(points.device), w
 
 
@@ -476,6 +471,16 @@ def test_window_combine_kernel_matches_plain_on_card(basis, c, msms):
     want = g1_ops.combine_windows(sums, c, w)
     assert torch.equal(lb.to_u16_layout(got), want)
     assert torch.equal(dispatch.combine_windows(lb.to_u32_layout(sums), c, w), got)
+
+
+@pytest.mark.parametrize("c,windows", [(3, 7), (4, 11), (8, 3), (12, 5), (3, 3), (4, 1)])
+def test_window_combine_kernel_runs_match_plain_on_card(c, windows):
+    """The kernel at small shapes (four runs, two, three of a window each,
+    one window: `g1_ops.combine_runs`), on the edge sums of that schedule,
+    equals the plain version limb for limb."""
+    sums = combine_cases.combine_edge_sums(c, windows, seed=c + windows, device="cuda")
+    got = kernels.window_combine(lb.to_u32_layout(sums), c, windows)
+    assert torch.equal(lb.to_u16_layout(got), g1_ops.combine_windows(sums, c, windows))
 
 
 @pytest.mark.parametrize("c,bits", [(4, 255), (8, 248), (12, 255)])
@@ -938,8 +943,8 @@ def test_warmup_on_card(monkeypatch):
     watched = (kernels.bucket_accumulate, kernels.miller_loop, kernels.decompress)
     before = [k.launches for k in watched]
     ctx.warmup()
-    # commitment, two proofs, the batch's three generic MSMs; three checks; one batch
-    assert [k.launches - b for k, b in zip(watched, before)] == [6, 3, 1]
+    # commitment, two proofs, the batch's one batch of generic MSMs; three checks; one batch
+    assert [k.launches - b for k, b in zip(watched, before)] == [4, 3, 1]
 
 
 def test_native_routing_on_a_cuda_context(monkeypatch):

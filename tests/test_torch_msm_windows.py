@@ -7,10 +7,16 @@ version of the kernel g1_window_combine), on the CPU.
   window count JAX's `num_windows`;
 - the window sums of a batch equal, window by window in affine form, the
   Python-int oracle S_w = sum_i d_{w,i} P_i;
-- `g1_ops.combine_windows` equals JAX's `combine_windows_host` on the
-  same window sums, with windows at infinity, Z != 1, and a window equal
-  to (the doubling branch) and opposite to (infinity) the doubled
-  accumulator; the kernel's wrapper refuses what it does not take;
+- `g1_ops.combine_windows`, on the kernel's schedule (runs of windows,
+  their doublings side by side, a left comb of the runs' sums), equals
+  JAX's Horner `combine_windows_host` in affine form at c = 4, 8 and 12
+  (255 bits) and at small shapes of one to four runs, on
+  `utils.combine_cases.combine_edge_sums` (Z != 1); a Python-int
+  rendering of the schedule shows that those sums put an operand at
+  infinity, equal and opposite operands into its Horner, comb and last
+  adds; the kernel's rule of runs (csrc/msm.cu `combine_runs`, built here
+  by the host's C++ compiler) equals `g1_ops.combine_runs`; the kernel's
+  wrapper refuses what it does not take;
 - `msm_device` and `msm_batch_device` equal the JAX host oracle `g1_msm`
   in affine form at c = 4 and 8, with 255- and 248-bit scalars, over
   points with an invalid one and equal (tiled) ones, and MSMs of random
@@ -26,12 +32,15 @@ version of the kernel g1_window_combine), on the CPU.
 - `slow`: the generic MSM equals JAX's jitted `msm_device` +
   `combine_windows_host` (an XLA compile at this shape).
 
-The plain combine is a chain of c (W - 1) doublings, ~3 s at 255 bits on
+The plain combine is a chain of c (W - 1) doublings, ~5 s at 255 bits on
 one thread here at any lane count, so each case batches its MSMs into one
 call; the mesh steps run at 32-bit scalars (8 windows at c = 4), the
 shards' logic being the same at any width."""
 
+import os
 import random
+import re
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,9 +52,16 @@ from lambdaworks_kzg_tpu.host import curve as JHC
 from lambdaworks_kzg_tpu.models import srs
 from lambdaworks_kzg_tpu.ops import msm as JM
 from lambdaworks_kzg_tpu_torch.constants import num_windows
+from lambdaworks_kzg_tpu_torch.host import curve as HC
+from lambdaworks_kzg_tpu_torch.models import srs as port_srs
+from lambdaworks_kzg_tpu_torch.models.kzg import KZG
+from lambdaworks_kzg_tpu_torch.ops import backend as backend_mod
 from lambdaworks_kzg_tpu_torch.ops import dispatch, g1_ops, kernels, limbs as lb, msm
-from lambdaworks_kzg_tpu_torch.ops.field_ops import FP
+from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend, auto_window
 from lambdaworks_kzg_tpu_torch.parallel import batch_msm, make_mesh, sharded_msm
+from lambdaworks_kzg_tpu_torch.utils import combine_cases
+
+from .torch_common import host_table, opening
 
 N_BASIS = 8
 CHUNK = 3  # members a chunk lane takes at most: buckets of several chunks
@@ -121,43 +137,103 @@ def test_window_sums_match_per_window_oracle(points):
             assert _affine(got[b * w + k]) == want, (b, k)
 
 
-def _crafted_sums(pts, valid, c, windows, seed):
-    """Window sums [3, 24, 3 W] of three MSMs, Z != 1 on every other
-    lane: MSM 0 random with its window W - 3 at infinity; MSM 1's window
-    W - 2 equal to 2^c S_{W-1} (the add doubles); MSM 2's opposite to it
-    (the add gives infinity), the rest of the chain on from there."""
-    rng = np.random.default_rng(seed)
-    live = np.flatnonzero(valid.numpy())
-    lanes = 3 * windows
-    jac = g1_ops.lift(pts[..., torch.from_numpy(rng.choice(live, lanes))], torch.ones(lanes, dtype=torch.bool))
-    jac = torch.where((torch.arange(lanes) % 2 == 0)[None, None], g1_ops.dbl(jac), jac)
-    jac[..., windows - 3] = 0
-    for b, negate in ((1, False), (2, True)):
-        top = jac[..., b * windows + windows - 1 : b * windows + windows]
-        for _ in range(c):
-            top = g1_ops.dbl(top)
-        if negate:
-            top = torch.stack([top[0], FP.neg(top[1]), top[2]])
-        jac[..., b * windows + windows - 2] = top[..., 0]
-    return jac
-
-
-@pytest.mark.parametrize("c,windows", [(4, 5), (3, 4)])
-def test_combine_windows_matches_jax_host(points, c, windows):
-    _, pts, valid = points
-    sums = _crafted_sums(pts, valid, c, windows, seed=c)
-    got = g1_ops.combine_windows(sums, c, windows)
+@pytest.mark.parametrize("c,windows", [(4, 64), (8, 32), (12, 22), (3, 7), (8, 3), (3, 3), (4, 1)])
+def test_combine_windows_matches_jax_host(c, windows):
+    """The plain combine on its schedule of runs (255 bits at c = 4, 8,
+    12, and small shapes: four runs, two, three of a window each, one
+    window) equals JAX's Horner `combine_windows_host` in affine form on
+    the three MSMs of `combine_edge_sums`, through the CPU route."""
+    sums = combine_cases.combine_edge_sums(c, windows, seed=c + windows)
+    got = dispatch.combine_windows(sums, c, windows)
     assert tuple(got.shape) == (3, 24, 3)
-    assert torch.equal(dispatch.combine_windows(sums, c, windows), got)  # the CPU route
     arr = sums.numpy().astype(np.uint32)
     for b, pt in enumerate(g1_ops.points_to_host(got)):
         want = JM.combine_windows_host(arr[..., b * windows : (b + 1) * windows], c)
         assert _affine(pt) == _affine(want), b
 
 
-def test_window_combine_kernel_refuses_what_it_does_not_take(points):
-    _, pts, valid = points
-    sums = lb.to_u32_layout(_crafted_sums(pts, valid, 3, 4, seed=5))
+def _schedule_events(s, c, windows):
+    """The combine's schedule on one MSM's window scalars s_w (S_w = [s_w]
+    G), mod r: its runs' Horner chains, D_j, then the left comb -> (set of
+    (where, kind) of its adds, where "horner", "comb" or "last", kind
+    "inf" for an operand at infinity, "equal" or "opposite" operands; the
+    sum as a scalar)."""
+    events = set()
+
+    def add(a, b, where):
+        if a == 0 or b == 0:
+            events.add((where, "inf"))
+        elif a == b:
+            events.add((where, "equal"))
+        elif (a + b) % R == 0:
+            events.add((where, "opposite"))
+        return (a + b) % R
+
+    starts = g1_ops.combine_runs(windows, c)
+    runs = len(starts)
+    d = []
+    for j in range(runs):
+        lo, top = starts[j], (starts + [windows])[j + 1] - 1
+        acc = s[top]
+        for w in range(top - 1, lo - 1, -1):
+            acc = add(acc * pow(2, c, R) % R, s[w], "horner")
+        d.append(acc * pow(2, c * lo, R) % R)
+    acc = d[0]
+    for j in range(1, runs):
+        acc = add(acc, d[j], "last" if j == runs - 1 else "comb")
+    return events, acc
+
+
+@pytest.mark.parametrize("c", [4, 8, 12])
+def test_combine_edge_scalars_reach_every_exceptional_add(c):
+    """At 255 bits, `combine_edge_scalars`' three
+    MSMs put an operand at infinity, equal operands and opposite operands
+    into a Horner add, a comb add and the last add, and a whole run at
+    infinity (MSM 0's run G - 2); the schedule's sum is sum_w 2^(c w)
+    s_w. The runs lengthen downwards and the top run holds one or two
+    windows (`combine_runs`)."""
+    windows = num_windows(c, 255)
+    starts = g1_ops.combine_runs(windows, c)
+    assert starts[0] == 0 and 3 <= len(starts) <= g1_ops.COMBINE_UNITS and windows - starts[-1] <= 2
+    lengths = [b - a for a, b in zip(starts, starts[1:] + [windows])]
+    assert lengths == sorted(lengths, reverse=True)
+    scalars = combine_cases.combine_edge_scalars(c, windows, seed=c)
+    events = []
+    for s in scalars:
+        ev, total = _schedule_events(s, c, windows)
+        assert total == sum(k << (c * w) for w, k in enumerate(s)) % R
+        events.append(ev)
+    assert {("horner", "inf"), ("comb", "inf"), ("last", "opposite")} <= events[0]
+    assert {("horner", "opposite"), ("comb", "equal"), ("last", "equal")} <= events[1]
+    assert {("horner", "equal"), ("comb", "opposite"), ("last", "inf")} <= events[2]
+    assert not any(scalars[0][starts[-2] : starts[-1]])
+
+
+def test_kernel_combine_runs_equals_plain_rule(tmp_path):
+    """The launcher's rule of runs (csrc/msm.cu `combine_runs` on its
+    kCombineUnits), built alone by the host's C++ compiler (`$CXX`, as the
+    native tier), gives the run starts `g1_ops.combine_runs` gives for
+    every c in 1..12 and W in 1..260."""
+    src = open(os.path.join(kernels.CSRC, "msm.cu")).read()
+    units = re.search(r"^constexpr int kCombineUnits = (\d+);", src, re.M)
+    rule = re.search(r"^inline int combine_runs\(.*?^}\n", src, re.S | re.M)
+    assert units and rule and int(units[1]) == g1_ops.COMBINE_UNITS
+    prog = tmp_path / "runs.cpp"
+    prog.write_text(
+        f"#include <cstdio>\nconstexpr int kCombineUnits = {units[1]};\n{rule[0]}"
+        "int main() {\n  int lo[kCombineUnits + 1];\n  for (int c = 1; c <= 12; ++c)\n"
+        "    for (int W = 1; W <= 260; ++W) {\n      const int g = combine_runs(W, c, lo);\n"
+        "      std::printf(\"%d %d\", c, W);\n      for (int i = 0; i < g; ++i) std::printf(\" %d\", lo[i]);\n"
+        "      std::printf(\"\\n\");\n    }\n}\n")
+    exe = tmp_path / "runs"
+    subprocess.run([os.environ.get("CXX") or "g++", "-std=c++17", "-O1", str(prog), "-o", str(exe)], check=True)
+    got = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout.splitlines()
+    want = [" ".join(map(str, [c, w] + g1_ops.combine_runs(w, c))) for c in range(1, 13) for w in range(1, 261)]
+    assert got == want
+
+
+def test_window_combine_kernel_refuses_what_it_does_not_take():
+    sums = lb.to_u32_layout(combine_cases.combine_edge_sums(3, 4, seed=5))
     kernels.reset_counts()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.window_combine(sums, 3, 4)
@@ -249,6 +325,95 @@ def test_generic_step_across_ranks_gathers_the_window_sums(points, unsharded, mo
     run(1)
     monkeypatch.setattr(distributed, "all_gather_points", lambda out: torch.stack([out, partner[0]]))
     assert _affine(run(0)) == want[2]
+
+
+SECRET = 0x5EC2E7  # the 4-point dev setup of the batch verification tests
+
+
+def _dev_backend(n, mesh=None):
+    """A CPU backend of the n-point dev setup under SECRET, its table from
+    the host curve."""
+    setup = port_srs.create_dev_setup(n, secret=SECRET)
+    lagrange = g1_ops.lift(lb.as_limb_tensor(setup.lagrange_points), torch.from_numpy(setup.lagrange_valid))
+    table = host_table([HC.to_affine(p) for p in g1_ops.points_to_host(lagrange)], auto_window(n))
+    return TorchBackend(setup, "cpu", fixedbase=table, mesh=mesh)
+
+
+def _three_call_verdict(kzg, commitments, zs, ys, proofs, r_powers):
+    """The batch check as three MSMs (the JAX package's route: `msm` of
+    r^i and of r^i z_i over the proofs, and of r^i and -sum r^i y_i over
+    the commitments and G1), here the host oracle's, and the same pairing
+    check."""
+    proof_aff = [HC.to_affine(p) for p in proofs]
+    lhs = HC.g1_msm(r_powers, proof_aff)
+    proof_z = HC.g1_msm([r * z % R for r, z in zip(r_powers, zs)], proof_aff)
+    neg_y = (-sum(r * y for r, y in zip(r_powers, ys))) % R
+    c_minus_y = HC.g1_msm(r_powers + [neg_y], [HC.to_affine(c) for c in commitments]
+                          + [HC.to_affine(HC.G1_GENERATOR)])
+    return kzg._pairings_verify(HC.point_add(c_minus_y, proof_z), kzg.g2_one, lhs, kzg.g2_s)
+
+
+def test_verify_batch_makes_one_msm_batch_call(monkeypatch):
+    """KZG.verify_batch on a CPU backend with the native tier off (the
+    plain generic MSM: one sort, accumulation, reduce and combine) makes
+    one `msm_batch` call over [proofs, commitments, G1], at the window of
+    its widest row (n + 1 points), and gives the three-call route's
+    verdicts on a valid batch and on two corrupted ones; msm_batch's
+    empty and mismatched calls."""
+    monkeypatch.setenv("LWKZG_NATIVE", "0")
+    n = 4
+    backend = _dev_backend(n)
+    kzg = KZG(backend.setup, backend)
+    calls, windows = [], []
+    batch, combine = backend.msm_batch, dispatch.combine_windows
+    monkeypatch.setattr(backend, "msm_batch", lambda rows, pts: calls.append(len(pts)) or batch(rows, pts))
+    monkeypatch.setattr(dispatch, "combine_windows",
+                        lambda s, c, w: windows.append((c, w)) or combine(s, c, w))
+    rng = random.Random(7)
+    cs, zs, ys, ps = map(list, zip(*(opening(rng, n, SECRET) for _ in range(3))))
+    r = rng.randrange(1, R)
+    r_powers = [pow(r, i, R) for i in range(3)]
+    cases = [(cs, zs, ys, ps), (cs, zs, ys, [ps[1], ps[0], ps[2]]),
+             (cs, zs, [(ys[0] + 1) % R] + ys[1:], ps)]
+    verdicts = []
+    for args in cases:
+        calls.clear()
+        windows.clear()
+        verdicts.append(kzg.verify_batch(*args, r_powers))
+        assert calls == [2 * 3 + 1] and windows == [(auto_window(3 + 1), num_windows(4, 255))]
+        assert verdicts[-1] is _three_call_verdict(kzg, *args, r_powers)
+    assert verdicts == [True, False, False]
+    assert backend.msm_batch([], [None]) == []
+    assert all(HC.is_infinity(p) for p in backend.msm_batch([[], []], []))
+    with pytest.raises(ValueError, match="counts"):
+        backend.msm_batch([[1, 2]], [None])
+
+
+@pytest.mark.parametrize("route", ["device", "mesh", "native"])
+def test_backend_msm_batch_routes(points, monkeypatch, route):
+    """TorchBackend.msm_batch of three rows (32-bit scalars, zeros among
+    them) over 17 points equals the host oracle row by row on each route:
+    the CPU device with the native tier off (one msm_batch_device call: one
+    combine), a (1, 2) CPU mesh above its threshold (one batch_msm call,
+    one combine), and the native tier (no combine)."""
+    affine, _, _ = points
+    n = 4
+    mesh = make_mesh(["cpu"] * 2, data=1, points=2) if route == "mesh" else None
+    backend = _dev_backend(n, mesh)
+    if route != "native":
+        monkeypatch.setenv("LWKZG_NATIVE", "0")
+    combines, batches = [], []
+    combine, batch = dispatch.combine_windows, backend_mod.pmsm.batch_msm
+    monkeypatch.setattr(dispatch, "combine_windows", lambda s, c, w: combines.append(w) or combine(s, c, w))
+    monkeypatch.setattr(backend_mod.pmsm, "batch_msm", lambda *a: batches.append(1) or batch(*a))
+    pts = affine + [_affine(JHC.G1_GENERATOR)]
+    rng = random.Random(17)
+    rows = [[rng.randrange(1 << 32) for _ in pts] for _ in range(3)]
+    rows[1][:8] = [0] * 8
+    got = backend.msm_batch(rows, pts, scalar_bits=32)
+    assert [HC.to_affine(p) for p in got] == [_oracle(row, pts) for row in rows]
+    assert combines == ([] if route == "native" else [num_windows(4, 32)])
+    assert batches == ([1] if route == "mesh" else [])
 
 
 @pytest.mark.slow  # an XLA-on-CPU compile of JAX's generic MSM at this shape

@@ -43,6 +43,7 @@ from lambdaworks_kzg_tpu_torch.models.kzg import KZG
 from lambdaworks_kzg_tpu_torch.ops import backend as backend_module
 
 from .test_torch_prove import N_DEV, dev_contexts
+from .torch_common import opening
 
 PKG = os.path.dirname(os.path.abspath(native.__file__))
 SECRET = 0x1234
@@ -74,20 +75,6 @@ def kzg8():
     return KZG(setup, _Device())
 
 
-def _opening(rng):
-    """(commitment, z, y, proof) of a random degree-7 polynomial under the
-    dev secret, by the host oracle."""
-    coeffs = [rng.randrange(R) for _ in range(8)]
-
-    def p(x):
-        return sum(c * pow(x, i, R) for i, c in enumerate(coeffs)) % R
-
-    z = rng.randrange(R)
-    y = p(z)
-    q = (p(SECRET) - y) * pow(SECRET - z, R - 2, R) % R
-    return HC.point_scalar_mul(HC.G1_GENERATOR, p(SECRET)), z, y, HC.point_scalar_mul(HC.G1_GENERATOR, q)
-
-
 def _non_subgroup_point(x=2):
     while True:
         y = fp_sqrt((x * x % P * x + B_G1) % P)
@@ -99,7 +86,7 @@ def _non_subgroup_point(x=2):
 def test_pairing_matches_oracle(kzg8):
     rng = random.Random(5)
     for trial in range(2):
-        commitment, z, y, proof = _opening(rng)
+        commitment, z, y, proof = opening(rng, 8, SECRET)
         p_minus_y = HC.point_add(commitment, HC.point_neg(HC.point_scalar_mul(HC.G1_GENERATOR, y)))
         x_minus_z = HC.g2_add(kzg8.g2_s, HC.g2_neg(HC.g2_scalar_mul(HC.G2_GENERATOR, z)))
         for b2, want in ((x_minus_z, True), (kzg8.g2_s, False)):
@@ -147,7 +134,7 @@ def test_scalar_muls_match_oracle():
 
 def test_kzg_verify_uses_native_and_agrees(kzg8, monkeypatch):
     rng = random.Random(7)
-    commitment, z, y, proof = _opening(rng)
+    commitment, z, y, proof = opening(rng, 8, SECRET)
     calls = {}
     for name in ("g1_scalar_mul_affine", "g2_scalar_mul_affine", "pairings_verify_affine"):
         def spy(*args, _fn=getattr(native, name), _name=name):

@@ -396,8 +396,8 @@ def test_device_pairing_routes_both_verify_checks(monkeypatch, mainnet_setup):
         device = torch.device("cpu")
 
         @staticmethod
-        def msm(scalars, points):
-            return HC.g1_msm(scalars, points)
+        def msm_batch(rows, points):
+            return [HC.g1_msm(row, points) for row in rows]
 
     kzg = port_kzg.KZG(mainnet_setup, Backend(), KZGConfig(device_pairing=True))
     g = HC.G1_GENERATOR
@@ -455,7 +455,7 @@ def _route(monkeypatch, config, device):
         pass
 
     Backend.device = torch.device(device)
-    Backend.msm = staticmethod(lambda scalars, points: HC.INFINITY)
+    Backend.msm_batch = staticmethod(lambda rows, points: [HC.INFINITY] * len(rows))
     kzg = port_kzg.KZG(Setup(), Backend(), config)
     g = HC.G1_GENERATOR
     assert kzg.verify(g, 0, 1, (1, 1, 0)) is True

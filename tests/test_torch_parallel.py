@@ -58,7 +58,8 @@ from lambdaworks_kzg_tpu_torch.parallel import msm as pmsm
 from lambdaworks_kzg_tpu_torch.parallel.mesh import Mesh
 from lambdaworks_kzg_tpu_torch.parallel.ntt import sharded_ntt_ints
 
-from .test_torch_prove import N_DEV, _host_table, dev_contexts
+from .test_torch_prove import N_DEV, dev_contexts
+from .torch_common import host_table
 
 SHAPES = [(1, 1), (2, 4), (1, 8)]
 C_BITS = 3  # 85 windows at 255 bits: not divisible by 4 or 8, and the cheapest plain reduce
@@ -86,7 +87,7 @@ def _oracle_tables():
         key = (points16.numpy().tobytes(), valid.numpy().tobytes(), c)
         if key not in built:
             jac = g1_ops.points_to_host(g1_ops.lift(points16, valid))
-            built[key] = _host_table([(x, y) if z else None for x, y, z in jac], c)
+            built[key] = host_table([(x, y) if z else None for x, y, z in jac], c)
         return built[key]
 
     with pytest.MonkeyPatch.context() as mp:

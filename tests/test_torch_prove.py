@@ -33,13 +33,15 @@ from lambdaworks_kzg_tpu.models.eip4844 import KZGError as JaxKZGError
 from lambdaworks_kzg_tpu.models.kzg import HostBackend
 from lambdaworks_kzg_tpu.ops import g1_ops as JG
 from lambdaworks_kzg_tpu_torch import EIP4844Context, KZGError, convert
-from lambdaworks_kzg_tpu_torch.constants import R, num_windows
+from lambdaworks_kzg_tpu_torch.constants import R
 from lambdaworks_kzg_tpu_torch.host import curve as HC, fft
 from lambdaworks_kzg_tpu_torch.models import srs
-from lambdaworks_kzg_tpu_torch.ops import fr_poly, g1_ops, limbs as lb
+from lambdaworks_kzg_tpu_torch.ops import fr_poly, limbs as lb
 from lambdaworks_kzg_tpu_torch.ops.backend import TorchBackend, auto_window
 from lambdaworks_kzg_tpu_torch.ops.field_ops import FR
 from lambdaworks_kzg_tpu_torch.utils.yaml_vectors import load_case
+
+from .torch_common import host_table
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VECTORS = os.path.join(REPO, "testdata", "consensus")
@@ -63,22 +65,6 @@ def _fr(v: int) -> bytes:
     return v.to_bytes(32, "little")
 
 
-def _host_table(lagrange_aff, c):
-    """The fixed-base table from the host oracle ([2^(c w)] P_i by Python
-    ints, ~1 s at N = 32), in place of the plain build on the CPU (~5 s),
-    which tests/test_torch_commit.py and tests/test_torch_msm.py cover."""
-    cols = []
-    for pt in lagrange_aff:
-        cur, col = HC.from_affine(pt), []
-        for _ in range(num_windows(c)):
-            col.append(HC.to_affine(cur))
-            for _ in range(c):
-                cur = HC.point_double(cur)
-        cols.append(col)
-    table, valid = g1_ops.make_points_host([col[w] for w in range(num_windows(c)) for col in cols])
-    return lb.as_limb_tensor(table), torch.from_numpy(valid)
-
-
 def dev_contexts():
     """(JAX host-backend context, port CPU context) on one 32-point setup,
     carried across whole (basis, G1 and G2 powers)."""
@@ -86,7 +72,7 @@ def dev_contexts():
     points, valid = JG.make_points_host(jax_setup.g1_lagrange_brp)
     setup = convert.setup_from_numpy(np.asarray(points), np.asarray(valid), "dev-32",
                                      jax_setup.g2_monomial, jax_setup.g1_monomial)
-    fixedbase = _host_table(jax_setup.g1_lagrange_brp, auto_window(N_DEV))
+    fixedbase = host_table(jax_setup.g1_lagrange_brp, auto_window(N_DEV))
     backend = TorchBackend(setup, "cpu", fixedbase=fixedbase)
     return JaxContext(jax_setup, backend=HostBackend(jax_setup)), EIP4844Context(setup, backend=backend)
 
