@@ -253,7 +253,13 @@ Phases, each printed with its seconds:
      the host pairing tier), zero findings;
      gen_corpus.py on the card, and the combined C target of
      fuzz_capi.c (replay mode) on the generated seeds and a stride of the
-     vector seeds with LWKZG_BACKEND=device, no internal error.
+     vector seeds with LWKZG_BACKEND=device, no internal error;
+ 17. the bench (lambdaworks_kzg_tpu_torch/bench.py): `python3 -m
+     lambdaworks_kzg_tpu_torch.bench --reps 3` in a process of its own on
+     phase 2's _build/, killed after 240 s; it must exit 0 with one JSON
+     line on this card, _build/ warm, BASELINE.json's four configurations
+     that one card runs `ok`, every time and rate finite and positive, and
+     each kernel of its path launched; the line is logged.
 Launch counts are zeroed just before each path and read just after it:
 the conversion (phase 3b), the commit path (phases 4 to 6), the verify
 path (phase 8, after its seeded blobs are committed and proved), the
@@ -262,8 +268,9 @@ from its first proof to its last), the mesh path (phase 11), the C
 ABI's path (phase 12, less the launches of its Python context's timed
 calls), the distributed path (phase 14, in each rank from its first
 context to its last call, summed over the ranks and worlds), the generic
-MSM path (phase 15, each shape's msm_device call) and the fuzz path
-(phase 16, the differential in this process); phase
+MSM path (phase 15, each shape's msm_device call), the fuzz path
+(phase 16, the differential in this process) and the bench's path
+(phase 17, the whole run, counted in the bench's process); phase
 3b checks the conversion's exact launches, phase 4 that the table build
 made one table launch and no g1_dbl launch, phases 6 and 9 each call's
 launches (the MSM kernels once, and a proof's Fr kernels), and the Fr
@@ -272,7 +279,7 @@ and batch, 8b none of the pairing kernels, phases 11 and 12 each call's,
 phase 14 that the path launched each of DIST_KERNELS, phase 15 one of
 each of GENERIC_KERNELS per shape.
 The line before the last is {"kernels": [...]}, with each kernel's
-launches on the ten paths; the last is {"ok": true, "device": {...}}. Any
+launches on the eleven paths; the last is {"ok": true, "device": {...}}. Any
 failure ends the run with a non-zero exit and without those lines.
 """
 
@@ -297,12 +304,13 @@ FIXEDBASE = os.path.join(HERE, "cache", "fixedbase_62bcf72bba2b37b8_c8.npz")
 VECTORS = os.path.join(HERE, "testdata", "consensus", "blob_to_kzg_commitment", "small")
 
 sys.path.insert(0, HERE)
-try:  # the H100's peak rates and the IMADs of an Fp product and a point op
+try:  # the H100's peak rates, the IMADs of an Fp product and a point op, the timers
     from lambdaworks_kzg_tpu_torch.ops.msm import chunk_length  # the MSM's L for a batch
     from lambdaworks_kzg_tpu_torch.utils.profiling import (FP_OPS, HBM_BYTES_PER_S, IMAD_PER_FP_MUL,
                                                            IMAD_PER_FP_SQR, IMAD_PER_FR_MUL,
                                                            IMAD_PER_FR_REDC, IMAD_PER_FR_SQR,
-                                                           IMAD_PER_S, card_line)
+                                                           IMAD_PER_S, card_line, device_work,
+                                                           events_ms, host_ms, time_ms)
 except ImportError as e:
     sys.exit(f"chip_smoke: {PKG}/ must sit beside this script ({e})")
 FP_BYTES = 48
@@ -648,6 +656,11 @@ GENERIC_MSM_SHAPES = ((1 << 16, 8, 255), (1 << 20, 12, 255), (1 << 20, 12, 248))
 FUZZ_ITERS, FUZZ_SEED = 5, 4844  # phase 16's differential iterations
 FUZZ_VECTOR_STRIDE = 16  # phase 16 replays every 16th consensus-vector seed and every generated one
 FUZZ_C_TIMEOUT_S = 300
+BENCH_REPS, BENCH_TIMEOUT_S = 3, 240  # phase 17's call of the bench
+# the bench's path: the degree-4 conversion, commits, proofs, verifications, generic MSMs
+BENCH_KERNELS = ("g1_fixedbase_table", "g1_bucket_accumulate", "g1_bucket_reduce", "g1_window_combine",
+                 "g1_decompress", "g1_subgroup_mask", "g1_scalar_mul", "g1_fft_stage",
+                 "pairing_miller_loop", "pairing_final_exp", "fr_evaluate", "fr_quotient")
 CLIENT_SEED = 4849  # kzg_client's blob
 
 
@@ -798,7 +811,7 @@ def launch_counts() -> dict:
     """Each kernel's launch count, by name."""
     from lambdaworks_kzg_tpu_torch.ops import kernels
 
-    return {k.name: k.launches for k in kernels.ALL}
+    return kernels.counts()
 
 
 def check_verify_batch_launches(what: str, before: dict, extra=None) -> None:
@@ -921,39 +934,6 @@ def timed_call(fn, *args, want=MSM_LAUNCHES):
     torch.cuda.synchronize()
     expect_launches("one call", before, want)
     return out, start.elapsed_time(end)
-
-
-def device_work(fn) -> dict:
-    """fn() under torch.profiler, recorded on its second call: the first
-    is the schedule's warm-up step, which readies the card's tracing (a
-    cold window has been seen to miss its first kernel and copy) ->
-    {"kernels": launches, "copies": copies and memsets, "busy_ms": their
-    device time, "names": the kernels' names, "ms_by_name": each kernel's
-    and copy's device time}, or None where the profiler saw no device
-    work."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    out = {"kernels": 0, "copies": 0, "busy_ms": 0.0, "names": [], "ms_by_name": {}}
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        copy = ev.key.startswith(("Memcpy", "Memset"))
-        out["copies" if copy else "kernels"] += ev.count
-        out["busy_ms"] += us / 1e3
-        out["ms_by_name"][ev.key] = out["ms_by_name"].get(ev.key, 0.0) + us / 1e3
-        if not copy:
-            out["names"].append(ev.key)
-    return out if out["kernels"] else None
 
 
 def host_syncs(fn) -> int:
@@ -2099,21 +2079,6 @@ def mesh_verify_launches(mesh, n_blobs: int) -> dict:
     return want
 
 
-def events_ms(fn):
-    """fn() between two CUDA events on the lead card -> (result, ms); the
-    results' transfer to the host ends every call, so the end event
-    follows every shard's work."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
 def check_mesh(setup, dev, commit_set, prove_set, verify_batches) -> dict:
     """Phase 11: the port's multi-device tier (parallel/) on logical meshes
     over `dev` four times, (1, 1), (2, 2) and (1, 4), and on a mesh of every
@@ -2543,25 +2508,14 @@ def capi_phase(ctx, card: str):
     return results, launches
 
 
-def host_ms(fn):
-    """fn() -> (result, ms on the host clock, the card synchronized)."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
 def in_turns(ways: dict, reps: int) -> tuple:
-    """Each of ways' calls reps times, in turns -> ({way: the first
+    """Each of ways' calls (one `host_ms` each) reps times, in turns -> ({way: the first
     result}, {way: {"median_ms", "ms"}}); raises unless every call of
     every way gives the same result."""
     results, times = {}, {way: [] for way in ways}
     for _ in range(reps):
         for way, fn in ways.items():
-            out, ms = fn()
+            out, (ms,) = fn()
             times[way].append(ms)
             if results.setdefault(way, out) != out:
                 raise AssertionError(f"{way}: a repeated call gave another result")
@@ -2696,18 +2650,18 @@ def rank_worker(coord: str, world: int, rank: int, job_path: str) -> int:
     kernels.reset_counts()  # this rank's distributed path starts here
     points_mesh = distributed.global_mesh(data=1, points=world)
     data_mesh = distributed.global_mesh()
-    (ctx_points, times["context_points_ms"]) = host_ms(lambda: EIP4844Context(setup, mesh=points_mesh))
-    (ctx_data, times["context_data_ms"]) = host_ms(lambda: EIP4844Context(setup, mesh=data_mesh))
-    single, times["commit_points_ms"] = host_ms(lambda: ctx_points.blob_to_kzg_commitment(blobs[0]))
-    batch, times["commit_batch6_ms"] = host_ms(lambda: ctx_data.blob_to_kzg_commitment_batch(blobs))
-    ok, times["verify_batch6_true_ms"] = host_ms(
+    ctx_points, (times["context_points_ms"],) = host_ms(lambda: EIP4844Context(setup, mesh=points_mesh))
+    ctx_data, (times["context_data_ms"],) = host_ms(lambda: EIP4844Context(setup, mesh=data_mesh))
+    single, (times["commit_points_ms"],) = host_ms(lambda: ctx_points.blob_to_kzg_commitment(blobs[0]))
+    batch, (times["commit_batch6_ms"],) = host_ms(lambda: ctx_data.blob_to_kzg_commitment_batch(blobs))
+    ok, (times["verify_batch6_true_ms"],) = host_ms(
         lambda: ctx_data.verify_blob_kzg_proof_batch(vblobs, vcs, vps))
-    bad, times["verify_batch6_false_ms"] = host_ms(
+    bad, (times["verify_batch6_false_ms"],) = host_ms(
         lambda: ctx_data.verify_blob_kzg_proof_batch(vblobs, vcs, [vps[1], vps[0]] + vps[2:]))
     ntt_job = job["ntt"]
     for axis, mesh in (("data", data_mesh), ("points", points_mesh)):
         for direction in ("forward", "inverse"):
-            got, times[f"ntt_{axis}_{direction}_ms"] = host_ms(
+            got, (times[f"ntt_{axis}_{direction}_ms"],) = host_ms(
                 lambda: sharded_ntt_ints(mesh, axis, ntt_job["values"], direction == "inverse"))
             if got != ntt_job[direction]:
                 raise AssertionError(f"rank {rank} of {world}: the {direction} NTT with the {axis} "
@@ -2954,24 +2908,50 @@ def fuzz_phase(card: str) -> tuple:
     return out, launches
 
 
-def time_ms(fn, reps: int, warm: int = 2) -> float:
-    """Device ms per call. The launches queue up behind a ~20 ms spin on
-    the card, so a kernel shorter than its wrapper's host cost is timed
-    on the card's clock, not the host's."""
-    import torch
+def bench_phase(device: dict, card: str) -> tuple:
+    """Phase 17: `python3 -m lambdaworks_kzg_tpu_torch.bench --reps
+    BENCH_REPS` in a process of its own (killed after BENCH_TIMEOUT_S), on
+    phase 2's `_build/`. It must exit 0 with its last stdout line one JSON
+    object without `error`, on this card (`device`), with `_build/` warm,
+    every block of BASELINE.json's configurations `ok` (the sweep not run)
+    and every time, rate and ratio finite and positive (`bench.timed_values`),
+    each of BENCH_KERNELS launched. -> (the line, the bench's launches over
+    its run)."""
+    import math
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)  # clock cycles
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from lambdaworks_kzg_tpu_torch import bench
+
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench", "--reps", str(BENCH_REPS)], cwd=HERE,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    for text in proc.stderr.splitlines():
+        log("  " + text)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the bench exited {proc.returncode}; its last line: "
+                             f"{lines[-1] if lines else None}")
+    line = json.loads(lines[-1])
+    log(f"  {json.dumps(line)}")
+    if "error" in line:
+        raise AssertionError(f"the bench's line has an error: {line['error']}")
+    if line.get("device") != device or line.get("card") != card:
+        raise AssertionError(f"the bench ran on {line.get('device')} ({line.get('card')}), not {device}")
+    if line.get("build_warm") is not True:
+        raise AssertionError("the bench built its kernels again: phase 2's _build/ was not warm")
+    configs = line["configs"]
+    not_ok = [name for name in bench.CONFIGS if configs[name]["ok"] is not True]
+    if not_ok or configs[bench.SWEEP]["run"] is not False:
+        raise AssertionError(f"the bench's configurations not ok: {not_ok}; the sweep {configs[bench.SWEEP]}")
+    bad = [key for key, v in bench.timed_values(line)
+           if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"the bench's line: not a finite positive number: {bad}")
+    missing = [name for name in BENCH_KERNELS if line["launches"].get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"not launched on the bench's path: {missing}")
+    log(f"  the bench: {line['value']:.3f} ms/blob, {line['msm_2e20_pps']:.0f} points/s at 2^20 "
+        f"(c = {line['msm_2e20_c']}), batch of 64 {configs[bench.CONFIGS[3]]['ms_per_blob']:.3f} ms "
+        f"a blob, {BENCH_REPS} reps ({card})")
+    return line, line["launches"]
 
 
 def run() -> None:
@@ -2996,6 +2976,7 @@ def run() -> None:
     dev = torch.device("cuda", 0)
     results = {}
 
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     with Phase("1 card"):
         card = card_line()
         log(card)
@@ -3724,13 +3705,16 @@ def run() -> None:
             entry["launches_by_path"]["fuzz"] = n
             entry["launches"] += n
 
+    with Phase("17 bench"):
+        results["bench"], bench_launches = bench_phase(device, card)
+        for entry in entries:
+            n = bench_launches.get(entry["name"], 0)
+            entry["launches_by_path"]["bench"] = n
+            entry["launches"] += n
+
     log(json.dumps({"end_to_end": results, "card": card}))
     log(json.dumps({"kernels": entries}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    log(json.dumps({"ok": True, "device": device}))
 
 
 def main() -> int:

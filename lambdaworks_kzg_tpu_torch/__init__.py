@@ -1,8 +1,8 @@
 """lambdaworks_kzg_tpu_torch: the PyTorch + CUDA (Hopper) port of
 lambdaworks_kzg_tpu. EIP4844Context serves the seven EIP-4844 entry
 points and the batched commit and proof APIs: commitments and proofs
-run on the card, through the Fr evaluation and quotient as PyTorch ops
-and the fixed-base MSM on hand-written CUDA kernels (ops/kernels.py);
+run on the card, through the Fr evaluation and quotient and the
+fixed-base MSM on hand-written CUDA kernels (ops/kernels.py);
 verification runs its pairing check on the card through two more
 kernels (on a CPU context, or with KZGConfig(device_pairing=False), on
 the host), with batch verification's point decompression and linear
@@ -14,7 +14,9 @@ lambdaworks_kzg_tpu_torch.parallel: EIP4844Context(setup, mesh=make_mesh())
 the host's cards, and the NTT runs sharded too (parallel.ntt.sharded_ntt).
 The C ABI of c-kzg-4844 (`capi/`: `c_kzg_4844.h`, `shim.c`, built by
 `capi.build()`) serves the same entry points to C callers through
-`capi_adapter`; LWKZG_BACKEND=host puts its contexts on the CPU."""
+`capi_adapter`; LWKZG_BACKEND=host puts its contexts on the CPU.
+`python3 -m lambdaworks_kzg_tpu_torch.bench` prints one JSON line of the
+port's numbers on the card (the counterpart of the JAX repository's `bench.py`)."""
 
 from . import parallel
 from .constants import (

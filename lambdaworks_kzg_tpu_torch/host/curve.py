@@ -1,10 +1,16 @@
-"""BLS12-381 G1 and G2 over Python ints: group law, compression, MSM oracle.
+"""BLS12-381 G1 and G2 over Python ints: group law, compression, two G1 MSMs.
 
 Points are Jacobian (X, Y, Z) with Z == 0 meaning infinity; affine
 points are (x, y) or None for infinity. G1 coordinates are ints, G2
 coordinates Fp2 pairs (c0, c1). One Jacobian group law serves both,
 over the coordinate field's operations (`FP_OPS`, `FP2_OPS`); the G1
 names take no field argument, the G2 names start with `g2_`.
+
+The two G1 MSMs: `g1_msm`, plain double-and-add point by point, is the
+port's tests' independent oracle (it shares no bucket or window code
+with the card's MSMs); `g1_pippenger` is the JAX package's host
+Pippenger (`lambdaworks_kzg_tpu/host/curve.py` `g1_msm`, window 8, mixed
+adds into buckets), the bench's `baseline_ms`.
 """
 
 from dataclasses import dataclass
@@ -102,6 +108,33 @@ def _add(f: FieldOps, p1, p2):
     S1J = mul(S1, J)
     Y3 = sub(mul(rr, sub(V, X3)), add(S1J, S1J))
     Z3 = mul(sub(sub(sqr(add(Z1, Z2)), Z1Z1), Z2Z2), H)
+    return (X3, Y3, Z3)
+
+
+def _add_mixed(f: FieldOps, p1, p2_affine):
+    """p1 Jacobian + p2 affine (Z2 == 1), p2_affine None for infinity."""
+    if p2_affine is None:
+        return p1
+    if _is_infinity(f, p1):
+        return (p2_affine[0], p2_affine[1], f.one)
+    X1, Y1, Z1 = p1
+    X2, Y2 = p2_affine
+    add, sub, mul, sqr = f.add, f.sub, f.mul, f.sqr
+    Z1Z1 = sqr(Z1)
+    U2, S2 = mul(X2, Z1Z1), mul(mul(Y2, Z1), Z1Z1)
+    if X1 == U2:
+        return _double(f, p1) if Y1 == S2 else _infinity(f)
+    H = sub(U2, X1)
+    HH = sqr(H)
+    I = add(add(HH, HH), add(HH, HH))
+    J = mul(H, I)
+    d = sub(S2, Y1)
+    rr = add(d, d)
+    V = mul(X1, I)
+    X3 = sub(sub(sqr(rr), J), add(V, V))
+    Y1J = mul(Y1, J)
+    Y3 = sub(mul(rr, sub(V, X3)), add(Y1J, Y1J))
+    Z3 = sub(sub(sqr(add(Z1, H)), Z1Z1), HH)
     return (X3, Y3, Z3)
 
 
@@ -216,6 +249,39 @@ def g1_msm(scalars, points_affine):
         if aff is not None and k % R:
             acc = point_add(acc, point_scalar_mul(from_affine(aff), k))
     return acc
+
+
+def g1_pippenger(scalars, points_affine, window_bits: int = 8):
+    """sum_i scalars[i] P_i by the JAX package's host Pippenger: for each
+    window of the scalars mod r, the points mixed-added into 2^window_bits
+    - 1 buckets by digit and the buckets summed by a running sum, then the
+    window sums combined by Horner's rule."""
+    if len(scalars) != len(points_affine):
+        raise ValueError("scalar and point counts differ")
+    num_windows = (255 + window_bits - 1) // window_bits
+    mask = (1 << window_bits) - 1
+    ks = [k % R for k in scalars]
+    window_sums = []
+    for w in range(num_windows):
+        shift = w * window_bits
+        buckets = [None] * (mask + 1)
+        for k, aff in zip(ks, points_affine):
+            digit = (k >> shift) & mask
+            if aff is not None and digit:
+                acc = buckets[digit]
+                buckets[digit] = from_affine(aff) if acc is None else _add_mixed(FP_OPS, acc, aff)
+        running = total = INFINITY
+        for digit in range(mask, 0, -1):
+            if buckets[digit] is not None:
+                running = point_add(running, buckets[digit])
+            total = point_add(total, running)
+        window_sums.append(total)
+    result = INFINITY
+    for total in reversed(window_sums):
+        for _ in range(window_bits):
+            result = point_double(result)
+        result = point_add(result, total)
+    return result
 
 
 # -- G2 ------------------------------------------------------------------------------

@@ -5,8 +5,8 @@ the setup loaders are in `models/srs.py`) and the batched
 `blob_to_kzg_commitment_batch` and `compute_blob_kzg_proof_batch`.
 
 Commitments and proofs run on the context's device: the Fr evaluation
-and quotient as PyTorch ops, the fixed-base MSM on the Hopper kernels
-(`ops/backend.py`); on a mesh (`mesh=`, or LWKZG_MESH_SHAPE=DxP) every
+and quotient on the Hopper kernels of `csrc/fr_poly.cu` (`ops/fr_poly.py`),
+the fixed-base MSM on those of `csrc/msm.cu` (`ops/backend.py`); on a mesh (`mesh=`, or LWKZG_MESH_SHAPE=DxP) every
 MSM is sharded over its devices and the rest runs on its lead device.
 Verification runs its pairing check on the context's device when that
 is a card, and on the host tier when it is the CPU (`models/kzg.py`);

@@ -732,3 +732,8 @@ fr_check = _Kernel("fr_check", "lambdaworks_kzg_tpu/ops/field_ops.py:164", _fr_c
 def reset_counts() -> None:
     for k in ALL:
         k.launches = 0
+
+
+def counts() -> dict:
+    """Each kernel's launches since the last `reset_counts`, by name."""
+    return {k.name: k.launches for k in ALL}

@@ -11,6 +11,14 @@ last column names the speed of light of JAX's chip. On the CPU both
 timers take `time.perf_counter` around plain calls, which says how fast
 the plain versions are there and nothing of the card.
 
+The readers that `chip_smoke.py`, the bench (`bench.py`) and the scripts
+time with: `host_ms` (the host clock around whole calls, the card
+synchronized), `events_ms` (CUDA events around one call), `time_ms`
+(CUDA events around many launches queued behind a spin) and
+`device_work` (kernels, copies and device busy time under
+torch.profiler). The last three are the card's numbers only: without a
+card they raise rather than time the CPU.
+
 Print the table on the card, after the card's name and power limit:
 
     python -m lambdaworks_kzg_tpu_torch.utils.profiling
@@ -19,7 +27,7 @@ Print the table on the card, after the card's name and power limit:
 import subprocess
 import time
 from dataclasses import dataclass
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
@@ -61,6 +69,97 @@ def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
+
+
+def _need_card(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} reads the card's clock: CUDA is not available")
+
+
+def host_ms(fn: Callable[[], object], reps: int = 1, device="cuda") -> tuple:
+    """`reps` calls of fn() on the host clock -> (the last call's result,
+    [ms of each call]). On a card each call runs from a synchronize to a
+    synchronize, so its time holds all the device work it queued."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        _need_card("host_ms on a card")
+    out, times = None, []
+    for _ in range(reps):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def events_ms(fn: Callable[[], object]) -> tuple:
+    """fn() between two CUDA events on the current card -> (result, ms);
+    the end event waits for everything fn queued on the current stream
+    (a call that copies its results to the host ends after every shard's
+    work)."""
+    _need_card("events_ms")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def time_ms(fn: Callable[[], object], reps: int, warm: int = 2) -> float:
+    """Device ms per call. The launches queue up behind a ~20 ms spin on
+    the card, so a kernel shorter than its wrapper's host cost is timed
+    on the card's clock, not the host's."""
+    _need_card("time_ms")
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)  # clock cycles
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_work(fn: Callable[[], object]) -> Optional[dict]:
+    """fn() under torch.profiler, recorded on its second call: the first
+    is the schedule's warm-up step, which readies the card's tracing (a
+    cold window has been seen to miss its first kernel and copy) ->
+    {"kernels": launches, "copies": copies and memsets, "busy_ms": their
+    device time, "names": the kernels' names, "ms_by_name": each kernel's
+    and copy's device time}, or None where the profiler saw no device
+    work."""
+    _need_card("device_work")
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {"kernels": 0, "copies": 0, "busy_ms": 0.0, "names": [], "ms_by_name": {}}
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        copy = ev.key.startswith(("Memcpy", "Memset"))
+        out["copies" if copy else "kernels"] += ev.count
+        out["busy_ms"] += us / 1e3
+        out["ms_by_name"][ev.key] = out["ms_by_name"].get(ev.key, 0.0) + us / 1e3
+        if not copy:
+            out["names"].append(ev.key)
+    return out if out["kernels"] else None
 
 
 def time_pipelined(fn: Callable[[], object], iters: int = 10, device="cuda") -> float:

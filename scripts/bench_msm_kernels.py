@@ -28,6 +28,7 @@ doubled (Z != 1), all finite; it is timed on the tree's own schedule.
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -38,21 +39,18 @@ FIXEDBASE = os.path.join("cache", "fixedbase_62bcf72bba2b37b8_c8.npz")
 C = 8
 
 
-def time_ms(fn, reps: int, warm: int = 2) -> float:
-    import torch
+def repo_profiling():
+    """This repository's `utils/profiling.py`, loaded by its path without
+    importing the package: the timed tree (--root) may be older and lack
+    its `time_ms`, and its own package is imported afresh after this."""
+    path = os.path.join(HERE, "lambdaworks_kzg_tpu_torch", "utils", "profiling.py")
+    spec = importlib.util.spec_from_file_location("repo_profiling", path)
+    profiling = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profiling)
+    return profiling
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)  # clock cycles
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+
+time_ms = repo_profiling().time_ms
 
 
 def main() -> int:

@@ -28,8 +28,8 @@ process of its own. After a warm-up it measures:
     `TorchBackend.open_scalars` runs it (`FrDomain.open_mont`): CUDA
     events around it after a synchronize (`fr_ms`, the host's enqueue
     included), and under torch.profiler (kernels, copies, device busy),
-    both read with chip_smoke.py's `events_ms` and `device_work` from
-    this repository, whichever tree is timed;
+    both read with `events_ms` and `device_work` of this repository's
+    `utils/profiling.py`, whichever tree is timed;
   - where the tree's `FrDomain` has `z_table`, that table's host time
     alone (build and transfer, to a synchronize);
   - the Fr part of a proof at z = w_1 as the tree's `FrDomain.quotient`
@@ -45,32 +45,19 @@ import random
 import statistics
 import subprocess
 import sys
-import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def smoke_readers():
-    """(device_work, events_ms) of this repository's chip_smoke.py. Loading
-    it imports this tree's package and puts the repository first on the
-    path; both are undone, so that the timed tree's package is imported
-    afresh after it."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    for name in [m for m in sys.modules if m.split(".")[0] == "lambdaworks_kzg_tpu_torch"]:
-        del sys.modules[name]
-    sys.path.remove(HERE)
-    return smoke.device_work, smoke.events_ms
-
-
-def host_ms(fn, reps: int) -> list:
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return times
+def repo_profiling():
+    """This repository's `utils/profiling.py`, loaded by its path without
+    importing the package: the timed tree (--root) may be older and lack
+    the readers, and its own package is imported afresh after this."""
+    path = os.path.join(HERE, "lambdaworks_kzg_tpu_torch", "utils", "profiling.py")
+    spec = importlib.util.spec_from_file_location("repo_profiling", path)
+    profiling = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profiling)
+    return profiling
 
 
 def main() -> int:
@@ -79,7 +66,12 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=10)
     args = parser.parse_args()
     root_dir = os.path.abspath(args.root)
-    device_work, events_ms = smoke_readers()
+    profiling = repo_profiling()
+    device_work, events_ms = profiling.device_work, profiling.events_ms
+
+    def host_ms(fn, reps):
+        return profiling.host_ms(fn, reps)[1]
+
     sys.path.insert(0, root_dir)
     import torch
 

@@ -42,10 +42,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    from chip_smoke import ptxas_report, time_ms
+    from chip_smoke import ptxas_report
     from lambdaworks_kzg_tpu_torch.host import curve as HC
     from lambdaworks_kzg_tpu_torch.ops import kernels, limbs as lb, pairing_ops
     from lambdaworks_kzg_tpu_torch.ops import pairing_levels as PL
+    from lambdaworks_kzg_tpu_torch.utils.profiling import time_ms
 
     info = kernels.build()
     out = {"card": card, "pairs": 2, "ptxas": {}}

@@ -260,7 +260,7 @@ for name in ("ops.ntt", "ops.fp2_ops", "ops.tower_ops", "ops.g2_ops", "ops.pairi
              "utils.blob", "utils.config", "parallel", "parallel.mesh", "parallel.msm",
              "parallel.ntt", "capi_adapter", "capi", "native", "parallel.distributed",
              "utils.profiling", "utils.build", "fuzz", "fuzz.fuzz_differential",
-             "fuzz.gen_corpus", "utils.yaml_vectors"):
+             "fuzz.gen_corpus", "utils.yaml_vectors", "bench"):
     assert pkg.__name__ + "." + name in sys.modules, name
 print("ok")
 """
